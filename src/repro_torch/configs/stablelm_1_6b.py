@@ -1,0 +1,10 @@
+"""stablelm-2-1.6b [dense] — hf:stabilityai/stablelm-2-1_6b (unverified tier).
+24L d=2048 32H (kv=32) ff=5632 vocab=100352; LayerNorm, partial rotary 25%."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="stablelm-1.6b", family="dense",
+    n_layers=24, d_model=2048, n_heads=32, n_kv_heads=32, d_ff=5632,
+    vocab=100_352, norm="layernorm", activation="silu",
+    rope_pct=0.25, rope_theta=10_000.0,
+)

@@ -1,0 +1,183 @@
+"""Transformer building blocks for decoder-only attention models: norms, RoPE,
+GQA attention (train/prefill + cached decode), MLP, embeddings.
+
+Counterpart of ``repro.models.layers`` over plain parameter dicts in the same
+layout. Matrix products compute in fp32 (:func:`dot`, like the reference's
+``preferred_element_type=f32``) and cast where the reference casts. GQA is
+native: K/V tensors and caches keep ``n_kv_heads`` heads. The KV cache is
+updated in place (the reference returns a new one).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ops import attention as attention_op
+from repro_torch.models.module import ParamDef as PD
+
+F32 = torch.float32
+
+
+def dot(x, w, out_dtype=None):
+    """x @ w in fp32 (bf16 products are exact in fp32); cast if asked."""
+    y = torch.matmul(x.to(F32), w.to(F32))
+    return y if out_dtype is None else y.to(out_dtype)
+
+
+# ----------------------------------------------------------------- norms
+def norm_defs(cfg):
+    d = cfg.d_model
+    if cfg.norm == "layernorm":
+        return {"scale": PD((d,), "ones", F32), "bias": PD((d,), "zeros", F32)}
+    return {"scale": PD((d,), "ones", F32)}
+
+
+def apply_norm(p, x, cfg, eps=1e-5):
+    xf = x.to(F32)
+    if "bias" in p:  # layernorm
+        mu = xf.mean(-1, keepdim=True)
+        var = (xf - mu).square().mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    else:            # rmsnorm
+        ms = xf.square().mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + eps) * p["scale"]
+    return y.to(x.dtype)
+
+
+# ----------------------------------------------------------------- RoPE
+def rope(x, positions, theta: float, pct: float = 1.0):
+    """Rotary embedding on the leading `pct` fraction of head_dim
+    (non-interleaved halves). x: (..., S, H, D); positions: (..., S) int."""
+    d = x.shape[-1]
+    dr = int(d * pct)
+    if dr == 0:
+        return x
+    dr -= dr % 2
+    xr, xp = x[..., :dr], x[..., dr:]
+    half = dr // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=F32, device=x.device) / half)
+    ang = positions.to(F32)[..., None, None] * freqs        # (..., S, 1, half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = xr[..., :half], xr[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    return torch.cat([out.to(x.dtype), xp], -1)
+
+
+# ----------------------------------------------------------------- attention
+def attn_defs(cfg):
+    d, h, hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {
+        "wq": PD((d, h * hd)),
+        "wk": PD((d, hk * hd)),
+        "wv": PD((d, hk * hd)),
+        "wo": PD((h * hd, d), "scaled"),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = PD((h * hd,), "zeros")
+        p["bk"] = PD((hk * hd,), "zeros")
+        p["bv"] = PD((hk * hd,), "zeros")
+    return p
+
+
+def _project_qkv(p, x, cfg, positions):
+    hd = cfg.head_dim
+    q, k, v = dot(x, p["wq"]), dot(x, p["wk"]), dot(x, p["wv"])
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    h, hk = q.shape[-1] // hd, k.shape[-1] // hd
+    q = q.reshape(x.shape[:-1] + (h, hd)).to(cfg.dtype)
+    k = k.reshape(x.shape[:-1] + (hk, hd)).to(cfg.dtype)
+    v = v.reshape(x.shape[:-1] + (hk, hd)).to(cfg.dtype)
+    if cfg.rope_pct > 0:
+        q = rope(q, positions, cfg.rope_theta, cfg.rope_pct)
+        k = rope(k, positions, cfg.rope_theta, cfg.rope_pct)
+    return q, k, v
+
+
+def _sdpa_full(q, k, v, cfg, causal):
+    """(B,S,H,D)x(B,S,Hk,D) -> (B,S,H,D); dispatches to the configured impl."""
+    out = attention_op(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                       causal=causal, impl=cfg.attention_impl,
+                       schedule=cfg.dash_schedule, chunk_q=cfg.attn_chunk_q)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def _sdpa_decode(q, k_cache, v_cache, valid_len):
+    """One-step decode: q (B,1,H,D); caches (B,S,Hk,D); attends to
+    [0, valid_len)."""
+    b, _, h, hd = q.shape
+    s, hk = k_cache.shape[1], k_cache.shape[2]
+    g = h // hk
+    qg = q.reshape(b, 1, hk, g, hd)
+    scores = torch.einsum("bokgd,bskd->bkgs", qg.to(F32),
+                          k_cache.to(F32)) / math.sqrt(hd)
+    visible = torch.arange(s, device=q.device) < valid_len
+    scores = torch.where(visible, scores, torch.full_like(scores, -1e30))
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", w, v_cache.to(F32))
+    return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
+def attention_block(p, x, cfg, *, positions=None, cache=None, cache_pos=None):
+    """Causal GQA self-attention. Modes:
+      train/prefill: cache=None → full causal attention.
+      cache:         cache=(k, v) (B,S_max,Hk,D), cache_pos int — the fresh
+                     K/V are written at ``cache_pos`` in place; a multi-token
+                     x (prefill) attends over its own K/V, a one-token x
+                     (decode) over the cache up to ``cache_pos``.
+    Returns (y, cache).
+    """
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    if cache is None:
+        out = _sdpa_full(q, k, v, cfg, causal=True)
+    else:
+        k_cache, v_cache = cache
+        n = x.shape[1]
+        k_cache[:, cache_pos:cache_pos + n] = k.to(k_cache.dtype)
+        v_cache[:, cache_pos:cache_pos + n] = v.to(v_cache.dtype)
+        if n > 1:   # prefill-fill: full attention over the fresh k/v
+            out = _sdpa_full(q, k, v, cfg, causal=True)
+        else:
+            out = _sdpa_decode(q, k_cache, v_cache, cache_pos + 1)
+    out = out.reshape(out.shape[:-2] + (out.shape[-2] * out.shape[-1],))
+    return dot(out, p["wo"], out_dtype=x.dtype), cache
+
+
+# ----------------------------------------------------------------- MLP
+def mlp_defs(cfg):
+    d, f = cfg.d_model, cfg.d_ff
+    return {"w_up": PD((d, f)), "w_down": PD((f, d), "scaled"),
+            "w_gate": PD((d, f))}
+
+
+def apply_mlp(p, x, cfg):
+    """Gated SiLU MLP; the other activations come with their model families."""
+    if cfg.activation != "silu":
+        raise NotImplementedError(
+            f"activation {cfg.activation!r} is not ported yet (ROADMAP queue "
+            f"A, 'Other model families')")
+    h = F.silu(dot(x, p["w_gate"])) * dot(x, p["w_up"])
+    return dot(h.to(x.dtype), p["w_down"], out_dtype=x.dtype)
+
+
+# ----------------------------------------------------------------- embeddings
+def embed_defs(cfg):
+    return {"tok": PD((cfg.padded_vocab, cfg.d_model))}
+
+
+def apply_embed(p, tokens, cfg):
+    """Forward lookup (the deterministic one-hot backward comes with the
+    training slice)."""
+    return p["tok"][tokens].to(cfg.dtype)
+
+
+def lm_head_defs(cfg):
+    return {"w": PD((cfg.d_model, cfg.padded_vocab))}
+
+
+def apply_lm_head(p, x, cfg):
+    return dot(x, p["w"])
