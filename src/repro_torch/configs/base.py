@@ -41,6 +41,8 @@ class ModelConfig:
     # numerics
     dtype_name: str = "bfloat16"
     vocab_pad: int = 2048                   # pad vocab to multiple of tp*128
+    det_embed_grad: bool = True    # embedding bwd as pinned one-hot matmul
+    moe_aux_weight: float = 0.01   # weight of the (MoE) aux loss in loss_fn
 
     @property
     def head_dim(self) -> int:

@@ -1,27 +1,34 @@
-// Causal flash-attention forward for Hopper (sm_90a).
+// Flash-attention forward for Hopper (sm_90a), causal and full mask.
 //
-// Replaces repro/kernels/flash_fwd.py::_fwd_sched_kernel, the Pallas TPU
-// kernel that walks causal_grid()'s task list (descending q tiles, kv
-// ascending inside each q tile, fully masked tiles never visited).
+// Replaces two Pallas TPU kernels of repro/kernels/flash_fwd.py:
+//   * _fwd_sched_kernel (causal): walks causal_grid()'s task list
+//     (descending q tiles, kv ascending inside each q tile, fully masked
+//     tiles never visited) -- entry point dash_flash_fwd_causal;
+//   * _fwd_kernel (full mask): the dense (bh, n_q, n_k) grid, kv ascending
+//     inside each q tile -- entry point dash_flash_fwd_full.
+// Both are one kernel template; CAUSAL (compile time) decides where the kv
+// loop stops and whether the diagonal tile is masked.
 //
-// Same function: out = softmax(q k^T * sm_scale, causal) v and lse = the
+// Same function: out = softmax(q k^T * sm_scale [, causal]) v and lse = the
 // row log-sum-exp, with running (max, sum, fp32 accumulator) per row, the
 // l == 0 guard of _finalize, out in the input dtype and lse in fp32. K/V are
 // read through kv_head_index (native GQA, never repeated).
 //
-// What bounds it on this card: at the slice's shapes (S <= a few thousand,
-// D = 64/128) the bytes of q, k, v and out over 3.35 TB/s take longer than
-// the live tiles' products at the bf16 tensor-core rate, so it is bound by
-// memory; an implementation reaches that only with the products on the
-// tensor cores and K/V tiles reused across many query rows.
+// What bounds it on this card: causal at S = 512 the bytes of q, k, v and
+// out over 3.35 TB/s take longer than the live tiles' products at the bf16
+// tensor-core rate (bound by memory); the full mask at S = 1024 does twice
+// the products per byte and is bound by operations. Either bound is reached
+// only with the products on the tensor cores and K/V tiles reused across
+// many query rows.
 //
 // What the design does about it:
 //   * One CTA per (bh, 128-row q tile) replaces the TPU's sequential grid
 //     axis and scalar-prefetched task list. Q tiles launch in descending
 //     order (blockIdx.y = 0 is the last, longest row), so the longest rows
 //     start first and the short ones drain the tail: the section 3.3
-//     traversal. Inside the CTA the kv loop ascends, stops at the diagonal
-//     tile and masks only the sub-tiles of that tile.
+//     traversal. Inside the CTA the kv loop ascends; causal, it stops at
+//     the diagonal tile and masks only the sub-tiles of that tile; full, it
+//     runs over every kv tile with no mask.
 //   * bf16: 8 warps, 16 q rows each. Q fragments stay in registers for the
 //     whole loop; each 64-row K/V sub-tile is read from device memory once
 //     per CTA into padded shared memory (no bank conflicts on the fragment
@@ -91,13 +98,12 @@ __device__ __forceinline__ void load_tile_bf16(uint16_t* dst,
   }
 }
 
-template <int D>
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS)
-    fwd_causal_bf16(const uint16_t* __restrict__ q,
-                    const uint16_t* __restrict__ k,
-                    const uint16_t* __restrict__ v,
-                    __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                    int seq, int n_heads, int n_kv_heads, float scale_log2) {
+    fwd_bf16(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+             const uint16_t* __restrict__ v, __nv_bfloat16* __restrict__ out,
+             float* __restrict__ lse, int seq, int seq_k, int n_heads,
+             int n_kv_heads, float scale_log2) {
   constexpr int LD = D + PAD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint16_t* sq = reinterpret_cast<uint16_t*>(smem_raw);  // BLOCK_M x LD
@@ -110,8 +116,8 @@ __global__ void __launch_bounds__(THREADS)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;  // mma group and thread in group
 
-  const uint16_t* kg = k + static_cast<size_t>(kvh) * seq * D;
-  const uint16_t* vg = v + static_cast<size_t>(kvh) * seq * D;
+  const uint16_t* kg = k + static_cast<size_t>(kvh) * seq_k * D;
+  const uint16_t* vg = v + static_cast<size_t>(kvh) * seq_k * D;
   load_tile_bf16<D>(
       sq, q + (static_cast<size_t>(bh) * seq + qt * BLOCK_M) * D, BLOCK_M,
       tid);
@@ -139,7 +145,8 @@ __global__ void __launch_bounds__(THREADS)
   float l[2] = {0.f, 0.f};
 
   const int row_g = qt * BLOCK_M + r0;  // global q row of c0/c1; +8: c2/c3
-  const int n_kv = (qt + 1) * (BLOCK_M / BLOCK_N);  // through the diagonal
+  // causal: through the diagonal tile; full: every kv sub-tile
+  const int n_kv = CAUSAL ? (qt + 1) * (BLOCK_M / BLOCK_N) : seq_k / BLOCK_N;
   const int first_diag = qt * (BLOCK_M / BLOCK_N);
 
   for (int j = 0; j < n_kv; ++j) {
@@ -166,7 +173,7 @@ __global__ void __launch_bounds__(THREADS)
     }
 
     // scale into the log2 domain; mask only inside the diagonal tile
-    const bool diag = j >= first_diag;
+    const bool diag = CAUSAL && j >= first_diag;
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int n = 0; n < BLOCK_N / 8; ++n) {
@@ -258,12 +265,12 @@ __global__ void __launch_bounds__(THREADS)
 
 // fp32: two threads per q row, thread `half` owning elements d = 2i + half
 // (interleaved, so the pair reads adjacent shared-memory words).
-template <int D>
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS)
-    fwd_causal_f32(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, float* __restrict__ out,
-                   float* __restrict__ lse, int seq, int n_heads,
-                   int n_kv_heads, float scale_log2) {
+    fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, float* __restrict__ out,
+            float* __restrict__ lse, int seq, int seq_k, int n_heads,
+            int n_kv_heads, float scale_log2) {
   constexpr int HD = D / 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sk = reinterpret_cast<float*>(smem_raw);  // BLOCK_N x D
@@ -276,8 +283,8 @@ __global__ void __launch_bounds__(THREADS)
   const int q_row = qt * BLOCK_M + (tid >> 1);
 
   const float* qg = q + (static_cast<size_t>(bh) * seq + q_row) * D;
-  const float* kg = k + static_cast<size_t>(kvh) * seq * D;
-  const float* vg = v + static_cast<size_t>(kvh) * seq * D;
+  const float* kg = k + static_cast<size_t>(kvh) * seq_k * D;
+  const float* vg = v + static_cast<size_t>(kvh) * seq_k * D;
   float qr[HD], acc[HD];
 #pragma unroll
   for (int i = 0; i < HD; ++i) {
@@ -286,7 +293,7 @@ __global__ void __launch_bounds__(THREADS)
   }
   float m = -INFINITY, l = 0.f;
 
-  const int n_kv = (qt + 1) * (BLOCK_M / BLOCK_N);
+  const int n_kv = CAUSAL ? (qt + 1) * (BLOCK_M / BLOCK_N) : seq_k / BLOCK_N;
   const int first_diag = qt * (BLOCK_M / BLOCK_N);
   for (int j = 0; j < n_kv; ++j) {
     __syncthreads();
@@ -300,7 +307,7 @@ __global__ void __launch_bounds__(THREADS)
     }
     __syncthreads();
 
-    const bool diag = j >= first_diag;
+    const bool diag = CAUSAL && j >= first_diag;
     for (int c0 = 0; c0 < BLOCK_N; c0 += CHUNK) {
       float s[CHUNK];
       float mx = m;
@@ -343,36 +350,56 @@ __global__ void __launch_bounds__(THREADS)
 struct Args {
   const void *q, *k, *v;
   void *out, *lse;
-  int bh, seq, n_heads, n_kv_heads;
+  int bh, seq, seq_k, n_heads, n_kv_heads;
   float scale_log2;
 };
 
-template <int D>
+template <int D, bool CAUSAL>
 cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
   const int smem = (BLOCK_M + 2 * BLOCK_N) * (D + PAD) * sizeof(uint16_t);
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_causal_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fwd_bf16<D, CAUSAL>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  fwd_causal_bf16<D><<<dim3(a.bh, a.seq / BLOCK_M), THREADS, smem, stream>>>(
+  fwd_bf16<D, CAUSAL><<<dim3(a.bh, a.seq / BLOCK_M), THREADS, smem, stream>>>(
       static_cast<const uint16_t*>(a.q), static_cast<const uint16_t*>(a.k),
       static_cast<const uint16_t*>(a.v), static_cast<__nv_bfloat16*>(a.out),
-      static_cast<float*>(a.lse), a.seq, a.n_heads, a.n_kv_heads,
+      static_cast<float*>(a.lse), a.seq, a.seq_k, a.n_heads, a.n_kv_heads,
       a.scale_log2);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool CAUSAL>
 cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
   const int smem = 2 * BLOCK_N * D * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_causal_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fwd_f32<D, CAUSAL>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  fwd_causal_f32<D><<<dim3(a.bh, a.seq / BLOCK_M), THREADS, smem, stream>>>(
+  fwd_f32<D, CAUSAL><<<dim3(a.bh, a.seq / BLOCK_M), THREADS, smem, stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.out),
-      static_cast<float*>(a.lse), a.seq, a.n_heads, a.n_kv_heads,
+      static_cast<float*>(a.lse), a.seq, a.seq_k, a.n_heads, a.n_kv_heads,
       a.scale_log2);
   return cudaGetLastError();
+}
+
+template <bool CAUSAL>
+int launch(const Args& a, int head_dim, int is_bf16, cudaStream_t st) {
+  cudaError_t err = cudaErrorInvalidValue;
+  if (is_bf16) {
+    if (head_dim == 32) err = launch_bf16<32, CAUSAL>(a, st);
+    else if (head_dim == 64) err = launch_bf16<64, CAUSAL>(a, st);
+    else if (head_dim == 128) err = launch_bf16<128, CAUSAL>(a, st);
+  } else {
+    if (head_dim == 32) err = launch_f32<32, CAUSAL>(a, st);
+    else if (head_dim == 64) err = launch_f32<64, CAUSAL>(a, st);
+    else if (head_dim == 128) err = launch_f32<128, CAUSAL>(a, st);
+  }
+  return static_cast<int>(err);
+}
+
+bool bad_heads(int bh, int n_heads, int n_kv_heads) {
+  return bh <= 0 || n_kv_heads <= 0 || n_heads % n_kv_heads != 0 ||
+         bh % n_heads != 0;
 }
 
 }  // namespace
@@ -388,21 +415,27 @@ extern "C" int dash_flash_fwd_causal(const void* q, const void* k,
                                      int n_heads, int n_kv_heads,
                                      float sm_scale, int is_bf16,
                                      void* stream) {
-  if (bh <= 0 || seq <= 0 || seq % BLOCK_M != 0 || n_kv_heads <= 0 ||
-      n_heads % n_kv_heads != 0 || bh % n_heads != 0)
+  if (bad_heads(bh, n_heads, n_kv_heads) || seq <= 0 || seq % BLOCK_M != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q, k, v, out, lse, bh, seq, n_heads, n_kv_heads,
+  const Args a{q, k, v, out, lse, bh, seq, seq, n_heads, n_kv_heads,
                sm_scale * LOG2E};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (is_bf16) {
-    if (head_dim == 32) err = launch_bf16<32>(a, st);
-    else if (head_dim == 64) err = launch_bf16<64>(a, st);
-    else if (head_dim == 128) err = launch_bf16<128>(a, st);
-  } else {
-    if (head_dim == 32) err = launch_f32<32>(a, st);
-    else if (head_dim == 64) err = launch_f32<64>(a, st);
-    else if (head_dim == 128) err = launch_f32<128>(a, st);
-  }
-  return static_cast<int>(err);
+  return launch<true>(a, head_dim, is_bf16, static_cast<cudaStream_t>(stream));
+}
+
+// The full-mask forward: as above, with k, v of seq_k rows (bh / n_heads *
+// n_kv_heads, seq_k, head_dim) and every q row attending to every key. seq_q
+// and seq_k must be multiples of 128.
+extern "C" int dash_flash_fwd_full(const void* q, const void* k,
+                                   const void* v, void* out, void* lse,
+                                   int bh, int seq_q, int seq_k, int head_dim,
+                                   int n_heads, int n_kv_heads,
+                                   float sm_scale, int is_bf16,
+                                   void* stream) {
+  if (bad_heads(bh, n_heads, n_kv_heads) || seq_q <= 0 ||
+      seq_q % BLOCK_M != 0 || seq_k <= 0 || seq_k % BLOCK_M != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, k, v, out, lse, bh, seq_q, seq_k, n_heads, n_kv_heads,
+               sm_scale * LOG2E};
+  return launch<false>(a, head_dim, is_bf16,
+                       static_cast<cudaStream_t>(stream));
 }

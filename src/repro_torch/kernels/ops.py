@@ -1,10 +1,16 @@
-"""Public attention op (forward only until the backward kernels are ported).
+"""Public attention op: a ``torch.autograd.Function`` around the DASH kernels.
 
-``attention(..., impl=...)`` is the model-facing dispatcher:
+``dash_attention(q, k, v, causal=..., schedule=...)`` runs the flash forward
+and the schedule-driven deterministic backward (the counterpart of the
+reference's ``jax.custom_vjp``). ``attention(..., impl=...)`` is the
+model-facing dispatcher:
 
-  impl="torch"  — plain PyTorch attention (counterpart of ``"xla"``);
-  impl="cuda"   — the DASH kernels (counterpart of ``"pallas"``): the causal
-                  forward runs ``csrc/flash_fwd.cu`` on CUDA tensors.
+  impl="torch"  — plain PyTorch attention (counterpart of ``"xla"``),
+                  differentiated by autograd;
+  impl="cuda"   — the DASH kernels (counterpart of ``"pallas"``): on CUDA
+                  tensors the forward runs ``csrc/flash_fwd.cu`` and the
+                  backward ``csrc/flash_bwd.cu`` + ``csrc/fold.cu``; on CPU
+                  tensors their plain versions.
 
 Public shapes are (batch, heads, seq, head_dim). GQA is native on both paths:
 K/V keep (batch, kv_heads, seq, head_dim) and are addressed by
@@ -17,7 +23,9 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.schedules import cached_schedule
 from repro_torch.kernels import ref as ref_mod
+from repro_torch.kernels.flash_bwd import flash_bwd
 from repro_torch.kernels.flash_fwd import flash_fwd
 from repro_torch.kernels.gqa import validate_group
 
@@ -37,7 +45,7 @@ def _unflatten(x, b, h):
 
 def resolve_schedule(schedule: str, causal: bool) -> str:
     """The backward schedule a call runs (``ops.py`` name resolution of the
-    reference); the training slice's backward consumes it."""
+    reference)."""
     if schedule not in SCHEDULES:
         raise ValueError(f"unknown DASH schedule {schedule!r}; one of "
                          f"{SCHEDULES}")
@@ -46,34 +54,72 @@ def resolve_schedule(schedule: str, causal: bool) -> str:
     return schedule
 
 
+class _DashAttention(torch.autograd.Function):
+    """Forward: the flash forward kernel. Backward: the DASH backward over
+    ``cached_schedule(name, S // block, n_heads=1, causal=...)``, as the
+    reference's ``_bwd_rule`` resolves it (with one head, ``symmetric_shift``
+    has no head pair and plays ``descending``'s chains). Residuals keep K/V
+    at Hk heads."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, schedule_name, sm_scale, block,
+                worker_parallel):
+        b, h = q.shape[0], q.shape[1]
+        out, lse = flash_fwd(_flatten(q), _flatten(k), _flatten(v),
+                             causal=causal, sm_scale=sm_scale, block_q=block,
+                             block_k=block, n_heads=h, n_kv_heads=k.shape[1])
+        out = _unflatten(out, b, h)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.cfg = (causal, schedule_name, sm_scale, block, worker_parallel)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, schedule_name, sm_scale, block, worker_parallel = ctx.cfg
+        b, h, s, _ = q.shape
+        hk = k.shape[1]
+        schedule = cached_schedule(schedule_name, s // block, n_heads=1,
+                                   causal=causal, block_q=block,
+                                   block_k=block)
+        dq, dk, dv = flash_bwd(_flatten(q), _flatten(k), _flatten(v),
+                               _flatten(out), lse,
+                               _flatten(do.contiguous()), schedule,
+                               causal=causal, sm_scale=sm_scale,
+                               block_q=block, block_k=block,
+                               worker_parallel=worker_parallel, n_heads=h,
+                               n_kv_heads=hk)
+        return (_unflatten(dq, b, h).to(q.dtype),
+                _unflatten(dk, b, hk).to(k.dtype),
+                _unflatten(dv, b, hk).to(v.dtype),
+                None, None, None, None, None)
+
+
 def dash_attention(q, k, v, causal: bool = False,
                    schedule: str = "symmetric_shift_or_shift",
-                   sm_scale: Optional[float] = None, block: int = 128):
-    """DASH attention forward.
+                   sm_scale: Optional[float] = None, block: int = 128,
+                   worker_parallel: bool = True):
+    """DASH attention with the deterministic scheduled backward.
 
     Args:
-      q: (B, H, S, D); k, v: (B, Hk, S, D) with H a multiple of Hk.
-      schedule: the deterministic backward's schedule, resolved and checked
-        here so that the training slice only adds the backward.
-      block: square tile size (128: the CUDA kernel's tile).
-    Returns: (B, H, S, D) attention output.
-
-    Raises when an input requires grad: the backward kernels are not ported,
-    and autograd must not differentiate a stand-in instead.
+      q: (B, H, S, D); k, v: (B, Hk, S, D) with H a multiple of Hk (native
+        GQA — KV heads are addressed by group, never repeated).
+      schedule: "fa3" | "descending" | "shift" | "symmetric_shift" |
+        "symmetric_shift_or_shift" (the paper-optimal one for the mask).
+      block: square tile size (128: the CUDA kernels' tile).
+      worker_parallel: run the backward across the schedule's worker chains
+        with the ordered dQ fold (bitwise equal to the serialized backward
+        on single-visit schedules; falls back to it otherwise).
+    Returns: (B, H, S, D) attention output, differentiable in q, k, v.
     """
     b, h, s, d = q.shape
     validate_group(h, k.shape[1])
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise NotImplementedError(
-            "dash_attention is forward-only until the DASH backward kernels "
-            "are ported (ROADMAP queue A, training slice)")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
-    resolve_schedule(schedule, causal)
-    out, _ = flash_fwd(_flatten(q), _flatten(k), _flatten(v), causal=causal,
-                       sm_scale=sm_scale, block_q=block, block_k=block,
-                       n_heads=h, n_kv_heads=k.shape[1])
-    return _unflatten(out, b, h)
+    name = resolve_schedule(schedule, causal)
+    return _DashAttention.apply(q.contiguous(), k.contiguous(),
+                                v.contiguous(), causal, name, sm_scale, block,
+                                worker_parallel)
 
 
 def _grouped_logits_mask(logits, causal):

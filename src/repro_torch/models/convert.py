@@ -14,16 +14,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models import transformer as T
-from repro_torch.models.module import iter_defs, set_path
-
-
-def _leaves(tree, prefix=""):
-    for key in sorted(tree):
-        path = f"{prefix}/{key}" if prefix else key
-        if isinstance(tree[key], dict):
-            yield from _leaves(tree[key], path)
-        else:
-            yield path, tree[key]
+from repro_torch.models.module import iter_defs, set_path, tree_paths
 
 
 def _to_torch(arr: np.ndarray) -> torch.Tensor:
@@ -44,7 +35,7 @@ def from_jax_params(tree, cfg, device=None):
     device = resolve_device(device)
     defs = dict(iter_defs(T.param_defs(cfg)))
     params, used = {}, set()
-    for path, leaf in _leaves(tree):
+    for path, leaf in tree_paths(tree):
         if path not in defs:
             raise KeyError(f"reference leaf {path!r} has no counterpart in "
                            f"the port's parameters for {cfg.name}")

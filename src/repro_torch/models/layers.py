@@ -169,10 +169,67 @@ def embed_defs(cfg):
     return {"tok": PD((cfg.padded_vocab, cfg.d_model))}
 
 
+# one-hot transient budget for the deterministic embedding backward:
+# block = ~2^25 fp32 elements (~128 MB) regardless of vocab size
+_EMBED_BWD_ELEMS = 1 << 25
+
+
+class _DetEmbedLookup(torch.autograd.Function):
+    """Embedding lookup with a deterministic backward (the reference's
+    ``_det_embed_lookup``).
+
+    dtable = scatter-add(dy at tokens) ≡ one_hot(tokens)ᵀ @ dy. The indexing
+    backward PyTorch would take accumulates duplicate tokens with atomics on
+    the card, in an order that changes from run to run; the product's
+    reduction order is fixed. fp32 accumulation. The token axis runs in
+    fixed-size blocks, ascending, so the one-hot transient stays ~128 MB at
+    full vocab; block padding uses index == vocab, whose one-hot row is all
+    zero.
+    """
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.vocab = table.shape[0]
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, dy):
+        (tokens,) = ctx.saved_tensors
+        vocab = ctx.vocab
+        flat_tok = tokens.reshape(-1)
+        flat_dy = dy.reshape(-1, dy.shape[-1]).to(F32)
+        t = flat_tok.shape[0]
+        block = min(t, max(64, _EMBED_BWD_ELEMS // vocab))
+        n_blocks = -(-t // block)
+        ids = torch.arange(vocab, device=dy.device)
+
+        def block_grad(tok_blk, dy_blk):
+            onehot = (tok_blk[:, None] == ids[None, :]).to(F32)
+            return torch.matmul(onehot.t(), dy_blk)
+
+        if n_blocks == 1:
+            dtable = block_grad(flat_tok, flat_dy)
+        else:
+            pad = n_blocks * block - t
+            if pad:
+                flat_tok = torch.cat([flat_tok, flat_tok.new_full((pad,),
+                                                                  vocab)])
+                flat_dy = torch.cat([flat_dy,
+                                     flat_dy.new_zeros((pad, dy.shape[-1]))])
+            dtable = torch.zeros((vocab, dy.shape[-1]), dtype=F32,
+                                 device=dy.device)
+            for i in range(n_blocks):
+                blk = slice(i * block, (i + 1) * block)
+                dtable = dtable + block_grad(flat_tok[blk], flat_dy[blk])
+        return dtable.to(dy.dtype), None
+
+
 def apply_embed(p, tokens, cfg):
-    """Forward lookup (the deterministic one-hot backward comes with the
-    training slice)."""
-    return p["tok"][tokens].to(cfg.dtype)
+    table = p["tok"].to(cfg.dtype)
+    if cfg.det_embed_grad:
+        return _DetEmbedLookup.apply(table, tokens)
+    return table[tokens]
 
 
 def lm_head_defs(cfg):

@@ -52,6 +52,18 @@ def iter_defs(defs, prefix: str = ""):
             yield from iter_defs(defs[key], path)
 
 
+def tree_paths(tree, prefix: str = ""):
+    """(path, leaf) pairs of a nested dict in the reference's tree order
+    (keys sorted at every level, as ``jax.tree.leaves`` orders dicts), paths
+    joined by ``/``."""
+    for key in sorted(tree):
+        path = f"{prefix}/{key}" if prefix else key
+        if isinstance(tree[key], dict):
+            yield from tree_paths(tree[key], path)
+        else:
+            yield path, tree[key]
+
+
 def set_path(tree: Dict[str, Any], path: str, value) -> None:
     *parents, leaf = path.split("/")
     for key in parents:

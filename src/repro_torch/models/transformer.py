@@ -5,7 +5,10 @@ tree: per pattern position ``b{i}_{kind}`` a stack of ``(n_repeats, ...)``
 leaves, walked here by a Python loop over the repeats (the reference scans).
 
 Entry modes:
-  forward:      full-sequence logits (train/prefill);
+  forward:      full-sequence logits (train/prefill), each layer optionally
+                recomputed in the backward (``remat``: the counterpart of
+                ``jax.checkpoint`` on the scan body);
+  loss_fn:      next-token cross-entropy over ``forward``;
   prefill_step: prompt processing that also fills the KV caches;
   decode_step:  one-token step over the caches (updated in place).
 Other block patterns (MoE, SSM, xLSTM) raise ``NotImplementedError``.
@@ -13,6 +16,7 @@ Other block patterns (MoE, SSM, xLSTM) raise ``NotImplementedError``.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
@@ -64,9 +68,18 @@ def _blocks(params):
             for k in sorted(blocks, key=lambda s: int(s.split("_")[0][1:]))]
 
 
-def _layer(stacked_p, i):
-    return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
+def _unstack(stacked_p):
+    """Per-layer views of a stacked tree, as ``{key: [layer 0, ...]}`` with
+    nested dicts kept. ``unbind`` (not indexing per layer) so that the
+    backward stacks the layers' grads once instead of adding one zero-padded
+    full-stack grad per layer."""
+    return {k: (_unstack(v) if isinstance(v, dict) else v.unbind(0))
             for k, v in stacked_p.items()}
+
+
+def _layer(unstacked, i):
+    return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
+            for k, v in unstacked.items()}
 
 
 def _apply_block(p, x, cfg, *, positions, cache=None, cache_pos=None):
@@ -77,29 +90,69 @@ def _apply_block(p, x, cfg, *, positions, cache=None, cache_pos=None):
     return x + L.apply_mlp(p["mlp"], L.apply_norm(p["ln2"], x, cfg), cfg)
 
 
-def _apply_stack(params, x, cfg, *, positions, caches=None, cache_pos=None):
+def _apply_stack(params, x, cfg, *, positions, caches=None, cache_pos=None,
+                 remat=False):
     for key, stacked_p in _blocks(params):
         n_rep = stacked_p["ln1"]["scale"].shape[0]
+        layers = _unstack(stacked_p)
         for i in range(n_rep):
+            p = _layer(layers, i)
+            if remat:
+                # recompute everything in the backward (remat_policy "none")
+                x = checkpoint(
+                    lambda x_, p_=p: _apply_block(p_, x_, cfg,
+                                                  positions=positions),
+                    x, use_reentrant=False)
+                continue
             cache = None
             if caches is not None:
                 k_all, v_all = caches[key]["attn"]
                 cache = (k_all[i], v_all[i])
-            x = _apply_block(_layer(stacked_p, i), x, cfg, positions=positions,
-                             cache=cache, cache_pos=cache_pos)
+            x = _apply_block(p, x, cfg, positions=positions, cache=cache,
+                             cache_pos=cache_pos)
     return x
 
 
-def forward(params, batch, cfg):
-    """Train/prefill forward → (logits, aux_loss). batch['tokens']: (B, S)."""
+def forward(params, batch, cfg, *, remat=False, remat_policy="none"):
+    """Train/prefill forward → (logits, aux_loss). batch['tokens']: (B, S).
+
+    ``remat=True`` runs each layer under ``torch.utils.checkpoint`` (non-
+    reentrant): the backward recomputes the layer, attention forward
+    included. Only ``remat_policy="none"`` (recompute everything) is ported.
+    """
     check_supported(cfg)
+    if remat and remat_policy != "none":
+        raise NotImplementedError(
+            f"remat_policy={remat_policy!r} is not ported yet (ROADMAP queue "
+            f"A, dense train step); 'none' is")
     tokens = batch["tokens"]
     x = L.apply_embed(params["embed"], tokens, cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x = _apply_stack(params, x, cfg, positions=positions)
+    x = _apply_stack(params, x, cfg, positions=positions, remat=remat)
     x = L.apply_norm(params["ln_f"], x, cfg)
     logits = L.apply_lm_head(params["lm_head"], x, cfg)
     return logits, torch.zeros((), dtype=F32, device=x.device)
+
+
+def loss_fn(params, batch, cfg, *, remat=False, remat_policy="none"):
+    """Next-token CE (+ aux). batch: tokens (B,S), labels (B,S) with -100 pad.
+
+    ``gold`` is a compare-select-sum over the vocab axis, as in the
+    reference: its backward is a select, where a gather's would be a
+    scatter-add.
+    """
+    logits, aux = forward(params, batch, cfg, remat=remat,
+                          remat_policy=remat_policy)
+    labels = batch["labels"]
+    logits = logits.to(F32)
+    viota = torch.arange(logits.shape[-1], device=logits.device)
+    gold = torch.where(viota == labels[..., None].clamp_min(0), logits,
+                       torch.zeros((), dtype=F32, device=logits.device)
+                       ).sum(-1)
+    lse = torch.logsumexp(logits, dim=-1)
+    mask = (labels >= 0).to(F32)
+    ce = torch.sum((lse - gold) * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return ce + cfg.moe_aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 def init_cache(cfg, batch_size: int, max_seq: int, device):

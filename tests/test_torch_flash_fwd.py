@@ -69,8 +69,8 @@ def test_plain_flash_fwd_matches_reference(bh, s, d, dtype, group):
 
 def test_flash_fwd_refuses_what_the_kernel_does_not_take():
     q, k, v = (torch.from_numpy(x) for x in _inputs(1, 256, 64, 1, seed=0))
-    with pytest.raises(NotImplementedError, match="full-mask"):
-        tfwd.flash_fwd(q, k, v, causal=False)
+    with pytest.raises(ValueError, match="sq == sk"):
+        tfwd.flash_fwd(q, k[:, :128], v[:, :128], causal=True)
     with pytest.raises(ValueError, match="multiple"):
         tfwd.flash_fwd(q[:, :200], k[:, :200], v[:, :200], causal=True)
     with pytest.raises(ValueError, match="inconsistent"):
@@ -78,10 +78,13 @@ def test_flash_fwd_refuses_what_the_kernel_does_not_take():
 
 
 def test_dash_attention_is_forward_only():
+    """No longer: the DASH backward is ported, so an input that requires
+    grad gets one (the schedule checks still come first)."""
     q = torch.zeros((1, 2, 128, 32), requires_grad=True)
     k = v = torch.zeros((1, 2, 128, 32))
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        tops.dash_attention(q, k, v, causal=True)
+    out = tops.dash_attention(q, k, v, causal=True)
+    (dq,) = torch.autograd.grad(out.sum(), q)
+    assert dq.shape == q.shape and dq.dtype == q.dtype
     with pytest.raises(ValueError, match="unknown DASH schedule"):
         tops.dash_attention(q.detach(), k, v, causal=True, schedule="bogus")
     assert tops.resolve_schedule("symmetric_shift_or_shift", True) == \
