@@ -11,7 +11,13 @@ Phases, each reported on its own line:
                descending, symmetric_shift causal) the worker-parallel
                backward + ordered fold; the serialized backward must equal
                worker + fold bit for bit, and 20 repetitions of the worker
-               backward must be bitwise identical;
+               backward must be bitwise identical. Then the block-sparse
+               masks (sliding window, prefix-LM, documents, streaming,
+               causal ∧ sink at S=1024; bf16 and fp32; GQA 32/32 and 32/8):
+               the masked forward and both masked backwards against their
+               plain versions, serialized ≡ worker + fold bit for bit, KV
+               rows no task visits exactly 0, and 20 bitwise-identical
+               repetitions of the window's worker backward;
   4. serve   — serve StableLM-1.6B at full width and depth in bf16 (random
                weights, seed 0) through the static engine: greedy, batch 4,
                prompt 512, 32 new tokens. Checks that the prefill launched the
@@ -27,10 +33,24 @@ Phases, each reported on its own line:
                profiled step;
   6. ops     — ``dash_attention`` forward and backward at the training
                shape, full mask (schedule ``shift``) and serialized, against
-               the plain op, counting the kernels each path launches;
-  7. timing  — each kernel at the training slice's attention shape beside its
-               plain version, the PyTorch library call for the same function
-               where there is one, and its bound.
+               the plain op, counting the kernels each path launches; and a
+               1024-token sliding window at the windowed training shape
+               (B=1, H=32, S=4096, D=64; worker-parallel and serialized)
+               against the plain query-chunked masked op, which must differ
+               from the causal op beyond the window;
+  7. slice-window — the serving slice with ``attn_window=1024``: batch 2,
+               prompt 2048, 32 new tokens; the prefill must launch the
+               block-sparse forward once per layer;
+  8. train-window — the train phase again with ``--attn-window 1024`` at
+               B=1, S=4096 (the launcher's flags): 48 block-sparse forwards,
+               24 masked worker backwards and 24 folds a step, no causal
+               forward, step 1 and every layer's attention grads against the
+               plain masked, query-chunked attention's step, then one
+               profiled step;
+  9. timing  — each kernel at its training slice's attention shape beside
+               its plain version, the PyTorch library call for the same
+               function where there is one (for a mask, SDPA with the dense
+               boolean mask), and its bound.
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script exits
 non-zero and prints no result; so does a machine without CUDA.
@@ -64,6 +84,7 @@ from repro_torch.kernels import flash_fwd as FF  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch import masks as M  # noqa: E402
 from repro_torch.models.module import count_params, set_path, tree_paths  # noqa: E402,E501
 from repro_torch.serve.engine import Engine  # noqa: E402
 from repro_torch.train import optimizer as O  # noqa: E402
@@ -110,12 +131,33 @@ KERNEL_CASES = [
 TRAIN_CASES = [("train", 4, 32, 32, 1024, 64, torch.bfloat16)] + KERNEL_CASES[1:]
 BWD_SCHEDULES = [("fa3", False), ("descending", False), ("shift", False),
                  ("fa3", True), ("descending", True), ("symmetric_shift", True)]
-SLICE = dict(arch="stablelm-1.6b", batch=4, prompt=512, gen=32)
+SLICE = dict(arch="stablelm-1.6b", batch=4, prompt=512, gen=32, window=0)
+SLICE_WINDOW = dict(arch="stablelm-1.6b", batch=2, prompt=2048, gen=32,
+                    window=1024)
 # the train launcher's flags for the train phase (3 steps, warmup 1 so the
-# weights move)
+# weights move), and for the windowed one
 TRAIN_ARGV = ["--arch", "stablelm-1.6b", "--batch", "4", "--seq", "1024",
               "--steps", "3", "--warmup-steps", "1", "--seed", "0",
               "--log-every", "1", "--verify"]
+TRAIN_WINDOW_ARGV = ["--arch", "stablelm-1.6b", "--batch", "1", "--seq",
+                     "4096", "--attn-window", "1024", "--steps", "3",
+                     "--warmup-steps", "1", "--seed", "0", "--log-every", "1",
+                     "--verify"]
+# the windowed training slice's attention shape (B, H, Hk, S, D, dtype) and
+# mask
+WINDOW_CASE = ("train_window", 1, 32, 32, 4096, 64, torch.bfloat16)
+WINDOW = M.SlidingWindow(1024)
+# the mask families of the kernel checks: the reference's
+# (tests/test_mask_kernels.py:43-48) scaled from S=256 to S=1024, and
+# causal ∧ sink, which leaves KV rows with no task
+MASK_S = 1024
+MASK_CASES = [
+    ("window", M.SlidingWindow(384)),
+    ("prefix", M.PrefixLM(320)),
+    ("document", M.Document.from_lengths((400, 624))),
+    ("streaming", M.streaming_mask(256, 64)),
+    ("sink", M.Causal() & M.Sink(64)),
+]
 
 
 def _qkv(b, h, hk, s, d, dtype, seed=0):
@@ -180,22 +222,25 @@ def check_forward(causal, cases):
 
 def _counts():
     return dict(fwd_causal=FF.launches, fwd_full=FF.launches_full,
-                bwd_worker=FB.launches_worker, bwd_serial=FB.launches_serial,
-                fold=FB.launches_fold)
+                fwd_mask=FF.launches_mask, bwd_worker=FB.launches_worker,
+                bwd_serial=FB.launches_serial, fold=FB.launches_fold)
 
 
 def _zero_counts():
-    FF.launches = FF.launches_full = 0
+    FF.launches = FF.launches_full = FF.launches_mask = 0
     FB.launches_worker = FB.launches_serial = FB.launches_fold = 0
 
 
-def _bwd_operands(b, h, hk, s, d, dtype, causal, seed):
+def _bwd_operands(b, h, hk, s, d, dtype, causal, seed, mask=None):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, do = (torch.randn((b * h, s, d), generator=gen, device="cuda")
              .to(dtype) for _ in range(2))
     k, v = (torch.randn((b * hk, s, d), generator=gen, device="cuda")
             .to(dtype) for _ in range(2))
-    out, lse = FF.flash_fwd_cuda(q, k, v, d ** -0.5, h, hk, causal=causal)
+    if mask is None:
+        out, lse = FF.flash_fwd_cuda(q, k, v, d ** -0.5, h, hk, causal=causal)
+    else:
+        out, lse = FF.flash_fwd_mask_cuda(q, k, v, d ** -0.5, h, hk, mask)
     delta = torch.sum(do.float() * out.float(), dim=-1)
     return q, k, v, do, out, lse, delta
 
@@ -284,6 +329,125 @@ def check_backward():
     return results
 
 
+def check_masks():
+    """Per mask family, dtype and GQA group at S=1024, D=64: the block-sparse
+    forward kernel vs its plain version; the masked worker kernel + fold and
+    the masked serialized kernel vs their plain versions (on the KV rows
+    some task visits: the kernels leave the others unwritten); serialized ≡
+    worker + fold bit for bit; the host ``flash_bwd`` under deterministic
+    algorithms (which fill fresh memory with NaN) gives exact zeros on the
+    unvisited KV rows; 20 repetitions of the window's worker backward are
+    bitwise identical."""
+    results, failed = [], []
+    b, h, s, d = 1, 32, MASK_S, 64
+    n = s // FB.BLOCK
+    scale = d ** -0.5
+    for name, mask in MASK_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            for hk in (32, 8):
+                q, k, v = _qkv(b, h, hk, s, d, dtype, seed=len(name) + hk)
+                out, lse = FF.flash_fwd_mask_cuda(q, k, v, scale, h, hk, mask)
+                ref_out, ref_lse = FF.flash_fwd_plain(q, k, v, scale, h, hk,
+                                                      mask=mask)
+                torch.cuda.synchronize()
+                err_out = (out.float() - ref_out.float()).abs().max().item()
+                err_lse = ((lse - ref_lse).abs()
+                           / ref_lse.abs().clamp_min(1.0)).max().item()
+                tol = OUT_TOL[dtype]
+                fwd_ok = (bool(torch.isfinite(out).all())
+                          and err_lse <= LSE_RTOL
+                          and torch.allclose(out.float(), ref_out.float(),
+                                             atol=tol, rtol=tol))
+
+                q, k, v, do, out, lse, delta = _bwd_operands(
+                    b, h, hk, s, d, dtype, False, seed=len(name), mask=mask)
+                schedule = cached_schedule("shift", n, mask=mask)
+                wc = schedule.worker_chains()
+                visited = torch.from_numpy(wc["visited"]).cuda()
+                args = (q, k, v, do, lse, delta)
+                part, dk, dv = FB.worker_bwd_cuda(*args, schedule, scale,
+                                                  False, h, hk, mask)
+                dq = FB.fold_cuda(part, visited, FB.BLOCK)
+                sdq, sdk, sdv = FB.serial_bwd_cuda(*args, schedule, scale,
+                                                   False, h, hk, mask)
+                ppart, pdk, pdv = FB.worker_bwd_plain(
+                    *args, wc, scale, False, FB.BLOCK, FB.BLOCK, h, hk, mask)
+                pdq = FB.fold_plain(ppart, visited, FB.BLOCK)
+                kv_ids, q_ids = schedule.prefetch_arrays()
+                pser = FB.serial_bwd_plain(
+                    *args, kv_ids, q_ids, FB.first_visit_flags(kv_ids, q_ids),
+                    scale, False, FB.BLOCK, FB.BLOCK, h, hk, mask)
+                live = FB._live_rows(schedule, FB.BLOCK, q.device)[None]
+                n_dead = s - int(live.sum())
+                seen = visited.repeat_interleave(FB.BLOCK, 1).bool()[
+                    None, :, :, None]
+
+                def on_live(x):
+                    return x.where(live, 0.0)
+
+                bitwise = (torch.equal(dq, sdq)
+                           and torch.equal(on_live(dk), on_live(sdk))
+                           and torch.equal(on_live(dv), on_live(sdv)))
+                err = dict(
+                    fwd=err_out,
+                    worker=dict(dq_part=(part - ppart).abs().where(
+                        seen, 0.0).max().item(),
+                        dk=on_live((dk - pdk).abs()).max().item(),
+                        dv=on_live((dv - pdv).abs()).max().item()),
+                    serial=dict(
+                        dq=(sdq - pser[0]).abs().max().item(),
+                        dk=on_live((sdk - pser[1]).abs()).max().item(),
+                        dv=on_live((sdv - pser[2]).abs()).max().item()))
+                pairs = ((dq, pdq), (on_live(dk), pdk), (on_live(dv), pdv),
+                         (sdq, pser[0]), (on_live(sdk), pser[1]),
+                         (on_live(sdv), pser[2]))
+                close = all(torch.allclose(x, y, **GRAD_TOL[dtype])
+                            for x, y in pairs)
+                # the host path: dead rows zeroed, before the GQA fold
+                torch.use_deterministic_algorithms(True)
+                try:
+                    hdq, hdk, hdv = FB.flash_bwd(q, k, v, out, lse, do,
+                                                 schedule, n_heads=h,
+                                                 n_kv_heads=hk, mask=mask)
+                finally:
+                    torch.use_deterministic_algorithms(False)
+                host_ok = all(bool(torch.isfinite(x).all())
+                              and bool((x.where(~live, 0.0) == 0).all())
+                              for x in (hdk, hdv)) and bool(
+                                  torch.isfinite(hdq).all())
+                reps_equal = None
+                if name == "window" and dtype == torch.bfloat16:
+                    reps_equal = True
+                    for _ in range(20):
+                        again = FB.worker_bwd_cuda(*args, schedule, scale,
+                                                   False, h, hk, mask)
+                        again_dq = FB.fold_cuda(again[0], visited, FB.BLOCK)
+                        reps_equal &= (torch.equal(again_dq, dq)
+                                       and torch.equal(on_live(again[1]),
+                                                       on_live(dk))
+                                       and torch.equal(on_live(again[2]),
+                                                       on_live(dv)))
+                torch.cuda.synchronize()
+                ok = (fwd_ok and bitwise and close and host_ok
+                      and reps_equal is not False)
+                results.append(dict(
+                    mask=name, key=mask.key(), dtype=str(dtype).split(".")[-1],
+                    heads=[h, hk], tasks=int(wc["valid"].sum()),
+                    partial_tiles=len(schedule.partial_cells),
+                    dead_kv_rows=n_dead, max_abs_err=err,
+                    max_rel_err_lse=err_lse,
+                    serial_bitwise_eq_worker_fold=bitwise,
+                    host_dead_rows_zero=host_ok, reps20_bitwise=reps_equal,
+                    ok=ok))
+                if not ok:
+                    failed.append(f"{name}/{dtype}/hk={hk}")
+    print("[kernel-check] mask " + json.dumps(results), flush=True)
+    if failed:
+        raise AssertionError(f"block-sparse mask kernels failed their checks "
+                             f"in {failed}")
+    return results
+
+
 def _timed(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -293,9 +457,14 @@ def _timed(fn):
 
 
 @torch.inference_mode()
-def run_slice():
-    cfg = registry.get(SLICE["arch"]).replace(attention_impl="cuda")
-    b, s, n = SLICE["batch"], SLICE["prompt"], SLICE["gen"]
+def run_slice(slice_=SLICE, label="slice"):
+    """The static engine at full width and depth: greedy, twice (bitwise
+    equal tokens), the prefill's attention launches (the causal forward, or
+    the block-sparse one under a window, once per layer), prefill logits vs
+    the plain attention's, prefill ms and decode tok/s."""
+    cfg = registry.get(slice_["arch"]).replace(attention_impl="cuda",
+                                               attn_window=slice_["window"])
+    b, s, n = slice_["batch"], slice_["prompt"], slice_["gen"]
     params = T.init(cfg, seed=0, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
     prompt = torch.randint(1, cfg.vocab, (b, s), generator=gen, device="cuda")
@@ -303,13 +472,15 @@ def run_slice():
     engine = Engine(cfg, params, max_seq=s + n)
 
     torch.cuda.reset_peak_memory_stats()
-    FF.launches = 0
+    _zero_counts()
     tokens, t_run = _timed(lambda: engine.generate(batch, n))
-    launches = FF.launches
+    counts = _counts()
+    kind = "fwd_mask" if cfg.attn_window else "fwd_causal"
+    launches = counts[kind]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    if launches != cfg.n_layers:
-        raise AssertionError(f"prefill launched the attention kernel "
-                             f"{launches} times, expected {cfg.n_layers}")
+    if launches != cfg.n_layers or sum(counts.values()) != launches:
+        raise AssertionError(f"prefill launched {counts}, expected "
+                             f"{cfg.n_layers} of {kind} and nothing else")
     if tokens.shape != (b, n) or not bool(
             ((tokens >= 0) & (tokens < cfg.padded_vocab)).all()):
         raise AssertionError(f"tokens out of range or misshapen: "
@@ -337,13 +508,13 @@ def run_slice():
     same_argmax = (logits.argmax(-1) == plain_logits.argmax(-1)).float().mean()
     result = dict(
         arch=cfg.name, params=count_params(params), batch=b, prompt=s,
-        new_tokens=n, attention_launches=launches,
+        new_tokens=n, attn_window=cfg.attn_window, attention_launches=launches,
         run_s=t_run, prefill_ms=t_prefill * 1e3,
         decode_tok_per_s=b * (n - 1) / t_decode, peak_mem_gb=peak_gb,
         tokens_bitwise_equal=True, logits_max_abs_err_vs_plain=err,
         logits_atol=LOGITS_ATOL, max_abs_logit=plain_logits.abs().max().item(),
         argmax_agreement=same_argmax.item(), tokens_row0=tokens[0, :8].tolist())
-    print("[slice] " + json.dumps(result), flush=True)
+    print(f"[{label}] " + json.dumps(result), flush=True)
     if not finite or err > LOGITS_ATOL:
         raise AssertionError(f"prefill logits: finite={finite}, max |cuda - "
                              f"plain| = {err} > {LOGITS_ATOL}")
@@ -366,14 +537,18 @@ def _attn_grads(cfg, params, batch):
     return {p: g for (p, _), g in zip(wanted, grads)}
 
 
-def run_train():
+def run_train(argv=TRAIN_ARGV, label="train"):
     """StableLM-1.6B at full width and depth, 3 AdamW steps through the train
-    launcher (``repro_torch.launch.train.main``, the DASH kernels), twice
-    from seed 0; the launcher's step 1 against the plain attention's on the
-    same weights and batch; step 3 of the second run under the profiler."""
-    args, cfg, tcfg, data, device = launch_train.configure(TRAIN_ARGV)
-    want = dict(fwd_causal=2 * cfg.n_layers, fwd_full=0,
+    launcher (``repro_torch.launch.train.main``, the DASH kernels) with the
+    flags ``argv``, twice from seed 0; the launcher's step 1 against the
+    plain attention's on the same weights and batch (with a window: the
+    plain masked, query-chunked attention); step 3 of the second run under
+    the profiler."""
+    args, cfg, tcfg, data, device = launch_train.configure(argv)
+    fwd = "fwd_mask" if cfg.attn_window else "fwd_causal"
+    want = dict(fwd_causal=0, fwd_full=0, fwd_mask=0,
                 bwd_worker=cfg.n_layers, bwd_serial=0, fold=cfg.n_layers)
+    want[fwd] = 2 * cfg.n_layers
     batch0 = data.batch(0)
 
     # step 1 on the plain attention, and the attention grads both ways
@@ -413,12 +588,12 @@ def run_train():
                 changed.append(sum(int((x != y).sum()) for x, y in zip(
                     O.tree_leaves(state["params"]), O.tree_leaves(initial))))
 
-        argv = TRAIN_ARGV + (["--profile-step", str(args.steps)] if run
-                             else [])
+        run_argv = argv + (["--profile-step", str(args.steps)] if run
+                           else [])
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _zero_counts()
-        summary = launch_train.main(argv, on_step=on_step)
+        summary = launch_train.main(run_argv, on_step=on_step)
         runs.append(dict(summary, launches=counts, step1=metrics1,
                          peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                          params_changed=changed[0] if changed else None))
@@ -438,7 +613,8 @@ def run_train():
         first["plain_grad_norm"])
     result = dict(
         arch=cfg.name, batch=args.batch, seq=args.seq, steps=args.steps,
-        entry="repro_torch.launch.train.main " + " ".join(TRAIN_ARGV),
+        attn_window=cfg.attn_window,
+        entry="repro_torch.launch.train.main " + " ".join(argv),
         # a hash chain over every step's state digest: equal heads mean
         # equal params and moments after every step
         digest_chain_heads=[a["digest_chain_head"], b_["digest_chain_head"]],
@@ -452,8 +628,8 @@ def run_train():
         loss_rel_diff=rel_loss, loss_rtol=LOSS_RTOL, gnorm_rel_diff=rel_gn,
         gnorm_rtol=GNORM_RTOL, attn_grad_rel_err=attn_err,
         attn_grad_rtol=ATTN_GRAD_RTOL)
-    print("[train] " + json.dumps(result), flush=True)
-    print("[train-profile] " + json.dumps(dict(
+    print(f"[{label}] " + json.dumps(result), flush=True)
+    print(f"[{label}-profile] " + json.dumps(dict(
         step=args.steps, wall_ms_traced=b_["step_ms"][-1],
         device_busy_ms=prof["busy_ms"],
         device_busy_share_of_steady_step=prof["busy_ms"] / steady,
@@ -475,11 +651,37 @@ def run_train():
     return result
 
 
+def _op_path(q, k, v, do, dtype, kw, ref_kw):
+    """One ``dash_attention`` path forward + backward, its launches counted
+    from zero, against ``torch_attention(**ref_kw)`` on the same inputs."""
+    x = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    torch.cuda.synchronize()
+    _zero_counts()
+    out = ops.dash_attention(*x, **kw)
+    grads = torch.autograd.grad(out, x, do)
+    torch.cuda.synchronize()
+    counts = _counts()
+    y = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = ops.torch_attention(*y, **ref_kw)
+    ref_grads = torch.autograd.grad(ref, y, do)
+    err = [(g.float() - r.float()).abs().max().item()
+           for g, r in zip((out,) + grads, (ref,) + ref_grads)]
+    ok = (torch.allclose(out.float(), ref.float(), atol=OUT_TOL[dtype],
+                         rtol=OUT_TOL[dtype])
+          and all(torch.allclose(g.float(), r.float(), **GRAD_TOL[dtype])
+                  for g, r in zip(grads, ref_grads)))
+    return out.detach(), dict(launches=counts, max_abs_err=dict(
+        zip(("out", "dq", "dk", "dv"), err)), ok=ok)
+
+
 def run_ops():
     """``dash_attention`` forward + backward at the training shape, through
     its default path (causal, worker-parallel + fold) and its two others,
-    against the plain op at the reference's grad tolerances; each path's
-    launches are counted from zero."""
+    and at the windowed training shape with the 1024-token window
+    (worker-parallel + fold, and serialized), against the plain op at the
+    reference's grad tolerances (the window's: masked and query-chunked);
+    each path's launches are counted from zero. The window's output must
+    also differ from the causal op's beyond the window."""
     name, b, h, hk, s, d, dtype = TRAIN_CASES[0]
     gen = torch.Generator(device="cuda").manual_seed(5)
     q, k, v, do = (torch.randn((b, h, s, d), generator=gen, device="cuda")
@@ -489,35 +691,39 @@ def run_ops():
                       ("full_shift", dict(causal=False, schedule="shift")),
                       ("causal_serialized", dict(causal=True,
                                                  worker_parallel=False))):
-        x = [t.clone().requires_grad_(True) for t in (q, k, v)]
-        torch.cuda.synchronize()
-        _zero_counts()
-        out = ops.dash_attention(*x, **kw)
-        grads = torch.autograd.grad(out, x, do)
-        torch.cuda.synchronize()
-        counts = _counts()
-        y = [t.clone().requires_grad_(True) for t in (q, k, v)]
-        ref = ops.torch_attention(*y, causal=kw["causal"])
-        ref_grads = torch.autograd.grad(ref, y, do)
-        err = [(g.float() - r.float()).abs().max().item()
-               for g, r in zip((out,) + grads, (ref,) + ref_grads)]
-        ok = (torch.allclose(out.float(), ref.float(), atol=OUT_TOL[dtype],
-                             rtol=OUT_TOL[dtype])
-              and all(torch.allclose(g.float(), r.float(), **GRAD_TOL[dtype])
-                      for g, r in zip(grads, ref_grads)))
-        results[label] = dict(launches=counts, max_abs_err=dict(
-            zip(("out", "dq", "dk", "dv"), err)), ok=ok)
+        _, results[label] = _op_path(q, k, v, do, dtype, kw,
+                                     dict(causal=kw["causal"]))
+    name, b, h, hk, s, d, dtype = WINDOW_CASE
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    q, k, v, do = (torch.randn((b, h, s, d), generator=gen, device="cuda")
+                   .to(dtype) for _ in range(4))
+    ref_kw = dict(mask=WINDOW, chunk_q=1024)
+    out, results["window_default"] = _op_path(q, k, v, do, dtype,
+                                              dict(mask=WINDOW), ref_kw)
+    _, results["window_serialized"] = _op_path(
+        q, k, v, do, dtype, dict(mask=WINDOW, worker_parallel=False), ref_kw)
+    with torch.no_grad():
+        causal = ops.dash_attention(q, k, v, causal=True)
+    beyond = WINDOW.window
+    gap = (causal[:, :, beyond:].float() - out[:, :, beyond:].float()).abs()
+    results["window_default"]["max_abs_diff_vs_causal_beyond_window"] = (
+        gap.max().item())
+    window_dropped = gap.max().item() <= OUT_TOL[dtype]
     print("[ops] " + json.dumps(results), flush=True)
     if not all(r["ok"] for r in results.values()):
         raise AssertionError(f"dash_attention disagrees with the plain op: "
                              f"{results}")
+    if window_dropped:
+        raise AssertionError("the windowed op equals the causal op beyond "
+                             "the window: the window was dropped")
+    none = dict(fwd_causal=0, fwd_full=0, fwd_mask=0, bwd_worker=0,
+                bwd_serial=0, fold=0)
     want = dict(
-        causal_default=dict(fwd_causal=1, fwd_full=0, bwd_worker=1,
-                            bwd_serial=0, fold=1),
-        full_shift=dict(fwd_causal=0, fwd_full=1, bwd_worker=1, bwd_serial=0,
-                        fold=1),
-        causal_serialized=dict(fwd_causal=1, fwd_full=0, bwd_worker=0,
-                               bwd_serial=1, fold=0))
+        causal_default=dict(none, fwd_causal=1, bwd_worker=1, fold=1),
+        full_shift=dict(none, fwd_full=1, bwd_worker=1, fold=1),
+        causal_serialized=dict(none, fwd_causal=1, bwd_serial=1),
+        window_default=dict(none, fwd_mask=1, bwd_worker=1, fold=1),
+        window_serialized=dict(none, fwd_mask=1, bwd_serial=1))
     if any(results[k]["launches"] != w for k, w in want.items()):
         raise AssertionError(f"unexpected launches: {results}")
     return results
@@ -550,15 +756,19 @@ def _bound(moved_bytes, flops, dtype):
                                        else "operations")
 
 
-def bound_fwd(q, k, v, causal, block=FF.BLOCK):
+def bound_fwd(q, k, v, causal, block=FF.BLOCK, mask=None):
     """Least time for the forward on these inputs: q, k, v read once, out
     and lse written once, against the live tiles' products (QK^T and PV, 2
-    flops per multiply-add) at the peak rate of the dtype."""
+    flops per multiply-add; under a mask, the tiles of its grid) at the peak
+    rate of the dtype."""
     bh, s, d = q.shape
     sk = k.shape[1]
     moved = (q.numel() + k.numel() + v.numel() + q.numel()) * q.element_size()
     moved += bh * s * 4
-    if causal:
+    if mask is not None:
+        n_tiles = len(FF.mask_grid(mask, s // block, s // block, block,
+                                   block)[0])
+    elif causal:
         n_tiles = len(FF.causal_grid(s // block, s // block, block, block)[0])
     else:
         n_tiles = (s // block) * (sk // block)
@@ -593,15 +803,24 @@ def bound_fold(part, visited, block=FB.BLOCK):
 
 
 def _entry(name, source, replaces, launches, path, err, ms, plain_ms, bound,
-           library_ms):
+           library_ms, tasks=None):
+    """One kernel's entry of the ``{"kernels": ...}`` line. The worker
+    backward also reports its tasks (over all bh) and the time a task holds
+    an SM (ms · SMs / tasks), which compares schedules and masks."""
     t = dict(name=name, route="cuda", source=source, replaces=replaces,
              launches=launches, launch_path=path, max_abs_err=err, ms=ms,
              plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
              library_ms=library_ms)
+    per_task = ""
+    if tasks is not None:
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        t.update(tasks=tasks, us_per_task_per_sm=ms * 1e3 * sms / tasks)
+        per_task = (f", {tasks} tasks, {t['us_per_task_per_sm']:.1f} us a "
+                    f"task per SM")
     print(f"[timing] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"library {'-' if library_ms is None else f'{library_ms:.4f}'} ms, "
           f"bound {bound[0]:.4f} ms ({bound[1]}), {bound[0] / ms:.1%} of "
-          f"bound", flush=True)
+          f"bound{per_task}", flush=True)
     return t
 
 
@@ -681,6 +900,7 @@ def time_backward(bwd_check, launches):
     do4 = do.view(b, h, s, d)
     library_ms = _ms(lambda: torch.autograd.grad(sdpa, (q4, k4, v4), do4,
                                                  retain_graph=True), reps=20)
+    tasks = b * h * int(wc["valid"].sum())
     errs = next(c for c in bwd_check if c["case"] == "train"
                 and c["schedule"] == "symmetric_shift")["max_abs_err"]
     worker_err = max(errs["worker"].values())
@@ -690,7 +910,8 @@ def time_backward(bwd_check, launches):
         _entry("flash_bwd_worker", src + "flash_bwd.cu",
                "src/repro/kernels/flash_bwd.py:249", launches["bwd_worker"],
                "train step (one per layer)", worker_err, worker_ms,
-               worker_plain_ms, bound_bwd(q, k, schedule, True), library_ms),
+               worker_plain_ms, bound_bwd(q, k, schedule, True), library_ms,
+               tasks),
         _entry("flash_bwd_serial", src + "flash_bwd.cu",
                "src/repro/kernels/flash_bwd.py:132", launches["bwd_serial"],
                "dash_attention(causal=True, worker_parallel=False) fwd + bwd",
@@ -700,6 +921,74 @@ def time_backward(bwd_check, launches):
                launches["fold"], "train step (dQ combine, one per layer)",
                errs["fold"], fold_ms, fold_plain_ms,
                bound_fold(part, visited), None),
+    ]
+
+
+def time_masks(mask_check, launches):
+    """The block-sparse forward and both masked backwards at the windowed
+    training slice's attention shape (B=1, H=32, S=4096, D=64, bf16, the
+    1024-token window), beside their plain versions and SDPA with the dense
+    boolean window mask (forward; backward through autograd)."""
+    name, b, h, hk, s, d, dtype = WINDOW_CASE
+    scale = d ** -0.5
+    q, k, v, do, out, lse, delta = _bwd_operands(b, h, hk, s, d, dtype, False,
+                                                 seed=3, mask=WINDOW)
+    fwd_ms = _ms(lambda: FF.flash_fwd_mask_cuda(q, k, v, scale, h, hk,
+                                                WINDOW), reps=50)
+    fwd_plain_ms = _ms(lambda: FF.flash_fwd_plain(q, k, v, scale, h, hk,
+                                                  mask=WINDOW), reps=2,
+                       rounds=3)
+    q4, k4, v4 = (x.view(b, -1, s, d).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    dense = torch.from_numpy(WINDOW.materialize(s)).cuda()
+    with torch.no_grad():
+        fwd_library_ms = _ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=dense, scale=scale), reps=20)
+    schedule = cached_schedule("shift", s // FB.BLOCK, mask=WINDOW)
+    wc = schedule.worker_chains()
+    args = (q, k, v, do, lse, delta)
+    worker_ms = _ms(lambda: FB.worker_bwd_cuda(*args, schedule, scale, False,
+                                               h, hk, WINDOW), reps=10)
+    serial_ms = _ms(lambda: FB.serial_bwd_cuda(*args, schedule, scale, False,
+                                               h, hk, WINDOW), reps=3)
+    worker_plain_ms = _ms(lambda: FB.worker_bwd_plain(
+        *args, wc, scale, False, FB.BLOCK, FB.BLOCK, h, hk, WINDOW), reps=1,
+        rounds=3, warmup=1)
+    kv_ids, q_ids = schedule.prefetch_arrays()
+    first = FB.first_visit_flags(kv_ids, q_ids)
+    serial_plain_ms = _ms(lambda: FB.serial_bwd_plain(
+        *args, kv_ids, q_ids, first, scale, False, FB.BLOCK, FB.BLOCK, h, hk,
+        WINDOW), reps=1, rounds=3, warmup=1)
+    sdpa = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=dense,
+                                          scale=scale)
+    do4 = do.view(b, h, s, d)
+    bwd_library_ms = _ms(lambda: torch.autograd.grad(
+        sdpa, (q4, k4, v4), do4, retain_graph=True), reps=10)
+    tasks = b * h * int(wc["valid"].sum())
+    window_checks = [c for c in mask_check if c["mask"] == "window"]
+    fwd_err = max(c["max_abs_err"]["fwd"] for c in window_checks)
+    worker_err = max(max(c["max_abs_err"]["worker"].values())
+                     for c in window_checks)
+    serial_err = max(max(c["max_abs_err"]["serial"].values())
+                     for c in window_checks)
+    src = "src/repro_torch/kernels/csrc/"
+    return [
+        _entry("flash_fwd_mask", src + "flash_fwd.cu",
+               "src/repro/kernels/flash_fwd.py:198", launches["fwd_mask"],
+               "windowed train step (remat: 2 per layer)", fwd_err, fwd_ms,
+               fwd_plain_ms, bound_fwd(q, k, v, False, mask=WINDOW),
+               fwd_library_ms),
+        _entry("flash_bwd_worker_mask", src + "flash_bwd.cu",
+               "src/repro/kernels/flash_bwd.py:249", launches["bwd_worker"],
+               "windowed train step (one per layer)", worker_err, worker_ms,
+               worker_plain_ms, bound_bwd(q, k, schedule, True),
+               bwd_library_ms, tasks),
+        _entry("flash_bwd_serial_mask", src + "flash_bwd.cu",
+               "src/repro/kernels/flash_bwd.py:132", launches["bwd_serial"],
+               "dash_attention(mask=SlidingWindow(1024), "
+               "worker_parallel=False) fwd + bwd", serial_err, serial_ms,
+               serial_plain_ms, bound_bwd(q, k, schedule, False),
+               bwd_library_ms),
     ]
 
 
@@ -714,18 +1003,26 @@ def main():
     fwd_check = check_forward(True, KERNEL_CASES + TRAIN_CASES[:1])
     full_check = check_forward(False, TRAIN_CASES)
     bwd_check = check_backward()
+    mask_check = check_masks()
     serve = run_slice()
+    serve_window = run_slice(SLICE_WINDOW, "slice-window")
     train = run_train()
+    train_window = run_train(TRAIN_WINDOW_ARGV, "train-window")
     op_paths = run_ops()
     launches = dict(train["launches_per_step"])
     launches["fwd_full"] = op_paths["full_shift"]["launches"]["fwd_full"]
     launches["bwd_serial"] = op_paths["causal_serialized"]["launches"][
         "bwd_serial"]
+    window_launches = dict(train_window["launches_per_step"])
+    window_launches["bwd_serial"] = op_paths["window_serialized"][
+        "launches"]["bwd_serial"]
     kernels = time_forward(fwd_check, full_check, launches)
     kernels += time_backward(bwd_check, launches)
+    kernels += time_masks(mask_check, window_launches)
     print(f"[done] serving prefill launched the causal forward "
-          f"{serve['attention_launches']} times; {time.perf_counter() - t0:.1f}"
-          f"s in all", flush=True)
+          f"{serve['attention_launches']} times, the windowed one the "
+          f"block-sparse forward {serve_window['attention_launches']} times; "
+          f"{time.perf_counter() - t0:.1f}s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

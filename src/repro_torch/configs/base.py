@@ -36,6 +36,8 @@ class ModelConfig:
     attention_impl: str = "torch"  # torch | cuda (DASH kernels)
     dash_schedule: str = "symmetric_shift_or_shift"
     attn_chunk_q: int = 1024       # q-chunked attention above this seq
+    attn_window: int = 0           # sliding-window size in tokens (0 = full);
+                                   # lowers as masks.SlidingWindow on both impls
     # structure
     block_pattern: Tuple[str, ...] = ("attn",)
     # numerics

@@ -3,8 +3,9 @@
 Port of ``repro.core.schedules``; numpy only, so the code is the reference's
 own. The integer arrays it emits (``prefetch_arrays``, ``worker_chains``) are
 held equal to the reference's by ``tests/test_torch_schedules.py``. Ragged
-(block-sparse mask) schedules and the tuner's placement come with the masks
-slice: ``mask=`` and ``tune=`` raise here.
+(block-sparse mask) schedules come from :mod:`repro_torch.masks.schedule`
+through ``make_schedule(mask=)`` / ``cached_schedule(mask=)``; the tuner's
+placement (``tune=``) is not ported and raises.
 
 The deterministic backward pass processes tasks ``(head, kv_tile, q_tile)``. Each task
 has a compute phase (cost ``c``) producing local dK/dV contributions plus a partial
@@ -34,8 +35,7 @@ Four generators are provided, mirroring the paper:
 
 A Schedule can also carry an explicit **ragged** cell set (``cells``, from a
 block-sparse mask's block map); ``validate()``/``worker_chains()``/
-``prefetch_arrays()`` operate on it as in the reference. The port builds no
-ragged schedule yet.
+``prefetch_arrays()`` operate on it as in the reference.
 
 Schedules are plain data: here they drive the backward kernels of
 :mod:`repro_torch.kernels.flash_bwd` (the serialized task list and the padded
@@ -376,12 +376,6 @@ GENERATORS = {
 }
 
 
-def _no_masks(what: str):
-    raise NotImplementedError(
-        f"{what} (block-sparse mask schedules) is not ported yet (ROADMAP "
-        f"queue A, masks slice)")
-
-
 def make_schedule(name: str, n: int, n_heads: int = 1, causal: bool = False,
                   n_q: int | None = None, mask=None, block_q: int = 128,
                   block_k: int = 128) -> Schedule:
@@ -390,10 +384,22 @@ def make_schedule(name: str, n: int, n_heads: int = 1, causal: bool = False,
     ``n_q`` reaches the rectangular-grid generators (``fa3``, ``shift``);
     ``descending`` / ``symmetric_shift`` are square by construction (their
     KV-row folds pair rows with columns) and reject a differing ``n_q``.
-    ``mask=`` (the block-sparse compiler) raises until the masks slice.
+
+    ``mask`` (a :class:`repro_torch.masks.spec.MaskSpec`) routes to the
+    block-sparse compiler instead: ``name`` then selects the *placement*
+    (``shift`` or ``fa3``), ``n``/``n_q`` are tile counts and
+    ``block_q``/``block_k`` the tile sizes the block map is classified at.
     """
     if mask is not None:
-        _no_masks("make_schedule(mask=...)")
+        from repro_torch.masks.schedule import compile_block_schedule
+        if name not in ("shift", "fa3"):
+            raise ValueError(
+                f"block-sparse masks support placements ('shift', 'fa3'); "
+                f"got {name!r} (descending/symmetric_shift pair KV rows with "
+                "columns and require square triangular masks)")
+        return compile_block_schedule(mask, n_kv=n, n_q=n if n_q is None
+                                      else n_q, block_q=block_q,
+                                      block_k=block_k, placement=name)
     if name == "fa3":
         return fa3(n, n_heads, causal, n_q=n_q)
     if name in ("descending", "symmetric_shift") and n_q not in (None, n):
@@ -421,28 +427,43 @@ SCHEDULE_CACHE_MAXSIZE = 256
 
 
 @functools.lru_cache(maxsize=SCHEDULE_CACHE_MAXSIZE)
-def _cached_schedule(name, n, n_heads, causal, n_q, block_q, block_k):
+def _cached_schedule(name, n, n_heads, causal, n_q, mask, block_q, block_k):
+    if mask is not None:
+        if name not in ("shift", "fa3"):
+            # same guard as make_schedule, before touching the mask cache
+            return make_schedule(name, n, n_heads=n_heads, causal=causal,
+                                 n_q=n_q, mask=mask, block_q=block_q,
+                                 block_k=block_k)
+        from repro_torch.masks.schedule import cached_block_schedule
+        return cached_block_schedule(mask, n, n if n_q is None else n_q,
+                                     block_q, block_k, name)
     return make_schedule(name, n, n_heads=n_heads, causal=causal, n_q=n_q,
-                         block_q=block_q, block_k=block_k)
+                         mask=mask, block_q=block_q, block_k=block_k)
 
 
 def cached_schedule(name: str, n: int, n_heads: int = 1, causal: bool = False,
                     n_q: int | None = None, mask=None, block_q: int = 128,
                     block_k: int = 128, tune: bool = False) -> Schedule:
     """Memoized :func:`make_schedule` keyed by
-    ``(name, n_kv=n_workers=n, n_q, n_heads, causal, block_q, block_k)``.
+    ``(name, n_kv=n_workers=n, n_q, n_heads, causal, mask, block_q,
+    block_k)``.
 
+    The **mask spec is part of the key** (specs are frozen and hashable): two
+    distinct block-sparse masks with equal tile counts are never handed the
+    same schedule. Block-sparse schedules delegate to
+    :func:`repro_torch.masks.schedule.cached_block_schedule`, so both entry
+    points hand out the same instance per (mask, tiling, placement).
     Reusing one instance also shares the derived kernel arrays memoized on it
-    (:meth:`Schedule.worker_chains`, :meth:`Schedule.prefetch_arrays` and the
-    device copies the backward kernels keep there). ``mask=`` and ``tune=``
-    raise until the masks slice.
+    (:meth:`Schedule.worker_chains`, :meth:`Schedule.prefetch_arrays`).
+    ``tune=`` (the reference's placement tuner) is not ported and raises.
     """
-    if mask is not None:
-        _no_masks("cached_schedule(mask=...)")
     if tune:
-        _no_masks("cached_schedule(tune=True)")
+        raise NotImplementedError(
+            "cached_schedule(tune=True): the placement tuner is not ported "
+            "yet (ROADMAP queue A, observability and tuner)")
     # normalize to positional: lru_cache keys kwargs separately
-    return _cached_schedule(name, n, n_heads, causal, n_q, block_q, block_k)
+    return _cached_schedule(name, n, n_heads, causal, n_q, mask,
+                            block_q, block_k)
 
 
 cached_schedule.cache_info = _cached_schedule.cache_info

@@ -2,8 +2,8 @@
 
 Each source ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``<repo>/build/repro_torch/lib<name>-<hash>.so``
-(the hash is the source's, so an edited source never loads a stale build),
-then loaded with :mod:`ctypes`. Building happens at first use, never at
+(the hash covers the source and the headers beside it, so an edited source
+never loads a stale build), then loaded with :mod:`ctypes`. Building happens at first use, never at
 import; :func:`build` compiles several sources at once, one ``nvcc`` process
 each, all started together.
 """
@@ -38,8 +38,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    """The build of ``csrc/<name>.cu``, named by a hash of the source and of
+    every header in ``csrc/``."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, dict]:

@@ -11,7 +11,8 @@
 //     in that order -- entry point dash_flash_bwd_serial.
 //
 // Same function per task (kv tile, q tile), _task_grads of the reference:
-//   p  = exp(q k^T * scale - lse)   (0 where causal masks the lane)
+//   p  = exp(q k^T * scale - lse)   (0 where the causal or the block-sparse
+//                                    mask hides the lane)
 //   ds = p * (do v^T - delta) * scale
 //   dv += p^T do,  dk += ds^T q  (accumulated over the KV row's contiguous
 //   run: the first task of a run writes, the rest add), dq_task = ds k
@@ -19,8 +20,19 @@
 // delta = rowsum(do * out) and the natural-log lse come from the host.
 // dK/dV are per query head; the GQA fold over a KV group is fold.cu's.
 //
+// Block-sparse masks (the masked mode of both TPU kernels, _task_grads with
+// mask_spec): the schedule is the mask's compiled ragged schedule, so EMPTY
+// tiles never appear as tasks; a per-task int32 flag (from
+// Schedule.partial_cells, aligned with the task arrays) marks PARTIAL
+// tiles, on which the spec's mask program (mask_program.cuh) decides each
+// lane from absolute positions and a masked lane gets p = 0 exactly. FULL
+// tiles run the unmasked math, bitwise what the reference's all-ones
+// multiply gives. Ragged chains are padded with sentinel steps (valid == 0),
+// which are skipped. KV rows the mask leaves without a task are never
+// written; the host zeroes them.
+//
 // Bitwise contract: the serialized kernel equals worker kernel + fold, bit
-// for bit, on every single-visit schedule. Both kernels call the one
+// for bit, on every single-visit schedule, masked or not. Both kernels call the one
 // __device__ function bwd_task with the same thread-to-element mapping. A
 // task's dQ contribution is summed in fresh registers and only then added
 // to the target, so every dQ column is the same left fold of per-worker
@@ -51,6 +63,8 @@
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mask_program.cuh"
 
 namespace {
 
@@ -134,14 +148,16 @@ __device__ __forceinline__ void put4(float* dst, const float x[4],
 //   q, dout, lse, delta: the q tile's rows; k, v: the kv tile's rows;
 //   dq: the q tile's rows of the dQ target (written if q_first, else added);
 //   dk, dv: the kv tile's rows (written if chain_first, else added);
-//   q0, k0: first global q / kv row (for the causal mask).
+//   q0, k0: first global q / kv row (for the causal and block-sparse mask);
+//   tile_masked: a PARTIAL tile of a block-sparse mask, whose lanes `prog`
+//   decides.
 template <int D, typename T>
 __device__ __forceinline__ void bwd_task(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, float* dq, float* dk, float* dv, int q0,
-    int k0, bool causal, bool q_first, bool chain_first, float scale,
-    float* sm) {
+    int k0, bool causal, bool tile_masked, const dash_mask::Program& prog,
+    bool q_first, bool chain_first, float scale, float* sm) {
   using L = Layout<D>;
   constexpr int LD = L::LD, LP = L::LP;
   float* sq = sm + L::Q;
@@ -178,6 +194,19 @@ __device__ __forceinline__ void bwd_task(
     // S = q k^T and dP = do v^T: rows tr + 32 i, columns tc + 8 j
     {
       const int tr = tid >> 3, tc = tid & 7;
+      // a PARTIAL task: the mask program on this thread's 16 lanes (bit
+      // 4 i + j), before the products' accumulators are live
+      unsigned live = 0xffffu;
+      if (tile_masked) {
+        live = 0u;
+#pragma unroll 1
+        for (int i = 0; i < 4; ++i)
+#pragma unroll 1
+          for (int j = 0; j < 4; ++j)
+            live |= unsigned(dash_mask::visible(prog, q0 + tr + 32 * i,
+                                                k0 + sub * KS + tc + 8 * j))
+                    << (4 * i + j);
+      }
       float s[4][4], dp[4][4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -212,7 +241,8 @@ __device__ __forceinline__ void bwd_task(
         for (int j = 0; j < 4; ++j) {
           const int c = tc + 8 * j;
           float p = 0.f;
-          if (!causal || k0 + sub * KS + c <= q0 + r)
+          if ((!causal || k0 + sub * KS + c <= q0 + r) &&
+              ((live >> (4 * i + j)) & 1u))
             p = expf(__fsub_rn(__fmul_rn(s[i][j], scale), l));
           sp[r * LP + c] = p;
           sds[r * LP + c] =
@@ -266,16 +296,19 @@ struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
   const int *kv_ids, *q_ids, *valid, *q_first;
+  const int* partial;  // per task, block-sparse only (else nullptr)
   float *dq, *dk, *dv;
   int seq, n_heads, n_kv_heads, n_workers, n_tasks;
   float scale;
   bool causal;
+  dash_mask::Program prog;  // n == 0: no block-sparse mask
 };
 
 // grid (bh, n_workers); each CTA plays its worker's padded chain of
 // a.n_tasks steps (the (W, T) arrays of Schedule.worker_chains()).
 template <int D, typename T>
-__global__ void __launch_bounds__(THREADS) worker_bwd(Args a) {
+__global__ void __launch_bounds__(THREADS)
+    worker_bwd(const __grid_constant__ Args a) {
   extern __shared__ __align__(16) float smem[];
   const int bh = blockIdx.x, w = blockIdx.y, seq = a.seq;
   const int kvh = kv_head_index(bh, a.n_heads, a.n_kv_heads);
@@ -296,9 +329,11 @@ __global__ void __launch_bounds__(THREADS) worker_bwd(Args a) {
     const int kv = kv_ids[t], qi = q_ids[t];
     const bool chain_first = t == 0 || kv_ids[t - 1] != kv;
     const size_t qo = static_cast<size_t>(qi) * BQ, ko = static_cast<size_t>(kv) * BK;
+    const bool masked =
+        a.partial != nullptr && a.partial[w * a.n_tasks + t] != 0;
     bwd_task<D, T>(q + qo * D, k + ko * D, v + ko * D, dout + qo * D,
                    lse + qo, delta + qo, dq + qo * D, dk + ko * D,
-                   dv + ko * D, qi * BQ, kv * BK, a.causal,
+                   dv + ko * D, qi * BQ, kv * BK, a.causal, masked, a.prog,
                    a.q_first[w * a.n_tasks + t] != 0, chain_first, a.scale,
                    smem);
   }
@@ -307,7 +342,8 @@ __global__ void __launch_bounds__(THREADS) worker_bwd(Args a) {
 // grid (bh); each CTA plays the serialized task list of a.n_tasks steps
 // (Schedule.prefetch_arrays(), every worker chain in turn).
 template <int D, typename T>
-__global__ void __launch_bounds__(THREADS) serial_bwd(Args a) {
+__global__ void __launch_bounds__(THREADS)
+    serial_bwd(const __grid_constant__ Args a) {
   extern __shared__ __align__(16) float smem[];
   const int bh = blockIdx.x, seq = a.seq;
   const int kvh = kv_head_index(bh, a.n_heads, a.n_kv_heads);
@@ -325,9 +361,10 @@ __global__ void __launch_bounds__(THREADS) serial_bwd(Args a) {
     const int kv = a.kv_ids[t], qi = a.q_ids[t];
     const bool chain_first = t == 0 || a.kv_ids[t - 1] != kv;
     const size_t qo = static_cast<size_t>(qi) * BQ, ko = static_cast<size_t>(kv) * BK;
+    const bool masked = a.partial != nullptr && a.partial[t] != 0;
     bwd_task<D, T>(q + qo * D, k + ko * D, v + ko * D, dout + qo * D,
                    lse + qo, delta + qo, dq + qo * D, dk + ko * D,
-                   dv + ko * D, qi * BQ, kv * BK, a.causal,
+                   dv + ko * D, qi * BQ, kv * BK, a.causal, masked, a.prog,
                    a.q_first[t] != 0, chain_first, a.scale, smem);
   }
 }
@@ -346,9 +383,13 @@ cudaError_t launch(const Args& a, int bh, bool worker, cudaStream_t st) {
 
 int dispatch(const Args& a, int bh, int head_dim, int is_bf16, bool worker,
              void* stream) {
+  // a block-sparse mask needs its program and its per-task flags, and
+  // excludes the causal flag
+  const bool masked = a.prog.n != 0 || a.partial != nullptr;
   if (bh <= 0 || a.seq <= 0 || a.seq % BQ != 0 || a.n_kv_heads <= 0 ||
       a.n_heads % a.n_kv_heads != 0 || bh % a.n_heads != 0 ||
-      a.n_tasks <= 0 || a.n_workers <= 0)
+      a.n_tasks <= 0 || a.n_workers <= 0 ||
+      (masked && (a.prog.n <= 0 || a.partial == nullptr || a.causal)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
@@ -370,7 +411,11 @@ int dispatch(const Args& a, int bh, int head_dim, int is_bf16, bool worker,
 // n_kv_heads, seq, head_dim), one dtype (is_bf16: bf16, else fp32); lse and
 // delta (bh, seq) fp32; dk, dv (bh, seq, head_dim) fp32, per query head.
 // All contiguous on the current device; seq a multiple of 128, head_dim one
-// of 32, 64, 128. Launch on `stream` without synchronising; return
+// of 32, 64, 128. A block-sparse mask (causal == 0) passes `partial`, the
+// int32 PARTIAL flag of each task aligned with the task arrays, on the card;
+// `prog`, the host array [n, op_0, arg_0, ...] of mask_program.cuh; and
+// `info`, the spec's token_info on the card (or nullptr). Without a mask all
+// three are nullptr. Launch on `stream` without synchronising; return
 // cudaGetLastError() (0 on success).
 
 // Worker-parallel: kv_ids, q_ids, valid, q_first are the (n_workers,
@@ -379,17 +424,19 @@ int dispatch(const Args& a, int bh, int head_dim, int is_bf16, bool worker,
 extern "C" int dash_flash_bwd_worker(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* kv_ids, const void* q_ids,
-    const void* valid, const void* q_first, void* dq_part, void* dk,
-    void* dv, int bh, int seq, int head_dim, int n_heads, int n_kv_heads,
-    int n_workers, int max_chain, float sm_scale, int causal, int is_bf16,
-    void* stream) {
+    const void* valid, const void* q_first, const void* partial,
+    const void* info, const void* prog, void* dq_part, void* dk, void* dv,
+    int bh, int seq, int head_dim, int n_heads, int n_kv_heads, int n_workers,
+    int max_chain, float sm_scale, int causal, int is_bf16, void* stream) {
   const Args a{q, k, v, dout,
                static_cast<const float*>(lse), static_cast<const float*>(delta),
                static_cast<const int*>(kv_ids), static_cast<const int*>(q_ids),
                static_cast<const int*>(valid), static_cast<const int*>(q_first),
+               static_cast<const int*>(partial),
                static_cast<float*>(dq_part), static_cast<float*>(dk),
                static_cast<float*>(dv), seq, n_heads, n_kv_heads, n_workers,
-               max_chain, sm_scale, causal != 0};
+               max_chain, sm_scale, causal != 0,
+               dash_mask::program_from(static_cast<const int*>(prog), info)};
   return dispatch(a, bh, head_dim, is_bf16, true, stream);
 }
 
@@ -399,15 +446,18 @@ extern "C" int dash_flash_bwd_worker(
 extern "C" int dash_flash_bwd_serial(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* kv_ids, const void* q_ids,
-    const void* q_first, void* dq, void* dk, void* dv, int bh, int seq,
+    const void* q_first, const void* partial, const void* info,
+    const void* prog, void* dq, void* dk, void* dv, int bh, int seq,
     int head_dim, int n_heads, int n_kv_heads, int n_tasks, float sm_scale,
     int causal, int is_bf16, void* stream) {
   const Args a{q, k, v, dout,
                static_cast<const float*>(lse), static_cast<const float*>(delta),
                static_cast<const int*>(kv_ids), static_cast<const int*>(q_ids),
                nullptr, static_cast<const int*>(q_first),
+               static_cast<const int*>(partial),
                static_cast<float*>(dq), static_cast<float*>(dk),
                static_cast<float*>(dv), seq, n_heads, n_kv_heads, 1, n_tasks,
-               sm_scale, causal != 0};
+               sm_scale, causal != 0,
+               dash_mask::program_from(static_cast<const int*>(prog), info)};
   return dispatch(a, bh, head_dim, is_bf16, false, stream);
 }

@@ -24,7 +24,17 @@ bh. :func:`flash_bwd` and :func:`fold_combine` run the kernels for CUDA
 tensors and the plain versions for CPU tensors — never one in place of the
 other. GQA is native: K/V stay at ``B·Hk`` heads, dK/dV come out per query
 head and are folded per KV head in ascending query-head order by the same
-fold. Block-sparse masks (``mask=``) come with the masks slice and raise.
+fold.
+
+**Block-sparse masks** (``mask=``, a :class:`repro_torch.masks.spec.MaskSpec`):
+the schedule is the mask's own compiled ragged schedule (pinned by
+``Schedule.mask_key``), so EMPTY tiles are never tasks. On PARTIAL tiles the
+plain versions multiply ``p`` by the spec's ``tile_mask`` (the reference
+evaluates it on every task; on a FULL tile the all-ones multiply is bitwise
+a no-op, so the kernels skip it there) and the kernels run the spec's mask
+program; either way a masked lane is an exact zero, which keeps the two
+realizations bitwise equal under any mask. KV rows that no task visits are
+zeroed before the GQA fold (their dK/dV rows are never written).
 """
 from __future__ import annotations
 
@@ -38,7 +48,8 @@ import torch
 
 from repro_torch.core.schedules import Schedule
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_fwd import BLOCK, HEAD_DIMS, KERNEL_DTYPES
+from repro_torch.kernels.flash_fwd import (BLOCK, HEAD_DIMS, KERNEL_DTYPES,
+                                           mask_arrays, token_info)
 from repro_torch.kernels.gqa import kv_head_index, validate_group
 
 NEG_INF = -1e30
@@ -67,16 +78,29 @@ def first_visit_flags(kv_ids: np.ndarray, q_ids: np.ndarray) -> np.ndarray:
     return flags.astype(np.int32)
 
 
-# the schedules' task arrays and the GQA fold's all-ones mask as int32
-# tensors on the card, copied once per (content, device) and kept here
+def _partial_flags(schedule: Schedule, kv_ids: np.ndarray,
+                  q_ids: np.ndarray) -> np.ndarray:
+    """1 where task (kv_ids[i], q_ids[i]) is a PARTIAL tile of the schedule's
+    mask (any shape of task arrays; all 0 for a registry schedule)."""
+    cells = set(schedule.partial_cells)
+    flags = [int((int(kv), int(q)) in cells)
+             for kv, q in zip(kv_ids.ravel(), q_ids.ravel())]
+    return np.asarray(flags, np.int32).reshape(kv_ids.shape)
+
+
+# the schedules' task arrays, the GQA fold's all-ones mask and the masks'
+# live-row masks as tensors on the card, copied once per (content, device)
+# and kept here
 _DEVICE_ARRAYS: dict = {}
 
 
 def _device_arrays(schedule: Schedule, kind: str, device) -> dict:
     """The schedule's task arrays (``kind`` "worker" or "serial") as int32
-    tensors on ``device``. The cache key holds the chains themselves, so two
-    schedules share an entry only when their task lists are equal."""
-    key = (kind, schedule.n_q, schedule.chains, str(device))
+    tensors on ``device``, with each task's PARTIAL flag. The cache key holds
+    the chains and the partial cells themselves, so two schedules share an
+    entry only when their task lists and flags are equal."""
+    key = (kind, schedule.n_q, schedule.chains, schedule.partial_cells,
+           str(device))
     if key not in _DEVICE_ARRAYS:
         if kind == "worker":
             wc = schedule.worker_chains()
@@ -86,9 +110,23 @@ def _device_arrays(schedule: Schedule, kind: str, device) -> dict:
             kv_ids, q_ids = schedule.prefetch_arrays()
             arrays = dict(kv_ids=kv_ids, q_ids=q_ids,
                           q_first=first_visit_flags(kv_ids, q_ids))
+        arrays["partial"] = _partial_flags(schedule, arrays["kv_ids"],
+                                          arrays["q_ids"])
         _DEVICE_ARRAYS[key] = {
             n: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
             for n, a in arrays.items()}
+    return _DEVICE_ARRAYS[key]
+
+
+def _live_rows(schedule: Schedule, block: int, device) -> torch.Tensor:
+    """(S, 1) bool on ``device``: the KV rows some task of the (ragged)
+    schedule visits."""
+    key = ("live", schedule.n_kv, schedule.cells, block, str(device))
+    if key not in _DEVICE_ARRAYS:
+        live = np.zeros(schedule.n_kv * block, bool)
+        for kv, _ in schedule.cells:
+            live[kv * block:(kv + 1) * block] = True
+        _DEVICE_ARRAYS[key] = torch.from_numpy(live[:, None]).to(device)
     return _DEVICE_ARRAYS[key]
 
 
@@ -105,23 +143,39 @@ def _all_visited(group: int, n_tiles: int, device) -> torch.Tensor:
 # plain versions (any device; used for CPU tensors)
 # --------------------------------------------------------------------------- #
 def _task_grads(q, k, v, do, lse, delta, kv, qi, *, sm_scale, causal,
-                block_q, block_k):
+                block_q, block_k, mask_spec=None, q_info=None, k_info=None):
     """One (kv, q) tile of Algorithm 1, batched over bh, in fp32.
 
     q, do: (BH, block_q, D); k, v: (BH, block_k, D); lse, delta: (BH,
-    block_q). Returns the (dq, dk, dv) contributions of the task."""
+    block_q); q_info/k_info: the tile's slices of the mask's token_info.
+    Returns the (dq, dk, dv) contributions of the task."""
     s = torch.matmul(q, k.transpose(1, 2)) * sm_scale
-    if causal:
+    msk = None
+    if causal or mask_spec is not None:
         rows = qi * block_q + torch.arange(block_q, device=q.device)[:, None]
         cols = kv * block_k + torch.arange(block_k, device=q.device)[None, :]
+    if causal:
         s = torch.where(rows >= cols, s, torch.full_like(s, NEG_INF))
+    elif mask_spec is not None:
+        msk = mask_spec.tile_mask(rows, cols, q_info, k_info)
+        s = torch.where(msk, s, torch.full_like(s, NEG_INF))
     p = torch.exp(s - lse[..., None])
+    if msk is not None:
+        # exact-zero masked lanes: PARTIAL tiles contribute literal 0.0
+        # outside the mask; on FULL tiles msk is all ones and p·1.0 is p
+        p = p * msk.float()
     dp = torch.matmul(do, v.transpose(1, 2))
     ds = p * (dp - delta[..., None]) * sm_scale
     dv = torch.matmul(p.transpose(1, 2), do)
     dk = torch.matmul(ds.transpose(1, 2), q)
     dq = torch.matmul(ds, k)
     return dq, dk, dv
+
+
+def _info_slices(info, qs, ks):
+    if info is None:
+        return {}
+    return dict(q_info=info[qs], k_info=info[ks])
 
 
 def _plain_operands(q, k, v, do, n_heads, n_kv_heads):
@@ -132,13 +186,15 @@ def _plain_operands(q, k, v, do, n_heads, n_kv_heads):
 
 
 def worker_bwd_plain(q, k, v, do, lse, delta, wc, sm_scale, causal, block_q,
-                     block_k, n_heads, n_kv_heads):
+                     block_k, n_heads, n_kv_heads, mask=None):
     """The worker-parallel backward task by task: for each worker, its chain
-    of ``wc = schedule.worker_chains()`` in order. Returns dq_part (BH, W,
-    Sq, D) fp32 (zero where the worker never visits) and dk, dv (BH, Sk, D)
-    fp32 per query head."""
+    of ``wc = schedule.worker_chains()`` in order (``mask``: the schedule's
+    mask spec). Returns dq_part (BH, W, Sq, D) fp32 (zero where the worker
+    never visits) and dk, dv (BH, Sk, D) fp32 per query head (zero on KV
+    rows no task visits)."""
     qf, kf, vf, dof = _plain_operands(q, k, v, do, n_heads, n_kv_heads)
     bh, sq, d = qf.shape
+    info = None if mask is None else token_info(mask, sq, q.device)
     n_workers, n_steps = wc["kv_ids"].shape
     dq_part = torch.zeros((bh, n_workers, sq, d), dtype=torch.float32,
                           device=q.device)
@@ -154,7 +210,8 @@ def worker_bwd_plain(q, k, v, do, lse, delta, wc, sm_scale, causal, block_q,
             dqc, dkc, dvc = _task_grads(
                 qf[:, qs], kf[:, ks], vf[:, ks], dof[:, qs], lse[:, qs],
                 delta[:, qs], kv, qi, sm_scale=sm_scale, causal=causal,
-                block_q=block_q, block_k=block_k)
+                block_q=block_q, block_k=block_k, mask_spec=mask,
+                **_info_slices(info, qs, ks))
             if t == 0 or wc["kv_ids"][w, t - 1] != kv:
                 dk[:, ks], dv[:, ks] = dkc, dvc
             else:
@@ -167,10 +224,13 @@ def worker_bwd_plain(q, k, v, do, lse, delta, wc, sm_scale, causal, block_q,
 
 
 def serial_bwd_plain(q, k, v, do, lse, delta, kv_ids, q_ids, q_first,
-                     sm_scale, causal, block_q, block_k, n_heads, n_kv_heads):
+                     sm_scale, causal, block_q, block_k, n_heads, n_kv_heads,
+                     mask=None):
     """The serialized backward task by task, in the order of the serialized
-    arrays. Returns dq (BH, Sq, D), dk, dv (BH, Sk, D) fp32 per query head."""
+    arrays (``mask``: the schedule's mask spec). Returns dq (BH, Sq, D), dk,
+    dv (BH, Sk, D) fp32 per query head."""
     qf, kf, vf, dof = _plain_operands(q, k, v, do, n_heads, n_kv_heads)
+    info = None if mask is None else token_info(mask, qf.shape[1], q.device)
     dq = torch.zeros_like(qf)
     dk = torch.zeros_like(kf)
     dv = torch.zeros_like(vf)
@@ -181,7 +241,8 @@ def serial_bwd_plain(q, k, v, do, lse, delta, kv_ids, q_ids, q_first,
         dqc, dkc, dvc = _task_grads(
             qf[:, qs], kf[:, ks], vf[:, ks], dof[:, qs], lse[:, qs],
             delta[:, qs], kv, qi, sm_scale=sm_scale, causal=causal,
-            block_q=block_q, block_k=block_k)
+            block_q=block_q, block_k=block_k, mask_spec=mask,
+            **_info_slices(info, qs, ks))
         if t == 0 or kv_ids[t - 1] != kv:
             dk[:, ks], dv[:, ks] = dkc, dvc
         else:
@@ -221,12 +282,12 @@ def fold_plain(partials, visited, block):
 def _bwd_lib():
     lib = build.load("flash_bwd")
     worker = lib.dash_flash_bwd_worker
-    worker.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
+    worker.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
     worker.restype = ctypes.c_int
     serial = lib.dash_flash_bwd_serial
-    serial.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
+    serial.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 6
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
     serial.restype = ctypes.c_int
@@ -271,14 +332,36 @@ def _stream(device):
         return torch.cuda.current_stream().cuda_stream
 
 
+def _check_schedule_mask(schedule: Schedule, mask):
+    if mask is None:
+        if schedule.mask_key is not None:
+            raise ValueError("block-sparse schedule requires its mask")
+    elif schedule.mask_key != mask.key():
+        raise ValueError(f"schedule {schedule.name!r} was compiled for mask "
+                         f"{schedule.mask_key}, not {mask.key()}")
+
+
+def _mask_ptrs(schedule, mask, arr, device):
+    """(partial, info, prog) pointers of a kernel entry: the tasks' PARTIAL
+    flags, the mask's token_info and its host program — all null without a
+    mask."""
+    if mask is None:
+        return None, None, None
+    marr = mask_arrays(mask, schedule.n_q * BLOCK, BLOCK, device)
+    return (arr["partial"].data_ptr(), marr["info"].data_ptr(),
+            ctypes.addressof(marr["prog"]))
+
+
 def worker_bwd_cuda(q, k, v, do, lse, delta, schedule, sm_scale, causal,
-                    n_heads, n_kv_heads):
-    """Launch the worker-parallel kernel of ``csrc/flash_bwd.cu``. Returns
-    dq_part (BH, W, S, D) fp32 (uninitialised where a worker never visits:
-    fold it with ``worker_chains()['visited']``) and dk, dv (BH, S, D) fp32
-    per query head."""
+                    n_heads, n_kv_heads, mask=None):
+    """Launch the worker-parallel kernel of ``csrc/flash_bwd.cu`` (``mask``:
+    the schedule's mask spec, or None). Returns dq_part (BH, W, S, D) fp32
+    (uninitialised where a worker never visits: fold it with
+    ``worker_chains()['visited']``) and dk, dv (BH, S, D) fp32 per query
+    head (uninitialised on KV rows no task visits)."""
     global launches_worker
     _check_cuda_operands(q, k, v, do, lse, delta, n_heads, n_kv_heads)
+    _check_schedule_mask(schedule, mask)
     bh, s, d = q.shape
     arr = _device_arrays(schedule, "worker", q.device)
     n_workers, n_steps = arr["kv_ids"].shape
@@ -290,10 +373,11 @@ def worker_bwd_cuda(q, k, v, do, lse, delta, schedule, sm_scale, causal,
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), arr["kv_ids"].data_ptr(),
              arr["q_ids"].data_ptr(), arr["valid"].data_ptr(),
-             arr["q_first"].data_ptr(), dq_part.data_ptr(), dk.data_ptr(),
-             dv.data_ptr(), bh, s, d, n_heads, n_kv_heads, n_workers, n_steps,
-             sm_scale, int(causal), int(q.dtype == torch.bfloat16),
-             _stream(q.device))
+             arr["q_first"].data_ptr(),
+             *_mask_ptrs(schedule, mask, arr, q.device), dq_part.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), bh, s, d, n_heads, n_kv_heads,
+             n_workers, n_steps, sm_scale, int(causal),
+             int(q.dtype == torch.bfloat16), _stream(q.device))
     if err:
         raise RuntimeError(f"worker-parallel backward kernel failed to "
                            f"launch: cudaError {err}")
@@ -302,11 +386,13 @@ def worker_bwd_cuda(q, k, v, do, lse, delta, schedule, sm_scale, causal,
 
 
 def serial_bwd_cuda(q, k, v, do, lse, delta, schedule, sm_scale, causal,
-                    n_heads, n_kv_heads):
-    """Launch the serialized kernel of ``csrc/flash_bwd.cu``. Returns dq, dk,
-    dv (BH, S, D) fp32 (dk/dv per query head)."""
+                    n_heads, n_kv_heads, mask=None):
+    """Launch the serialized kernel of ``csrc/flash_bwd.cu`` (``mask``: the
+    schedule's mask spec, or None). Returns dq, dk, dv (BH, S, D) fp32 (dk/dv
+    per query head, uninitialised on KV rows no task visits)."""
     global launches_serial
     _check_cuda_operands(q, k, v, do, lse, delta, n_heads, n_kv_heads)
+    _check_schedule_mask(schedule, mask)
     bh, s, d = q.shape
     arr = _device_arrays(schedule, "serial", q.device)
     dq = torch.empty((bh, s, d), dtype=torch.float32, device=q.device)
@@ -316,6 +402,7 @@ def serial_bwd_cuda(q, k, v, do, lse, delta, schedule, sm_scale, causal,
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), arr["kv_ids"].data_ptr(),
              arr["q_ids"].data_ptr(), arr["q_first"].data_ptr(),
+             *_mask_ptrs(schedule, mask, arr, q.device),
              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, s, d, n_heads,
              n_kv_heads, int(arr["kv_ids"].shape[0]), sm_scale, int(causal),
              int(q.dtype == torch.bfloat16), _stream(q.device))
@@ -384,6 +471,12 @@ def flash_bwd(q, k, v, out, lse, do, schedule: Schedule, causal=False,
     (pass ``n_heads``/``n_kv_heads`` when they differ); lse (BH, Sq) fp32.
     The schedule's (n_kv, n_q) must match (Sk // block_k, Sq // block_q).
 
+    ``mask``: optional :class:`repro_torch.masks.spec.MaskSpec`; the schedule
+    must then be the mask's own compiled schedule (pinned by ``mask_key``).
+    EMPTY tiles are absent from its ragged chains, PARTIAL tiles
+    mask-multiply with exact-zero lanes, and KV rows the mask leaves without
+    tasks come out zero.
+
     ``worker_parallel=True`` runs the worker-parallel realization and the
     ordered dQ fold; ``False`` the serialized one. A schedule on which a
     worker visits a q column twice, or a worker has no task, falls back to
@@ -391,10 +484,6 @@ def flash_bwd(q, k, v, out, lse, do, schedule: Schedule, causal=False,
     D), dk/dv (B·Hk, Sk, D), all fp32. CUDA tensors run the kernels (block
     128 only), CPU tensors the plain versions.
     """
-    if mask is not None:
-        raise NotImplementedError(
-            "the masked backward is not ported yet (ROADMAP queue A, masks "
-            "slice)")
     bh, sq, d = q.shape
     bkh, sk, _ = k.shape
     if n_heads is None or n_kv_heads is None:
@@ -410,13 +499,14 @@ def flash_bwd(q, k, v, out, lse, do, schedule: Schedule, causal=False,
                              f"heads {n_heads}/{n_kv_heads}")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
+    if mask is not None and causal:
+        raise ValueError("mask supersedes the causal flag")
     if causal and block_q != block_k:
         raise ValueError("causal schedules assume square tiles")
     if schedule.causal != causal:
         raise ValueError(f"schedule {schedule.name!r} is for causal="
                          f"{schedule.causal}, the call for causal={causal}")
-    if schedule.mask_key is not None:
-        raise ValueError("block-sparse schedule requires its mask")
+    _check_schedule_mask(schedule, mask)
     if schedule.n_kv != sk // block_k or schedule.n_q != sq // block_q:
         raise ValueError(f"schedule ({schedule.n_kv}x{schedule.n_q}) != "
                          f"tiling ({sk // block_k}x{sq // block_q})")
@@ -438,18 +528,19 @@ def flash_bwd(q, k, v, out, lse, do, schedule: Schedule, causal=False,
         if worker_parallel:
             dq_part, dk, dv = worker_bwd_cuda(q, k, v, do, lse, delta,
                                               schedule, sm_scale, causal,
-                                              n_heads, n_kv_heads)
+                                              n_heads, n_kv_heads, mask)
             visited = _device_arrays(schedule, "worker", q.device)["visited"]
             dq = fold_combine(dq_part, visited, block_q)
         else:
             dq, dk, dv = serial_bwd_cuda(q, k, v, do, lse, delta, schedule,
                                          sm_scale, causal, n_heads,
-                                         n_kv_heads)
+                                         n_kv_heads, mask)
     elif q.device.type == "cpu":
         if worker_parallel:
             dq_part, dk, dv = worker_bwd_plain(q, k, v, do, lse, delta, wc,
                                                sm_scale, causal, block_q,
-                                               block_k, n_heads, n_kv_heads)
+                                               block_k, n_heads, n_kv_heads,
+                                               mask)
             dq = fold_combine(dq_part, torch.from_numpy(wc["visited"]),
                               block_q)
         else:
@@ -457,10 +548,19 @@ def flash_bwd(q, k, v, out, lse, do, schedule: Schedule, causal=False,
             dq, dk, dv = serial_bwd_plain(
                 q, k, v, do, lse, delta, kv_ids, q_ids,
                 first_visit_flags(kv_ids, q_ids), sm_scale, causal, block_q,
-                block_k, n_heads, n_kv_heads)
+                block_k, n_heads, n_kv_heads, mask)
     else:
         raise ValueError(f"flash_bwd runs on CUDA or CPU tensors, not "
                          f"{q.device}")
+
+    if mask is not None and schedule.n_workers < schedule.n_kv:
+        # a block schedule has one worker per KV row with tasks; a KV row
+        # with none (e.g. keys no query's window reaches) is never written: its dK/dV rows hold whatever the
+        # allocation held (NaN under deterministic algorithms) — force the
+        # mathematically correct zero, before the group fold reads them
+        live = _live_rows(schedule, block_k, q.device)
+        dk = torch.where(live, dk, torch.zeros((), device=dk.device))
+        dv = torch.where(live, dv, torch.zeros((), device=dv.device))
 
     if group > 1:
         # dK/dV were produced per query head; fold each KV-head group in

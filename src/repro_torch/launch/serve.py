@@ -6,7 +6,9 @@
         --reduced --device cpu --prompt-len 128 --gen 8
 
 Weights are random, from ``--seed``. On the card the prefill attention is
-the causal DASH forward kernel (``attention_impl="cuda"``); with
+the causal DASH forward kernel (``attention_impl="cuda"``), or with
+``--attn-window N`` (the config's ``attn_window``) the block-sparse forward
+over an N-token sliding window, which decode then honors too; with
 ``--device cpu`` it is the plain PyTorch attention. The prompt length must be
 a multiple of 128, the kernel's square tile. ``--profile`` (card only)
 then traces one prefill and one decode step with ``torch.profiler`` and
@@ -78,12 +80,17 @@ def main(argv=None):
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--profile", action="store_true",
                     help="trace one prefill and one decode step on the card")
+    ap.add_argument("--attn-window", type=int, default=None, metavar="N",
+                    help="sliding-window attention over the last N tokens "
+                         "(the config's attn_window; 0: full causal)")
     args = ap.parse_args(argv)
     if args.prompt_len <= 0 or args.prompt_len % BLOCK:
         ap.error(f"--prompt-len must be a positive multiple of {BLOCK} (the "
                  f"attention kernel's square tile); got {args.prompt_len}")
     if args.gen < 1:
         ap.error("--gen must be >= 1")
+    if args.attn_window is not None and args.attn_window < 0:
+        ap.error("--attn-window must be >= 0")
 
     device = resolve_device(args.device)
     if args.profile and device.type != "cuda":
@@ -93,6 +100,8 @@ def main(argv=None):
         cfg = cfg.reduced()
     cfg = cfg.replace(attention_impl="cuda" if device.type == "cuda"
                       else "torch")
+    if args.attn_window is not None:
+        cfg = cfg.replace(attn_window=args.attn_window)
     params = T.init(cfg, seed=args.seed, device=device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     prompt = torch.randint(1, cfg.vocab, (args.batch, args.prompt_len),

@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \
         --steps 3 --batch 4 --seq 1024 --verify
+    PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \
+        --batch 1 --seq 4096 --attn-window 1024 --steps 3 --verify
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \
         --steps 2 --batch 2 --seq 128
 
@@ -10,7 +12,9 @@ Weights are random, from ``--seed``; data is the synthetic source
 card the attention runs the DASH kernels (``attention_impl="cuda"``: the
 flash forward and the deterministic backward), built before the first step;
 with ``--device cpu`` it is the plain PyTorch attention. bf16, AdamW, remat
-on, causal. The steps run under ``torch.use_deterministic_algorithms`` (with
+on, causal; ``--attn-window N`` sets the config's ``attn_window`` (a causal
+N-token sliding window: on the card the block-sparse forward and the masked
+DASH backward, on the CPU the plain masked attention). The steps run under ``torch.use_deterministic_algorithms`` (with
 cuBLAS's fixed workspace), so two runs from one seed give the same state.
 ``--verify`` digests the whole state (params and optimizer moments) after
 every step into a :class:`~repro_torch.verify.digest.DigestChain` and prints
@@ -68,9 +72,14 @@ def configure(argv=None):
                     help="run step N (from 1) under torch.profiler")
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--attn-window", type=int, default=None, metavar="N",
+                    help="sliding-window attention over the last N tokens "
+                         "(the config's attn_window; 0: full causal)")
     args = ap.parse_args(argv)
     if args.steps < 1:
         ap.error("--steps must be >= 1")
+    if args.attn_window is not None and args.attn_window < 0:
+        ap.error("--attn-window must be >= 0")
 
     device = resolve_device(args.device)
     cfg = registry.get(args.arch)
@@ -78,6 +87,8 @@ def configure(argv=None):
         cfg = cfg.reduced()
     cfg = cfg.replace(attention_impl="cuda" if device.type == "cuda"
                       else "torch")
+    if args.attn_window is not None:
+        cfg = cfg.replace(attn_window=args.attn_window)
     if device.type == "cuda" and args.seq % BLOCK:
         ap.error(f"--seq must be a multiple of {BLOCK} (the attention "
                  f"kernels' square tile); got {args.seq}")

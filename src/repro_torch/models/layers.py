@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ops import attention as attention_op
+from repro_torch.masks.spec import SlidingWindow
 from repro_torch.models.module import ParamDef as PD
 
 F32 = torch.float32
@@ -96,53 +97,78 @@ def _project_qkv(p, x, cfg, positions):
     return q, k, v
 
 
-def _sdpa_full(q, k, v, cfg, causal):
-    """(B,S,H,D)x(B,S,Hk,D) -> (B,S,H,D); dispatches to the configured impl."""
+def _sdpa_full(q, k, v, cfg, causal, window=None):
+    """(B,S,H,D)x(B,S,Hk,D) -> (B,S,H,D); dispatches to the configured impl.
+
+    ``window`` (tokens) lowers as a :class:`repro_torch.masks.spec.
+    SlidingWindow` spec with ``causal=False`` (the spec subsumes causality):
+    on the cuda impl that runs the block-sparse forward, skipping every
+    out-of-window tile, and the mask's compiled backward schedule."""
+    mask = None
+    if window:
+        if not causal:
+            raise ValueError("sliding windows assume causal self-attention")
+        mask = SlidingWindow(int(window))
+        causal = False
     out = attention_op(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                        causal=causal, impl=cfg.attention_impl,
-                       schedule=cfg.dash_schedule, chunk_q=cfg.attn_chunk_q)
+                       schedule=cfg.dash_schedule, chunk_q=cfg.attn_chunk_q,
+                       mask=mask)
     return out.transpose(1, 2).to(q.dtype)
 
 
-def _sdpa_decode(q, k_cache, v_cache, valid_len):
+def _sdpa_decode(q, k_cache, v_cache, valid_len, window=None):
     """One-step decode: q (B,1,H,D); caches (B,S,Hk,D); attends to
-    [0, valid_len)."""
+    [0, valid_len), or to the last ``window`` of it — the SlidingWindow
+    spec's (q - w, q] at q = valid_len - 1."""
     b, _, h, hd = q.shape
     s, hk = k_cache.shape[1], k_cache.shape[2]
     g = h // hk
     qg = q.reshape(b, 1, hk, g, hd)
     scores = torch.einsum("bokgd,bskd->bkgs", qg.to(F32),
                           k_cache.to(F32)) / math.sqrt(hd)
-    visible = torch.arange(s, device=q.device) < valid_len
+    pos = torch.arange(s, device=q.device)
+    visible = pos < valid_len
+    if window:
+        visible = visible & (pos >= valid_len - window)
     scores = torch.where(visible, scores, torch.full_like(scores, -1e30))
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", w, v_cache.to(F32))
     return out.reshape(b, 1, h, hd).to(q.dtype)
 
 
-def attention_block(p, x, cfg, *, positions=None, cache=None, cache_pos=None):
+def attention_block(p, x, cfg, *, positions=None, cache=None, cache_pos=None,
+                    window=None):
     """Causal GQA self-attention. Modes:
       train/prefill: cache=None → full causal attention.
       cache:         cache=(k, v) (B,S_max,Hk,D), cache_pos int — the fresh
                      K/V are written at ``cache_pos`` in place; a multi-token
                      x (prefill) attends over its own K/V, a one-token x
                      (decode) over the cache up to ``cache_pos``.
+      window:        optional sliding-window size in tokens (defaults to
+                     ``cfg.attn_window``), honored on train/prefill (as a
+                     SlidingWindow spec) and on cached decode (the last
+                     ``window`` positions), so windowed training and
+                     generation see the same distribution.
     Returns (y, cache).
     """
+    if window is None and cfg.attn_window:
+        window = cfg.attn_window
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
     q, k, v = _project_qkv(p, x, cfg, positions)
     if cache is None:
-        out = _sdpa_full(q, k, v, cfg, causal=True)
+        out = _sdpa_full(q, k, v, cfg, causal=True, window=window)
     else:
         k_cache, v_cache = cache
         n = x.shape[1]
         k_cache[:, cache_pos:cache_pos + n] = k.to(k_cache.dtype)
         v_cache[:, cache_pos:cache_pos + n] = v.to(v_cache.dtype)
         if n > 1:   # prefill-fill: full attention over the fresh k/v
-            out = _sdpa_full(q, k, v, cfg, causal=True)
+            out = _sdpa_full(q, k, v, cfg, causal=True, window=window)
         else:
-            out = _sdpa_decode(q, k_cache, v_cache, cache_pos + 1)
+            out = _sdpa_decode(q, k_cache, v_cache, cache_pos + 1,
+                               window=window)
     out = out.reshape(out.shape[:-2] + (out.shape[-2] * out.shape[-1],))
     return dot(out, p["wo"], out_dtype=x.dtype), cache
 

@@ -8,6 +8,8 @@ from repro_torch.configs import registry
 from repro_torch.core.schedules import make_schedule
 from repro_torch.kernels import flash_bwd as FB
 from repro_torch.kernels import flash_fwd as FF
+from repro_torch.kernels import ops
+from repro_torch import masks as M
 from repro_torch.models import transformer as T
 from repro_torch.train import optimizer as O
 from repro_torch.train import step as S
@@ -188,3 +190,96 @@ def test_reduced_train_step_cuda_matches_plain_attention(dtype, tol):
     for key in ("loss", "grad_norm"):
         a, b = float(m[key]), float(mp[key])
         assert abs(a - b) <= tol * abs(b), (key, a, b)
+
+
+# ------------------------------------------- block-sparse masks (masks slice)
+MASKS = {   # the reference's families at S = 512
+    "window": lambda: M.SlidingWindow(192),
+    "prefix": lambda: M.PrefixLM(160),
+    "document": lambda: M.Document.from_lengths((200, 312)),
+    "streaming": lambda: M.streaming_mask(128, 32),
+    "sink": lambda: M.Causal() & M.Sink(32),
+}
+
+
+@pytest.mark.parametrize("hk", [2, 1])
+@pytest.mark.parametrize("dtype,tol", [("bfloat16", 2e-2), ("float32", 2e-5)])
+@pytest.mark.parametrize("name", list(MASKS))
+def test_masked_forward_kernel_matches_plain_version(name, dtype, tol, hk):
+    _card()
+    mask = MASKS[name]()
+    gen = torch.Generator(device="cuda").manual_seed(len(name))
+    q = torch.randn((2, 512, 64), generator=gen, device="cuda")
+    k = torch.randn((hk, 512, 64), generator=gen, device="cuda")
+    v = torch.randn((hk, 512, 64), generator=gen, device="cuda")
+    q, k, v = (x.to(getattr(torch, dtype)) for x in (q, k, v))
+    before = FF.launches_mask
+    out, lse = FF.flash_fwd(q, k, v, mask=mask, n_heads=2, n_kv_heads=hk)
+    assert FF.launches_mask == before + 1
+    ref_out, ref_lse = FF.flash_fwd_plain(q, k, v, 64 ** -0.5, 2, hk,
+                                          mask=mask)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=tol, rtol=tol)
+    assert ((lse - ref_lse).abs() / ref_lse.abs().clamp_min(1)).max() <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("name", list(MASKS))
+def test_masked_backward_kernels_match_plain_and_each_other(name, dtype):
+    """Masked worker kernel + fold vs the plain version; serialized ≡ worker
+    + fold bit for bit; KV rows no task visits exactly 0 (the kernels leave
+    them unwritten, NaN under deterministic algorithms)."""
+    _card()
+    mask = MASKS[name]()
+    gen = torch.Generator(device="cuda").manual_seed(len(name) + 1)
+    q, do = (torch.randn((4, 512, 64), generator=gen, device="cuda")
+             .to(getattr(torch, dtype)) for _ in range(2))
+    k, v = (torch.randn((2, 512, 64), generator=gen, device="cuda")
+            .to(getattr(torch, dtype)) for _ in range(2))
+    out, lse = FF.flash_fwd_plain(q, k, v, 64 ** -0.5, 2, 1, mask=mask)
+    schedule = make_schedule("shift", 4, mask=mask)
+    kw = dict(mask=mask, n_heads=2, n_kv_heads=1)
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        w0 = FB.launches_worker
+        par = FB.flash_bwd(q, k, v, out, lse, do, schedule, **kw)
+        ser = FB.flash_bwd(q, k, v, out, lse, do, schedule,
+                           worker_parallel=False, **kw)
+        assert FB.launches_worker == w0 + 1
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    plain = FB.flash_bwd(q.cpu(), k.cpu(), v.cpu(), out.cpu(), lse.cpu(),
+                         do.cpu(), schedule, **kw)
+    torch.cuda.synchronize()
+    for got, same, want, nm in zip(par, ser, plain, ("dq", "dk", "dv")):
+        assert torch.equal(got, same), f"{nm}: serialized != worker + fold"
+        assert bool(torch.isfinite(got).all()), nm
+        torch.testing.assert_close(got.cpu(), want, msg=nm, **GRAD_TOLS[dtype])
+
+
+def test_windowed_dash_attention_matches_the_plain_op():
+    """dash_attention(mask=SlidingWindow) forward and grads vs the plain
+    masked attention (query-chunked), and it is not the causal op."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v, do = (torch.randn((1, 4, 1024, 64), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    mask = M.SlidingWindow(256)
+    x = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    m0 = FF.launches_mask
+    out = ops.dash_attention(*x, mask=mask)
+    grads = torch.autograd.grad(out, x, do)
+    assert FF.launches_mask == m0 + 1
+    y = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = ops.torch_attention(*y, mask=mask, chunk_q=256)
+    ref_grads = torch.autograd.grad(ref, y, do)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    for g, r in zip(grads, ref_grads):
+        torch.testing.assert_close(g.float(), r.float(), **GRAD_TOLS["bfloat16"])
+    causal = ops.dash_attention(q, k, v, causal=True)
+    assert (causal[:, :, 256:].float() - out[:, :, 256:].float()).abs().max() \
+        > 0.1

@@ -21,6 +21,7 @@ from repro_torch.core.schedules import make_schedule as tmake
 from repro_torch.kernels import flash_bwd as tbwd
 from repro_torch.kernels import flash_fwd as tfwd
 from repro_torch.kernels import ref as tref
+from repro_torch.masks import SlidingWindow
 
 SCHEDULES = [("fa3", False), ("descending", False), ("shift", False),
              ("fa3", True), ("descending", True), ("symmetric_shift", True)]
@@ -191,6 +192,10 @@ def test_flash_bwd_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="tiling"):
         tbwd.flash_bwd(q, k, v, out, lse, do, tmake("fa3", 4, 1, True),
                        causal=True)
-    with pytest.raises(NotImplementedError, match="masked backward"):
+    # a mask excludes the causal flag, and a mask's schedule needs its mask
+    with pytest.raises(ValueError, match="supersedes"):
         tbwd.flash_bwd(q, k, v, out, lse, do, tmake("fa3", 2, 1, True),
-                       causal=True, mask=object())
+                       causal=True, mask=SlidingWindow(64))
+    with pytest.raises(ValueError, match="requires its mask"):
+        tbwd.flash_bwd(q, k, v, out, lse, do,
+                       tmake("shift", 2, mask=SlidingWindow(64)))

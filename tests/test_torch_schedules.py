@@ -9,6 +9,7 @@ from repro.core import schedules as jsched
 from repro.kernels.flash_bwd import first_visit_flags as j_first_visit
 from repro_torch.core import schedules as tsched
 from repro_torch.kernels.flash_bwd import first_visit_flags as t_first_visit
+from repro_torch.masks import SlidingWindow
 
 GENERATORS = [("fa3", False), ("fa3", True), ("descending", False),
               ("descending", True), ("shift", False),
@@ -57,9 +58,13 @@ def test_cached_schedule_shares_one_instance_and_refuses_masks():
     # chains (the reference's odd-head branch), the default causal backward
     desc = tsched.make_schedule("descending", 8, 1, True)
     assert a.chains == desc.chains
-    with pytest.raises(NotImplementedError, match="masks slice"):
-        tsched.cached_schedule("shift", 4, mask=object())
-    with pytest.raises(NotImplementedError, match="masks slice"):
-        tsched.make_schedule("shift", 4, mask=object())
+    # masks are ported: a mask takes the block compiler's placements only,
+    # and the placement tuner still raises
+    with pytest.raises(ValueError, match="placements"):
+        tsched.cached_schedule("symmetric_shift", 4, mask=SlidingWindow(96))
+    with pytest.raises(ValueError, match="placements"):
+        tsched.make_schedule("descending", 4, mask=SlidingWindow(96))
+    with pytest.raises(NotImplementedError, match="tuner"):
+        tsched.cached_schedule("shift", 4, mask=SlidingWindow(96), tune=True)
     with pytest.raises(ValueError, match="full-mask optimum"):
         tsched.make_schedule("shift", 4, causal=True)

@@ -1,7 +1,8 @@
 """Port parity for the static serving engine: greedy generation against the
 reference ``repro.serve.engine.Engine`` (teacher-forced logits and tokens),
-the exact-k top-k transform, and the engine's own contracts (determinism,
-sticky EOS with the all-done fast path, the launcher)."""
+windowed (``attn_window``) as well as full causal attention, the exact-k
+top-k transform, and the engine's own contracts (determinism, sticky EOS
+with the all-done fast path, the launcher)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -61,8 +62,9 @@ def _port_step_logits(tcfg, tparams, prompt, forced):
     return np.stack(out)
 
 
-def test_greedy_engine_matches_reference(setup):
-    jcfg, tcfg, jparams, tparams, prompt = setup
+def _check_greedy_against_reference(jcfg, tcfg, jparams, tparams, prompt):
+    """Greedy tokens of both engines, and teacher-forced logits; returns the
+    port's forced logits (N, B, V)."""
     ref_tokens = np.array(JE.Engine(jcfg, jparams, max_seq=S + N).generate(
         {"tokens": jnp.asarray(prompt)}, N))
     eng = TE.Engine(tcfg, tparams, max_seq=S + N)
@@ -85,6 +87,28 @@ def test_greedy_engine_matches_reference(setup):
         n_clear = int(np.argmin(clear[:, b])) if not clear[:, b].all() else N
         np.testing.assert_array_equal(tokens[b, :n_clear].numpy(),
                                       ref_tokens[b, :n_clear])
+    return ours
+
+
+def test_greedy_engine_matches_reference(setup):
+    _check_greedy_against_reference(*setup)
+
+
+def test_windowed_greedy_engine_matches_reference(setup):
+    """``attn_window=96`` below the 256-token prompt: the prefill runs the
+    block-sparse forward (its plain version here) and decode keeps the last
+    96 positions, as the reference's ``_sdpa_decode(window=)`` does."""
+    jcfg, tcfg, jparams, tparams, prompt = setup
+    ours = _check_greedy_against_reference(
+        jcfg.replace(attn_window=96), tcfg.replace(attn_window=96), jparams,
+        tparams, prompt)
+    forced = np.array(JE.Engine(jcfg, jparams, max_seq=S + N).generate(
+        {"tokens": jnp.asarray(prompt)}, N))
+    full = _port_step_logits(tcfg, tparams, prompt, forced)
+    windowed = _port_step_logits(tcfg.replace(attn_window=96), tparams,
+                                 prompt, forced)
+    assert np.abs(windowed - full).max() > 1e-3      # the window is honored
+    assert ours.shape == windowed.shape
 
 
 def test_top_k_keeps_exactly_k_lowest_id_ties():
@@ -141,3 +165,7 @@ def test_launcher_runs_on_cpu_and_refuses_ragged_prompts():
     assert tokens.shape == (1, 4)
     with pytest.raises(SystemExit):
         tlaunch.main(["--reduced", "--device", "cpu", "--prompt-len", "100"])
+    windowed = tlaunch.main(["--reduced", "--device", "cpu", "--batch", "1",
+                             "--prompt-len", "128", "--gen", "4",
+                             "--attn-window", "32"])
+    assert windowed.shape == (1, 4)

@@ -3,7 +3,9 @@ loss and every gradient leaf against ``jax.grad`` of the reference's
 ``loss_fn``, one AdamW step (and one with two microbatches) against the
 reference's ``make_train_step``, the deterministic embedding backward, the
 state digests, the data source and the launcher; plus the port's own
-bitwise contract (two runs of three steps give equal digest chains).
+bitwise contract (two runs of three steps give equal digest chains). The
+windowed slice (``attn_window``, with the query-chunked plain attention) is
+held to the reference's loss and grads the same way.
 
 The reference's weights are bridged with ``from_jax_params`` and its
 batches fed to both packages. The reference runs its plain attention
@@ -48,9 +50,9 @@ def _cfgs(impl, dtype="float32", **kw):
             tregistry.get("stablelm-1.6b").reduced(attention_impl=impl, **kw))
 
 
-def _batch(b=2, seed=0):
+def _batch(b=2, seed=0, s=S):
     rng = np.random.default_rng(seed)
-    toks = rng.integers(0, 512, (b, S + 1)).astype(np.int32)
+    toks = rng.integers(0, 512, (b, s + 1)).astype(np.int32)
     labels = toks[:, 1:].copy()
     labels[0, :5] = -100                      # masked targets
     return ({"tokens": jnp.asarray(toks[:, :-1]), "labels": jnp.asarray(labels)},
@@ -229,3 +231,47 @@ def test_train_launcher_runs_on_the_cpu(capsys):
     with pytest.raises(NotImplementedError, match="adafactor"):
         tlaunch.main(["--reduced", "--device", "cpu", "--steps", "1",
                       "--batch", "2", "--seq", "128", "--opt", "adafactor"])
+
+
+@pytest.mark.parametrize("impl", ["torch", "cuda"])
+def test_windowed_loss_and_grads_match_reference(setup, impl):
+    """``attn_window=96`` with ``attn_chunk_q=128`` at S=256: the reference's
+    plain attention takes its query-chunked path with the window mask per
+    chunk; the port's ``"torch"`` takes its chunked path and ``"cuda"`` the
+    block-sparse forward and the masked DASH backward (plain versions)."""
+    jparams, _ = setup
+    kw = dict(attn_window=96, attn_chunk_q=128)
+    jcfg, tcfg = _cfgs(impl, **kw)
+    jb, tb = _batch(s=256, seed=2)
+    (jloss, _), jgrads = jax.value_and_grad(
+        lambda p: JT.loss_fn(p, jb, jcfg, remat=True), has_aux=True)(jparams)
+    tparams = from_jax_params(jax.tree.map(np.asarray, jparams), tcfg,
+                              device="cpu")
+    paths = [p for p, _ in tree_paths(tparams)]
+    leaves = [x.requires_grad_(True) for x in TO.tree_leaves(tparams)]
+    loss, _ = TT.loss_fn(tparams, tb, tcfg, remat=True)
+    grads = dict(zip(paths, torch.autograd.grad(loss, leaves)))
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), **LOSS_TOL)
+    gtree = {}
+    for p, g in grads.items():
+        set_path(gtree, p, g)
+    _close_trees(gtree, jgrads, **GRAD_TOL)
+    # the window matters: the full causal loss differs
+    full, _ = TT.loss_fn(tparams, tb, tcfg.replace(attn_window=0))
+    assert abs(float(full.detach()) - float(loss.detach())) > 1e-4
+
+
+def test_train_launcher_takes_a_window(capsys):
+    args, cfg, *_ = tlaunch.configure(["--reduced", "--device", "cpu",
+                                       "--attn-window", "96"])
+    assert cfg.attn_window == 96 and args.attn_window == 96
+    assert tlaunch.configure(["--reduced", "--device", "cpu"])[1].attn_window \
+        == 0
+    summary = tlaunch.main(["--reduced", "--device", "cpu", "--steps", "2",
+                            "--batch", "1", "--seq", "256", "--attn-window",
+                            "96", "--verify"])
+    assert np.isfinite(summary["final_loss"])
+    assert "digest_chain_head" in capsys.readouterr().out.splitlines()[-1]
+    with pytest.raises(SystemExit):
+        tlaunch.configure(["--reduced", "--device", "cpu", "--attn-window",
+                           "-1"])
