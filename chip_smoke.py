@@ -3,7 +3,9 @@
     python3 chip_smoke.py
 
 Phases, each reported on its own line:
-  1. build   — compile every CUDA source of the port with nvcc, in parallel;
+  1. build   — compile every CUDA source of the port with nvcc, in parallel,
+               and report the registers, spills and shared memory of each
+               backward kernel instantiation (``[ptxas]`` lines);
   2. device  — the card's name and power limit (nvidia-smi);
   3. kernels — hold each kernel against its plain PyTorch version on the
                card: the causal and full-mask forwards, and for every
@@ -50,7 +52,8 @@ Phases, each reported on its own line:
   9. timing  — each kernel at its training slice's attention shape beside
                its plain version, the PyTorch library call for the same
                function where there is one (for a mask, SDPA with the dense
-               boolean mask), and its bound.
+               boolean mask; for the fold, ``torch.sum`` over the partials
+               with the unvisited tiles zeroed), and its bound.
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script exits
 non-zero and prints no result; so does a machine without CUDA.
@@ -60,6 +63,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -168,6 +172,37 @@ def _qkv(b, h, hk, s, d, dtype, seed=0):
     return q, k, v
 
 
+def bwd_resources(ptxas):
+    """Per backward kernel instantiation of ``csrc/flash_bwd.cu`` (each runs
+    the task body ``play`` of its dtype), from nvcc's ``-Xptxas -v`` log:
+    registers and spilled bytes, with the dynamic shared memory it
+    launches with."""
+    out, kernel = [], None
+    for line in ptxas.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            kind = next((k for k in ("worker_bwd", "serial_bwd")
+                         if k in name), None)
+            head_dim = re.search(r"ILi(\d+)E", name)
+            kernel = None
+            if kind and head_dim:
+                bf16 = "bfloat16" in name
+                kernel = dict(kernel=kind, head_dim=int(head_dim.group(1)),
+                              dtype="bfloat16" if bf16 else "float32")
+                kernel["smem_bytes"] = FB.smem_bytes(
+                    kernel["head_dim"],
+                    torch.bfloat16 if bf16 else torch.float32)
+                out.append(kernel)
+        elif kernel is not None and "spill stores" in line:
+            stores, loads = re.findall(r"(\d+) bytes spill", line)
+            kernel.update(spill_store_bytes=int(stores),
+                          spill_load_bytes=int(loads))
+        elif kernel is not None and "Used" in line and "registers" in line:
+            kernel["registers"] = int(re.search(r"Used (\d+) registers",
+                                                line).group(1))
+    return out
+
+
 def phase_build():
     t0 = time.perf_counter()
     built = build.build()
@@ -178,6 +213,11 @@ def phase_build():
             if "registers" in line or "spill" in line:
                 print(f"[build]   {line.strip()}")
     print(f"[build] {time.perf_counter() - t0:.1f}s in all", flush=True)
+    # the slices launch the bf16, D = 64 instantiations
+    for k in bwd_resources(built["flash_bwd"]["ptxas"]):
+        k["launched_by_slices"] = (k["dtype"], k["head_dim"]) == (
+            "bfloat16", 64)
+        print("[ptxas] " + json.dumps(k), flush=True)
 
 
 def phase_device():
@@ -323,10 +363,24 @@ def check_backward():
             if not ok:
                 failed.append(f"{name}/{sched}/causal={causal}")
     print("[kernel-check] backward " + json.dumps(results), flush=True)
+    _print_kernel_errors("backward", results)
     if failed:
         raise AssertionError(f"backward kernels failed their checks in "
                              f"{failed}")
     return results
+
+
+def _print_kernel_errors(label, results):
+    """Each backward kernel's largest |kernel - plain| over the checks, per
+    dtype (bf16: the tensor-core products; fp32: the CUDA-core body)."""
+    worst = {}
+    for r in results:
+        for kernel in ("worker", "serial"):
+            key = f"{kernel}/{r['dtype']}"
+            worst[key] = max(worst.get(key, 0.0),
+                             max(r["max_abs_err"][kernel].values()))
+    print(f"[kernel-check] {label} max |kernel - plain| " + json.dumps(worst),
+          flush=True)
 
 
 def check_masks():
@@ -442,6 +496,7 @@ def check_masks():
                 if not ok:
                     failed.append(f"{name}/{dtype}/hk={hk}")
     print("[kernel-check] mask " + json.dumps(results), flush=True)
+    _print_kernel_errors("masked backward", results)
     if failed:
         raise AssertionError(f"block-sparse mask kernels failed their checks "
                              f"in {failed}")
@@ -891,6 +946,17 @@ def time_backward(bwd_check, launches):
         reps=2, rounds=3)
     fold_plain_ms = _ms(lambda: FB.fold_plain(part, visited, FB.BLOCK),
                         reps=5)
+    # one PyTorch call for the fold: a sum over the workers, which computes
+    # the same function once the tiles no worker visits are zeroed (done
+    # here, outside the timing)
+    seen = visited.repeat_interleave(FB.BLOCK, 1).bool()[None, :, :, None]
+    part0 = part.where(seen, 0.0)
+    fold_library_ms = _ms(lambda: torch.sum(part0, dim=1), reps=50)
+    fold_vs_sum = (torch.sum(part0, dim=1)
+                   - FB.fold_cuda(part, visited, FB.BLOCK)).abs().max().item()
+    print(f"[timing] fold vs torch.sum over the zeroed partials: max |diff| "
+          f"{fold_vs_sum}", flush=True)
+    del part0
     # one PyTorch call for the same function: SDPA's backward (all three
     # grads), through autograd over one retained SDPA graph
     q4, k4, v4 = (x.view(b, -1, s, d).detach().requires_grad_(True)
@@ -920,7 +986,7 @@ def time_backward(bwd_check, launches):
         _entry("fold", src + "fold.cu", "src/repro/kernels/flash_bwd.py:380",
                launches["fold"], "train step (dQ combine, one per layer)",
                errs["fold"], fold_ms, fold_plain_ms,
-               bound_fold(part, visited), None),
+               bound_fold(part, visited), fold_library_ms),
     ]
 
 

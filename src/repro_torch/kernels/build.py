@@ -49,16 +49,19 @@ def library_path(name: str) -> Path:
 def build(names: Iterable[str] = SOURCES) -> Dict[str, dict]:
     """Compile every named source that has no current build, in parallel.
 
-    Returns ``{name: {"path", "seconds", "ptxas"}}`` (``seconds`` 0 and
-    ``ptxas`` empty for a library that was already built). Raises with the
-    compiler's output if any build fails.
+    Returns ``{name: {"path", "seconds", "ptxas"}}`` (``seconds`` 0 for a
+    library that was already built; ``ptxas`` is the compiler's report,
+    kept beside the library). Raises with the compiler's output if any
+    build fails.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     result, running = {}, {}
     for name in names:
         out = library_path(name)
         if out.exists():
-            result[name] = {"path": out, "seconds": 0.0, "ptxas": ""}
+            log = out.with_suffix(".ptxas")
+            result[name] = {"path": out, "seconds": 0.0,
+                            "ptxas": log.read_text() if log.exists() else ""}
             continue
         tmp = out.with_suffix(f".tmp{os.getpid()}")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -72,6 +75,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, dict]:
         if proc.returncode != 0:
             failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
             continue
+        out.with_suffix(".ptxas").write_text(log)
         os.replace(tmp, out)
         result[name] = {"path": out, "seconds": seconds, "ptxas": log}
     if failed:

@@ -66,6 +66,7 @@
 #include <stdint.h>
 
 #include "mask_program.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -127,21 +128,8 @@ __device__ __forceinline__ int kv_head_index(int b, int n_heads,
   return (b / n_heads) * n_kv_heads + (b % n_heads) / group;
 }
 
-// D(16x8, fp32) += A(16x16, bf16, row) * B(16x8, bf16, col)
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// two floats -> one register of two bf16, the lower index in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+using dash_mma::mma_16816;
+using dash_mma::pack_bf16;
 
 __device__ __forceinline__ uint32_t pack_raw(uint16_t lo, uint16_t hi) {
   return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);

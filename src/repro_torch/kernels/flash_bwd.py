@@ -294,6 +294,15 @@ def _bwd_lib():
     return worker, serial
 
 
+def smem_bytes(head_dim: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one backward CTA (both kernels) for
+    ``head_dim`` and ``dtype``, as ``csrc/flash_bwd.cu`` launches it."""
+    fn = build.load("flash_bwd").dash_flash_bwd_smem_bytes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(head_dim, int(dtype == torch.bfloat16))
+
+
 @functools.lru_cache(maxsize=None)
 def _fold_lib():
     fn = build.load("fold").dash_fold
@@ -325,6 +334,9 @@ def _check_cuda_operands(q, k, v, do, lse, delta, n_heads, n_kv_heads):
                          f"{tuple(q.shape)} at heads {n_heads}/{n_kv_heads}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the backward kernels need contiguous operands")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the backward kernels copy 16-byte vectors: every "
+                         "operand must start 16-byte aligned")
 
 
 def _stream(device):

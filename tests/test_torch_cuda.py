@@ -108,15 +108,20 @@ def test_full_mask_kernel_matches_plain_version(dtype, tol, d):
 
 @pytest.mark.parametrize("sched,causal", BWD_CASES)
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("h,hk,d", [(2, 2, 64), (4, 2, 128), (2, 1, 32)])
+@pytest.mark.parametrize("h,hk,d,n", [(2, 2, 64, 3), (4, 2, 128, 3),
+                                      (2, 1, 32, 3), (2, 2, 64, 8),
+                                      (2, 1, 128, 8)])
 def test_backward_kernels_match_plain_and_each_other(sched, causal, dtype, h,
-                                                     hk, d):
+                                                     hk, d, n):
     """worker kernel + fold vs the plain version at the reference's grad
-    tolerances; serialized kernel ≡ worker kernel + fold, bit for bit."""
+    tolerances; serialized kernel ≡ worker kernel + fold, bit for bit. At
+    n = 8 tiles the runs of KV rows differ in length (fa3 and descending
+    causal: 8 tasks down to 1; shift: 8 each), which the serialized kernel,
+    the only one that crosses from one run to the next, must keep apart."""
     _card()
-    q, k, v, do, out, lse = _bwd_inputs(1, h, hk, 384, d, dtype, causal,
+    q, k, v, do, out, lse = _bwd_inputs(1, h, hk, 128 * n, d, dtype, causal,
                                         seed=d + h)
-    schedule = make_schedule(sched, 3, 1, causal)
+    schedule = make_schedule(sched, n, 1, causal)
     w0, f0 = FB.launches_worker, FB.launches_fold
     par = FB.flash_bwd(q, k, v, out, lse, do, schedule, causal=causal,
                        n_heads=h, n_kv_heads=hk)
@@ -199,6 +204,9 @@ MASKS = {   # the reference's families at S = 512
     "document": lambda: M.Document.from_lengths((200, 312)),
     "streaming": lambda: M.streaming_mask(128, 32),
     "sink": lambda: M.Causal() & M.Sink(32),
+    # narrower than a tile: rows 192-255 see nothing of KV tile 0, the
+    # first live tile of their q tile
+    "window_narrow": lambda: M.SlidingWindow(64),
 }
 
 
@@ -224,21 +232,25 @@ def test_masked_forward_kernel_matches_plain_version(name, dtype, tol, hk):
     assert ((lse - ref_lse).abs() / ref_lse.abs().clamp_min(1)).max() <= 1e-3
 
 
+@pytest.mark.parametrize("placement,d", [("shift", 64), ("fa3", 64),
+                                         ("fa3", 128)])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("name", list(MASKS))
-def test_masked_backward_kernels_match_plain_and_each_other(name, dtype):
+def test_masked_backward_kernels_match_plain_and_each_other(name, dtype,
+                                                            placement, d):
     """Masked worker kernel + fold vs the plain version; serialized ≡ worker
     + fold bit for bit; KV rows no task visits exactly 0 (the kernels leave
-    them unwritten, NaN under deterministic algorithms)."""
+    them unwritten, NaN under deterministic algorithms). The ragged chains
+    give KV-row runs of unequal length, in another order under fa3."""
     _card()
     mask = MASKS[name]()
     gen = torch.Generator(device="cuda").manual_seed(len(name) + 1)
-    q, do = (torch.randn((4, 512, 64), generator=gen, device="cuda")
+    q, do = (torch.randn((4, 512, d), generator=gen, device="cuda")
              .to(getattr(torch, dtype)) for _ in range(2))
-    k, v = (torch.randn((2, 512, 64), generator=gen, device="cuda")
+    k, v = (torch.randn((2, 512, d), generator=gen, device="cuda")
             .to(getattr(torch, dtype)) for _ in range(2))
-    out, lse = FF.flash_fwd_plain(q, k, v, 64 ** -0.5, 2, 1, mask=mask)
-    schedule = make_schedule("shift", 4, mask=mask)
+    out, lse = FF.flash_fwd_plain(q, k, v, d ** -0.5, 2, 1, mask=mask)
+    schedule = make_schedule(placement, 4, mask=mask)
     kw = dict(mask=mask, n_heads=2, n_kv_heads=1)
     deterministic = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)

@@ -47,6 +47,23 @@ def test_sources_do_not_import_jax_or_the_jax_package():
     assert not offenders, offenders
 
 
+# CUDA's atomic functions (atomicAdd, cuda::atomic_ref, ...) and PTX's
+# atom.* / red.* instructions: a sum whose order follows thread timing
+ATOMIC = re.compile(r"atomic|\batom\.|\bred\.", re.IGNORECASE)
+
+
+def test_kernel_sources_use_no_atomics():
+    """The port's no-atomics rule: every reduction of the kernels has a
+    fixed order, so no CUDA source or header names an atomic operation."""
+    sources = sorted((PORT / "kernels" / "csrc").glob("*.cu*"))
+    assert len(sources) >= 5
+    offenders = [f"{p.relative_to(ROOT)}:{i}: {line.strip()}"
+                 for p in sources
+                 for i, line in enumerate(p.read_text().splitlines(), 1)
+                 if ATOMIC.search(line)]
+    assert not offenders, offenders
+
+
 def test_entry_points_refuse_to_run_on_the_cpu_by_default():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is the card")
