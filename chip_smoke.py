@@ -5,10 +5,16 @@
 Phases, each reported on its own line:
   1. build   — compile every CUDA source of the port with nvcc, in parallel,
                and report the registers, spills and shared memory of each
-               backward kernel instantiation (``[ptxas]`` lines);
+               forward and backward kernel instantiation (``[ptxas]``
+               lines); the library's shared memory per head dim must be the
+               host's budget (``flash_fwd.fwd_smem_bytes``);
   2. device  — the card's name and power limit (nvidia-smi);
   3. kernels — hold each kernel against its plain PyTorch version on the
-               card: the causal and full-mask forwards, and for every
+               card: the causal and full-mask forwards (with the edge cases
+               one tile, seq_k != seq_q, GQA 32/8 at D=128, D=32); 20
+               repetitions of each forward mode bitwise identical, and each
+               sequence of a batch-4 causal launch equal bit for bit to the
+               sequence launched alone; and for every
                backward schedule (fa3, descending, shift full; fa3,
                descending, symmetric_shift causal) the worker-parallel
                backward + ordered fold; the serialized backward must equal
@@ -133,6 +139,16 @@ KERNEL_CASES = [
 ]
 # the training slice's attention shape first
 TRAIN_CASES = [("train", 4, 32, 32, 1024, 64, torch.bfloat16)] + KERNEL_CASES[1:]
+# forward edge cases (the last field, where present, is seq_k; full mask
+# only): one 128-row tile, seq_k != seq_q, GQA 32/8 at D=128 with two
+# batches, D=32
+FWD_EDGE_CASES = [
+    ("one_tile", 2, 8, 8, 128, 64, torch.bfloat16),
+    ("gqa_d128", 2, 32, 8, 512, 128, torch.bfloat16),
+    ("d32", 2, 8, 8, 512, 32, torch.bfloat16),
+]
+FULL_EDGE_CASES = FWD_EDGE_CASES + [
+    ("seq_k_1024", 2, 8, 8, 512, 64, torch.bfloat16, 1024)]
 BWD_SCHEDULES = [("fa3", False), ("descending", False), ("shift", False),
                  ("fa3", True), ("descending", True), ("symmetric_shift", True)]
 SLICE = dict(arch="stablelm-1.6b", batch=4, prompt=512, gen=32, window=0)
@@ -164,34 +180,23 @@ MASK_CASES = [
 ]
 
 
-def _qkv(b, h, hk, s, d, dtype, seed=0):
+def _qkv(b, h, hk, s, d, dtype, seed=0, sk=None):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((b * h, s, d), generator=gen, device="cuda").to(dtype)
-    k = torch.randn((b * hk, s, d), generator=gen, device="cuda").to(dtype)
-    v = torch.randn((b * hk, s, d), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((b * hk, sk or s, d), generator=gen, device="cuda")
+            .to(dtype) for _ in range(2))
     return q, k, v
 
 
-def bwd_resources(ptxas):
-    """Per backward kernel instantiation of ``csrc/flash_bwd.cu`` (each runs
-    the task body ``play`` of its dtype), from nvcc's ``-Xptxas -v`` log:
-    registers and spilled bytes, with the dynamic shared memory it
-    launches with."""
+def _ptxas_entries(ptxas, classify):
+    """Per kernel instantiation in nvcc's ``-Xptxas -v`` log that
+    ``classify(mangled name)`` names (a dict, else None): registers and
+    spilled bytes added to that dict."""
     out, kernel = [], None
     for line in ptxas.splitlines():
         if "Compiling entry function" in line:
-            name = line.split("'")[1]
-            kind = next((k for k in ("worker_bwd", "serial_bwd")
-                         if k in name), None)
-            head_dim = re.search(r"ILi(\d+)E", name)
-            kernel = None
-            if kind and head_dim:
-                bf16 = "bfloat16" in name
-                kernel = dict(kernel=kind, head_dim=int(head_dim.group(1)),
-                              dtype="bfloat16" if bf16 else "float32")
-                kernel["smem_bytes"] = FB.smem_bytes(
-                    kernel["head_dim"],
-                    torch.bfloat16 if bf16 else torch.float32)
+            kernel = classify(line.split("'")[1])
+            if kernel is not None:
                 out.append(kernel)
         elif kernel is not None and "spill stores" in line:
             stores, loads = re.findall(r"(\d+) bytes spill", line)
@@ -201,6 +206,47 @@ def bwd_resources(ptxas):
             kernel["registers"] = int(re.search(r"Used (\d+) registers",
                                                 line).group(1))
     return out
+
+
+def bwd_resources(ptxas):
+    """Per backward kernel instantiation of ``csrc/flash_bwd.cu`` (each runs
+    the task body ``play`` of its dtype): registers and spilled bytes, with
+    the dynamic shared memory it launches with."""
+    def classify(name):
+        kind = next((k for k in ("worker_bwd", "serial_bwd") if k in name),
+                    None)
+        head_dim = re.search(r"ILi(\d+)E", name)
+        if not (kind and head_dim):
+            return None
+        dtype = torch.bfloat16 if "bfloat16" in name else torch.float32
+        d = int(head_dim.group(1))
+        return dict(kernel=kind, head_dim=d, dtype=str(dtype).split(".")[-1],
+                    smem_bytes=FB.smem_bytes(d, dtype))
+    return _ptxas_entries(ptxas, classify)
+
+
+FWD_MODES = {0: "full", 1: "causal", 2: "block_sparse"}
+
+
+def fwd_resources(ptxas):
+    """Per forward kernel instantiation of ``csrc/flash_fwd.cu`` (``fwd_bf16``
+    and ``fwd_f32`` per head dim and mode): registers and spilled bytes,
+    with the dynamic shared memory it launches with (bf16: the K/V ring of
+    ``fwd_stages`` stages)."""
+    def classify(name):
+        found = re.search(r"fwd_(bf16|f32)ILi(\d+)ELi(\d)E", name)
+        if found is None:
+            return None
+        bf16, d = found.group(1) == "bf16", int(found.group(2))
+        kernel = dict(kernel="fwd_" + found.group(1), head_dim=d,
+                      mode=FWD_MODES[int(found.group(3))],
+                      dtype="bfloat16" if bf16 else "float32",
+                      smem_bytes=FF.kernel_smem_bytes(
+                          d, torch.bfloat16 if bf16 else torch.float32))
+        if bf16:
+            kernel["stages"] = FF.fwd_stages(d)
+        return kernel
+    return _ptxas_entries(ptxas, classify)
 
 
 def phase_build():
@@ -214,10 +260,18 @@ def phase_build():
                 print(f"[build]   {line.strip()}")
     print(f"[build] {time.perf_counter() - t0:.1f}s in all", flush=True)
     # the slices launch the bf16, D = 64 instantiations
-    for k in bwd_resources(built["flash_bwd"]["ptxas"]):
+    kernels = (fwd_resources(built["flash_fwd"]["ptxas"])
+               + bwd_resources(built["flash_bwd"]["ptxas"]))
+    for k in kernels:
         k["launched_by_slices"] = (k["dtype"], k["head_dim"]) == (
             "bfloat16", 64)
         print("[ptxas] " + json.dumps(k), flush=True)
+    budget = {d: (FF.kernel_smem_bytes(d, torch.bfloat16),
+                  FF.fwd_smem_bytes(d, FF.fwd_stages(d)))
+              for d in FF.HEAD_DIMS}
+    if any(lib != host or lib > FF.SMEM_MAX for lib, host in budget.values()):
+        raise AssertionError(f"bf16 forward shared memory, library vs host "
+                             f"budget: {budget}")
 
 
 def phase_device():
@@ -233,8 +287,9 @@ def check_forward(causal, cases):
     """Each case: the causal or full-mask forward kernel vs its plain
     version on the same inputs on the card."""
     results, failed = [], []
-    for name, b, h, hk, s, d, dtype in cases:
-        q, k, v = _qkv(b, h, hk, s, d, dtype, seed=int(not causal))
+    for name, b, h, hk, s, d, dtype, *sk in cases:
+        q, k, v = _qkv(b, h, hk, s, d, dtype, seed=int(not causal),
+                       sk=sk[0] if sk else None)
         scale = d ** -0.5
         out, lse = FF.flash_fwd_cuda(q, k, v, scale, h, hk, causal)
         ref_out, ref_lse = FF.flash_fwd_plain(q, k, v, scale, h, hk, causal)
@@ -246,7 +301,7 @@ def check_forward(causal, cases):
         ok = (bool(torch.isfinite(out).all()) and err_lse <= LSE_RTOL
               and torch.allclose(out.float(), ref_out.float(), atol=tol,
                                  rtol=tol))
-        results.append(dict(case=name, shape=[b, h, hk, s, d],
+        results.append(dict(case=name, shape=[b, h, hk, s, d] + sk,
                             dtype=str(dtype).split(".")[-1],
                             max_abs_err_out=err_out, max_rel_err_lse=err_lse,
                             tol_out=OUT_TOL[dtype], tol_lse=LSE_RTOL, ok=ok))
@@ -258,6 +313,51 @@ def check_forward(causal, cases):
         raise AssertionError(f"{kind} forward disagrees with its plain "
                              f"version in cases {failed}")
     return results
+
+
+def check_forward_bits():
+    """20 repetitions of each forward mode (causal and full at the training
+    slice's shape, block-sparse at the windowed one's) give out and lse
+    identical bit for bit to the first launch; and each sequence of a
+    batch-4 causal launch at the serving slice's shape equals, bit for bit,
+    the same sequence launched alone (a tile's arithmetic does not depend on
+    its batch neighbours: the serving contract)."""
+    name, b, h, hk, s, d, dtype = TRAIN_CASES[0]
+    q, k, v = _qkv(b, h, hk, s, d, dtype, seed=7)
+    _, wb, wh, whk, ws, wd, wdtype = WINDOW_CASE
+    wq, wk, wv = _qkv(wb, wh, whk, ws, wd, wdtype, seed=8)
+    runs = dict(
+        causal=lambda: FF.flash_fwd_cuda(q, k, v, d ** -0.5, h, hk, True),
+        full=lambda: FF.flash_fwd_cuda(q, k, v, d ** -0.5, h, hk, False),
+        block_sparse=lambda: FF.flash_fwd_mask_cuda(wq, wk, wv, wd ** -0.5,
+                                                    wh, whk, WINDOW))
+    reps = {}
+    for mode, run in runs.items():
+        out, lse = run()
+        same = True
+        for _ in range(20):
+            again = run()
+            same &= torch.equal(again[0], out) and torch.equal(again[1], lse)
+        reps[mode] = bool(same)
+    name, b, h, hk, s, d, dtype = KERNEL_CASES[0]
+    q, k, v = _qkv(b, h, hk, s, d, dtype, seed=9)
+    out, lse = FF.flash_fwd_cuda(q, k, v, d ** -0.5, h, hk, True)
+    alone = []
+    for i in range(b):
+        one, one_lse = FF.flash_fwd_cuda(
+            q[i * h:(i + 1) * h].contiguous(),
+            k[i * hk:(i + 1) * hk].contiguous(),
+            v[i * hk:(i + 1) * hk].contiguous(), d ** -0.5, h, hk, True)
+        alone.append(torch.equal(one, out[i * h:(i + 1) * h])
+                     and torch.equal(one_lse, lse[i * h:(i + 1) * h]))
+    torch.cuda.synchronize()
+    result = dict(reps20_bitwise=reps, batch_invariant=alone,
+                  batch_shape=[b, h, hk, s, d])
+    print("[kernel-check] forward bits " + json.dumps(result), flush=True)
+    if not (all(reps.values()) and all(alone)):
+        raise AssertionError(f"forward kernels are not bitwise reproducible "
+                             f"or batch invariant: {result}")
+    return result
 
 
 def _counts():
@@ -802,6 +902,26 @@ def _ms(fn, reps, rounds=5, warmup=3):
     return statistics.median(samples)
 
 
+def _queued_ms(fn, reps=50, rounds=5):
+    """Like ``_ms``, but the calls are enqueued behind a ~25 ms spin kernel,
+    so they run back to back on the card whatever the host's cost a call
+    (30-50 µs for the forward's wrapper, more than a kernel of 20 µs)."""
+    fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(rounds):
+        torch.cuda._sleep(50_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end) / reps)
+    return statistics.median(samples)
+
+
 def _bound(moved_bytes, flops, dtype):
     """(ms, what bounds it): the larger of bytes over the memory rate and
     operations over the dtype's peak rate."""
@@ -882,19 +1002,31 @@ def _entry(name, source, replaces, launches, path, err, ms, plain_ms, bound,
 @torch.inference_mode()
 def time_forward(fwd_check, full_check, launches):
     """Both forwards at the training slice's attention shape; the causal one
-    also at the serving slice's."""
+    also at the serving slice's. Beside ``_ms``, the kernel's and SDPA's
+    ``_queued_ms``."""
     entries = []
     for causal in (True, False):
         name, b, h, hk, s, d, dtype = TRAIN_CASES[0]
         q, k, v = _qkv(b, h, hk, s, d, dtype)
         scale = d ** -0.5
-        ms = _ms(lambda: FF.flash_fwd_cuda(q, k, v, scale, h, hk, causal),
-                 reps=50)
+
+        def kernel():
+            return FF.flash_fwd_cuda(q, k, v, scale, h, hk, causal)
+        q4, k4, v4 = (x.view(b, -1, s, d) for x in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(q4, k4, v4,
+                                                  is_causal=causal,
+                                                  scale=scale)
+        ms = _ms(kernel, reps=50)
         plain_ms = _ms(lambda: FF.flash_fwd_plain(q, k, v, scale, h, hk,
                                                   causal), reps=5)
-        q4, k4, v4 = (x.view(b, -1, s, d) for x in (q, k, v))
-        library_ms = _ms(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=causal, scale=scale), reps=50)
+        library_ms = _ms(library, reps=50)
+        queued = dict(queued_ms=_queued_ms(kernel),
+                      library_queued_ms=_queued_ms(library))
+        print(f"[timing] {'causal' if causal else 'full-mask'} forward, "
+              f"calls queued: kernel {queued['queued_ms']:.4f} ms, library "
+              f"{queued['library_queued_ms']:.4f} ms", flush=True)
         if causal:
             err = next(c for c in fwd_check if c["case"] == "train")
             entries.append(_entry(
@@ -902,6 +1034,7 @@ def time_forward(fwd_check, full_check, launches):
                 "src/repro/kernels/flash_fwd.py:177", launches["fwd_causal"],
                 "train step (remat: 2 per layer)", err["max_abs_err_out"], ms,
                 plain_ms, bound_fwd(q, k, v, True), library_ms))
+            entries[-1].update(queued)
         else:
             err = next(c for c in full_check if c["case"] == "train")
             entries.append(_entry(
@@ -910,12 +1043,25 @@ def time_forward(fwd_check, full_check, launches):
                 "dash_attention(causal=False, schedule='shift') fwd + bwd",
                 err["max_abs_err_out"], ms, plain_ms,
                 bound_fwd(q, k, v, False), library_ms))
+            entries[-1].update(queued)
     name, b, h, hk, s, d, dtype = KERNEL_CASES[0]
     q, k, v = _qkv(b, h, hk, s, d, dtype)
-    ms = _ms(lambda: FF.flash_fwd_cuda(q, k, v, d ** -0.5, h, hk), reps=50)
+    q4, k4, v4 = (x.view(b, -1, s, d) for x in (q, k, v))
+
+    def kernel():
+        return FF.flash_fwd_cuda(q, k, v, d ** -0.5, h, hk)
+
+    def library():
+        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                              scale=d ** -0.5)
+    serving = dict(serving_shape_ms=_ms(kernel, reps=50),
+                   serving_shape_library_ms=_ms(library, reps=50),
+                   serving_shape_queued_ms=_queued_ms(kernel),
+                   serving_shape_library_queued_ms=_queued_ms(library),
+                   serving_shape_bound_ms=bound_fwd(q, k, v, True)[0])
     print(f"[timing] flash_fwd_causal at the serving slice's shape B={b} "
-          f"H={h} S={s} D={d}: {ms:.4f} ms, bound "
-          f"{bound_fwd(q, k, v, True)[0]:.4f} ms", flush=True)
+          f"H={h} S={s} D={d}: " + json.dumps(serving), flush=True)
+    entries[0].update(serving)
     return entries
 
 
@@ -1066,8 +1212,10 @@ def main():
     t0 = time.perf_counter()
     phase_build()
     phase_device()
-    fwd_check = check_forward(True, KERNEL_CASES + TRAIN_CASES[:1])
-    full_check = check_forward(False, TRAIN_CASES)
+    fwd_check = check_forward(True, KERNEL_CASES + TRAIN_CASES[:1]
+                              + FWD_EDGE_CASES)
+    full_check = check_forward(False, TRAIN_CASES + FULL_EDGE_CASES)
+    check_forward_bits()
     bwd_check = check_backward()
     mask_check = check_masks()
     serve = run_slice()

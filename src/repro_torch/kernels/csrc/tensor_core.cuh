@@ -1,7 +1,7 @@
-// bf16 tensor-core and copy helpers for sm_90a, shared by the forward
-// (flash_fwd.cu) and the backward (flash_bwd.cu): mma.sync.m16n8k16 with
-// fp32 accumulation, the bf16 packing of its operands, ldmatrix fragment
-// loads from shared memory and 16-byte cp.async copies into it.
+// bf16 tensor-core and copy helpers for sm_90a: mma.sync.m16n8k16 with
+// fp32 accumulation, the bf16 packing of its operands (also the forward's,
+// flash_fwd.cu), ldmatrix fragment loads from shared memory and 16-byte
+// cp.async copies into it (the backward, flash_bwd.cu).
 //
 // Fragment layout of m16n8k16 (lane = 4 g + t):
 //   A (16 x 16, row-major): a0 = A[g][2t, 2t+1], a1 = A[g+8][2t, 2t+1],

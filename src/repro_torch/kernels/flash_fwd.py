@@ -8,11 +8,15 @@ visited) on a sequential grid axis; ``_fwd_kernel`` walks the dense
 ``(bh, n_q, n_k)`` grid; ``_fwd_mask_kernel`` walks :func:`mask_grid`'s task
 list for a :class:`~repro_torch.masks.spec.MaskSpec` (EMPTY tiles never
 visited, PARTIAL tiles mask-multiplied with exact-zero lanes). On the card
-all three are one kernel template in ``csrc/flash_fwd.cu``: one CTA per
-(bh, q tile), the kv loop inside the CTA ascending — causal, stopping at the
+all three are one kernel template per dtype in ``csrc/flash_fwd.cu``: each
+(bh, q tile) a work item, its kv loop ascending — causal, stopping at the
 diagonal tile; block-sparse, over the q tile's live tiles, with the spec
 lowered to a small program (:func:`mask_program`) that the kernel runs on
-PARTIAL tiles (see the note in the source).
+PARTIAL tiles. In bf16 the kernel is persistent (one CTA an SM walking
+:func:`persistent_items`): a producer warpgroup streams K/V
+tiles through a ring of :func:`fwd_stages` shared-memory stages with TMA and
+two consumer warpgroups run both products on ``wgmma`` (see the note in the
+source); :func:`fwd_smem_bytes` is the shared memory that takes.
 
 :func:`flash_fwd` validates, then runs the kernel for CUDA tensors and the
 plain version (:func:`flash_fwd_plain`: a dense softmax in fp32, or under a
@@ -39,12 +43,57 @@ KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 NEG_INF = -1e30              # the reference's masked-score sentinel
 
+# the bf16 kernel's shared memory: a block may use 232,448 bytes on an H100
+SMEM_MAX = 232448
+MAX_STAGES = 4
+
 # launches of the causal, the full-mask and the block-sparse CUDA kernel;
 # the wrapper adds one per launch and nothing else touches them, so a caller
 # can zero them and read how often a run used each kernel
 launches = 0
 launches_full = 0
 launches_mask = 0
+
+
+def fwd_smem_bytes(head_dim: int, stages: int) -> int:
+    """Dynamic shared memory of the bf16 kernel (``csrc/flash_fwd.cu``
+    computes the same): 1024 bytes of alignment slack, two 128-row Q tiles,
+    ``stages`` K/V tile pairs and the staged output tile, and an 8-byte
+    full/empty mbarrier pair for each Q tile and each stage."""
+    return (1024 + BLOCK * head_dim * 2 * (3 + 2 * stages)
+            + 8 * (4 + 2 * stages))
+
+
+def fwd_stages(head_dim: int) -> int:
+    """The K/V ring depth of the bf16 kernel: the most stages, up to
+    :data:`MAX_STAGES`, whose shared memory fits one block (2 at least)."""
+    for stages in range(MAX_STAGES, 2, -1):
+        if fwd_smem_bytes(head_dim, stages) <= SMEM_MAX:
+            return stages
+    return 2
+
+
+def persistent_items(n_bh: int, n_q: int, n_ctas: int):
+    """The bf16 kernel's persistent schedule, as the kernel computes it:
+    ``n_ctas`` CTAs (``min(SMs, n_bh · n_q)``) share the ``n_bh · n_q``
+    work items, item ``w`` being ``(bh = w % n_bh, rank = w // n_bh)`` where
+    rank 0 is the longest q tile (causal and full: q tile ``n_q - 1 -
+    rank``; block-sparse: ``order[rank]`` of :func:`mask_arrays`). CTA ``c``
+    takes items ``k·n_ctas + c`` in even rounds ``k`` and ``k·n_ctas +
+    n_ctas - 1 - c`` in odd ones, so it walks its items longest first.
+    Returns each CTA's (bh, rank) list in the order it runs them."""
+    total = n_bh * n_q
+    schedule = []
+    for c in range(n_ctas):
+        items, k = [], 0
+        while True:
+            w = k * n_ctas + (c if k % 2 == 0 else n_ctas - 1 - c)
+            if w >= total:
+                break
+            items.append((w % n_bh, w // n_bh))
+            k += 1
+        schedule.append(items)
+    return schedule
 
 
 @functools.lru_cache(maxsize=256)
@@ -244,6 +293,15 @@ def _lib():
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     masked.restype = ctypes.c_int
     return causal, full, masked
+
+
+def kernel_smem_bytes(head_dim: int, dtype) -> int:
+    """The dynamic shared memory the built library launches with for
+    ``head_dim`` and ``dtype`` (-1 for a head_dim it has no instance of)."""
+    fn = build.load("flash_fwd").dash_flash_fwd_smem_bytes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(head_dim, int(dtype == torch.bfloat16))
 
 
 def _check_cuda_operands(q, k, v, n_heads, n_kv_heads, square):

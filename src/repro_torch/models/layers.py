@@ -97,13 +97,15 @@ def _project_qkv(p, x, cfg, positions):
     return q, k, v
 
 
-def _sdpa_full(q, k, v, cfg, causal, window=None):
+def _sdpa_full(q, k, v, cfg, causal, window=None, segment_ids=None):
     """(B,S,H,D)x(B,S,Hk,D) -> (B,S,H,D); dispatches to the configured impl.
 
     ``window`` (tokens) lowers as a :class:`repro_torch.masks.spec.
     SlidingWindow` spec with ``causal=False`` (the spec subsumes causality):
     on the cuda impl that runs the block-sparse forward, skipping every
-    out-of-window tile, and the mask's compiled backward schedule."""
+    out-of-window tile, and the mask's compiled backward schedule.
+    ``segment_ids`` (B, S) is the dynamic packed-document mask: it always
+    runs the plain path (see :func:`repro_torch.kernels.ops.attention`)."""
     mask = None
     if window:
         if not causal:
@@ -113,7 +115,7 @@ def _sdpa_full(q, k, v, cfg, causal, window=None):
     out = attention_op(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                        causal=causal, impl=cfg.attention_impl,
                        schedule=cfg.dash_schedule, chunk_q=cfg.attn_chunk_q,
-                       mask=mask)
+                       mask=mask, segment_ids=segment_ids)
     return out.transpose(1, 2).to(q.dtype)
 
 
@@ -138,7 +140,7 @@ def _sdpa_decode(q, k_cache, v_cache, valid_len, window=None):
 
 
 def attention_block(p, x, cfg, *, positions=None, cache=None, cache_pos=None,
-                    window=None):
+                    window=None, segment_ids=None):
     """Causal GQA self-attention. Modes:
       train/prefill: cache=None → full causal attention.
       cache:         cache=(k, v) (B,S_max,Hk,D), cache_pos int — the fresh
@@ -150,6 +152,8 @@ def attention_block(p, x, cfg, *, positions=None, cache=None, cache_pos=None,
                      SlidingWindow spec) and on cached decode (the last
                      ``window`` positions), so windowed training and
                      generation see the same distribution.
+      segment_ids:   optional (B, S) packed-document ids (train/prefill);
+                     cross-document attention is masked out.
     Returns (y, cache).
     """
     if window is None and cfg.attn_window:
@@ -158,7 +162,8 @@ def attention_block(p, x, cfg, *, positions=None, cache=None, cache_pos=None,
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
     q, k, v = _project_qkv(p, x, cfg, positions)
     if cache is None:
-        out = _sdpa_full(q, k, v, cfg, causal=True, window=window)
+        out = _sdpa_full(q, k, v, cfg, causal=True, window=window,
+                         segment_ids=segment_ids)
     else:
         k_cache, v_cache = cache
         n = x.shape[1]

@@ -82,16 +82,17 @@ def _layer(unstacked, i):
             for k, v in unstacked.items()}
 
 
-def _apply_block(p, x, cfg, *, positions, cache=None, cache_pos=None):
+def _apply_block(p, x, cfg, *, positions, cache=None, cache_pos=None,
+                 segment_ids=None):
     h, _ = L.attention_block(p["attn"], L.apply_norm(p["ln1"], x, cfg), cfg,
                              positions=positions, cache=cache,
-                             cache_pos=cache_pos)
+                             cache_pos=cache_pos, segment_ids=segment_ids)
     x = x + h
     return x + L.apply_mlp(p["mlp"], L.apply_norm(p["ln2"], x, cfg), cfg)
 
 
 def _apply_stack(params, x, cfg, *, positions, caches=None, cache_pos=None,
-                 remat=False):
+                 remat=False, segment_ids=None):
     for key, stacked_p in _blocks(params):
         n_rep = stacked_p["ln1"]["scale"].shape[0]
         layers = _unstack(stacked_p)
@@ -101,7 +102,8 @@ def _apply_stack(params, x, cfg, *, positions, caches=None, cache_pos=None,
                 # recompute everything in the backward (remat_policy "none")
                 x = checkpoint(
                     lambda x_, p_=p: _apply_block(p_, x_, cfg,
-                                                  positions=positions),
+                                                  positions=positions,
+                                                  segment_ids=segment_ids),
                     x, use_reentrant=False)
                 continue
             cache = None
@@ -109,12 +111,15 @@ def _apply_stack(params, x, cfg, *, positions, caches=None, cache_pos=None,
                 k_all, v_all = caches[key]["attn"]
                 cache = (k_all[i], v_all[i])
             x = _apply_block(p, x, cfg, positions=positions, cache=cache,
-                             cache_pos=cache_pos)
+                             cache_pos=cache_pos, segment_ids=segment_ids)
     return x
 
 
 def forward(params, batch, cfg, *, remat=False, remat_policy="none"):
-    """Train/prefill forward → (logits, aux_loss). batch['tokens']: (B, S).
+    """Train/prefill forward → (logits, aux_loss). batch['tokens']: (B, S);
+    optional batch['positions'] (B, S) (default ``arange``) and
+    batch['segment_ids'] (B, S), a packed batch's document ids: attention
+    across documents is masked out (on the plain path, as in the reference).
 
     ``remat=True`` runs each layer under ``torch.utils.checkpoint`` (non-
     reentrant): the backward recomputes the layer, attention forward
@@ -127,8 +132,11 @@ def forward(params, batch, cfg, *, remat=False, remat_policy="none"):
             f"A, dense train step); 'none' is")
     tokens = batch["tokens"]
     x = L.apply_embed(params["embed"], tokens, cfg)
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x = _apply_stack(params, x, cfg, positions=positions, remat=remat)
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    x = _apply_stack(params, x, cfg, positions=positions, remat=remat,
+                     segment_ids=batch.get("segment_ids"))
     x = L.apply_norm(params["ln_f"], x, cfg)
     logits = L.apply_lm_head(params["lm_head"], x, cfg)
     return logits, torch.zeros((), dtype=F32, device=x.device)

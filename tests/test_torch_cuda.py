@@ -295,3 +295,44 @@ def test_windowed_dash_attention_matches_the_plain_op():
     causal = ops.dash_attention(q, k, v, causal=True)
     assert (causal[:, :, 256:].float() - out[:, :, 256:].float()).abs().max() \
         > 0.1
+
+
+def test_forward_kernels_repeat_bitwise_and_agree_on_shared_memory():
+    """20 launches of each bf16 forward mode give identical out and lse; the
+    library's shared memory per head dim is the host's budget."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v = (torch.randn((4, 512, 64), generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    runs = {"causal": lambda: FF.flash_fwd(q, k, v, causal=True),
+            "full": lambda: FF.flash_fwd(q, k, v, causal=False),
+            "mask": lambda: FF.flash_fwd(q, k, v, mask=M.SlidingWindow(200))}
+    for name, run in runs.items():
+        out, lse = run()
+        for _ in range(20):
+            again = run()
+            assert torch.equal(again[0], out) and torch.equal(again[1], lse), (
+                name)
+    for d in FF.HEAD_DIMS:
+        assert FF.kernel_smem_bytes(d, torch.bfloat16) == FF.fwd_smem_bytes(
+            d, FF.fwd_stages(d))
+
+
+def test_causal_forward_is_batch_invariant():
+    """Each sequence of a batch-4 causal launch equals, bit for bit, the same
+    sequence launched alone (the serving contract)."""
+    _card()
+    b, h, hk, s, d = 4, 4, 2, 384, 64
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    q = torch.randn((b * h, s, d), generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn((b * hk, s, d), generator=gen, device="cuda")
+            .bfloat16() for _ in range(2))
+    out, lse = FF.flash_fwd(q, k, v, causal=True, n_heads=h, n_kv_heads=hk)
+    for i in range(b):
+        qi = q[i * h:(i + 1) * h].contiguous()
+        ki, vi = (x[i * hk:(i + 1) * hk].contiguous() for x in (k, v))
+        one, one_lse = FF.flash_fwd(qi, ki, vi, causal=True, n_heads=h,
+                                    n_kv_heads=hk)
+        assert torch.equal(one, out[i * h:(i + 1) * h])
+        assert torch.equal(one_lse, lse[i * h:(i + 1) * h])
+

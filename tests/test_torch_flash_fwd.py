@@ -103,3 +103,42 @@ def test_attention_impls_agree_on_cpu(hk):
     a = tops.attention(q, k, v, causal=True, impl="cuda")
     b = tops.attention(q, k, v, causal=True, impl="torch")
     np.testing.assert_allclose(a.numpy(), b.numpy(), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("d", tfwd.HEAD_DIMS)
+def test_bf16_kernel_shared_memory_fits_one_block(d):
+    """The bf16 kernel's K/V ring: every stage count it can pick for a head
+    dim fits the 232,448 bytes an H100 block may use, and it picks the
+    deepest ring (up to MAX_STAGES) that does."""
+    stages = tfwd.fwd_stages(d)
+    assert 2 <= stages <= tfwd.MAX_STAGES
+    for n in range(2, stages + 1):
+        assert tfwd.fwd_smem_bytes(d, n) <= tfwd.SMEM_MAX == 232448
+    if stages < tfwd.MAX_STAGES:
+        assert tfwd.fwd_smem_bytes(d, stages + 1) > tfwd.SMEM_MAX
+    # two Q tiles, the stages' K and V tiles, the output tile, and the
+    # mbarrier pairs
+    tile = tfwd.BLOCK * d * 2
+    assert tfwd.fwd_smem_bytes(d, stages) == (
+        1024 + tile * (3 + 2 * stages) + 8 * (4 + 2 * stages))
+
+
+@pytest.mark.parametrize("n_bh,n_q,n_ctas", [
+    (128, 8, 132), (32, 32, 132), (1, 1, 1), (2, 4, 8), (3, 5, 7),
+    (128, 4, 132)])
+def test_persistent_schedule_covers_every_tile_once_longest_first(
+        n_bh, n_q, n_ctas):
+    """Every (bh, q tile) is one CTA's work exactly once, and every CTA
+    walks its items longest first (rank 0 is the longest q tile)."""
+    n_ctas = min(n_ctas, n_bh * n_q)
+    schedule = tfwd.persistent_items(n_bh, n_q, n_ctas)
+    assert len(schedule) == n_ctas and all(schedule)
+    items = [it for cta in schedule for it in cta]
+    assert sorted(items) == [(b, r) for b in range(n_bh) for r in range(n_q)]
+    for cta in schedule:
+        ranks = [r for _, r in cta]
+        assert ranks == sorted(ranks)
+    # the rounds' work balances: causal lengths (rank r has n_q - r tiles)
+    # differ by at most one round's spread between CTAs
+    work = [sum(n_q - r for _, r in cta) for cta in schedule]
+    assert max(work) - min(work) <= n_q

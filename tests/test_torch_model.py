@@ -74,6 +74,45 @@ def test_forward_and_prefill_match_reference(tokens, dtype, impl, n_kv_heads):
     assert not k_cache[:, :, S:].any()          # positions past the prompt
 
 
+def _packed_batch():
+    """B=1, S=64: two 32-token documents, positions restarting at 0."""
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(0, 512, (1, 64)).astype(np.int32)
+    labels = np.concatenate([tokens[:, 1:], np.full((1, 1), -100, np.int32)],
+                            axis=1)
+    segment_ids = np.repeat(np.arange(2, dtype=np.int32), 32)[None]
+    positions = np.tile(np.arange(32, dtype=np.int32), 2)[None]
+    return dict(tokens=tokens, labels=labels, segment_ids=segment_ids,
+                positions=positions)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("impl", ["torch", "cuda"])
+def test_packed_batch_matches_reference(dtype, impl):
+    """A packed batch's ``positions`` and ``segment_ids`` reach every layer's
+    RoPE and attention, with and without remat (the reference reads both
+    keys in ``_forward_body``)."""
+    jcfg, tcfg, jparams, tparams = _setup(dtype, impl, 4)
+    batch = _packed_batch()
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    tbatch = {k: torch.from_numpy(v).long() for k, v in batch.items()}
+    jlogits, _ = JT.forward(jparams, jbatch, jcfg)
+    jloss, _ = JT.loss_fn(jparams, jbatch, jcfg, remat=True)
+    tlogits, _ = TT.forward(tparams, tbatch, tcfg)
+    tloss, _ = TT.loss_fn(tparams, tbatch, tcfg, remat=True)
+    np.testing.assert_allclose(tlogits.detach().numpy(),
+                               np.asarray(jlogits, np.float32), **TOLS[dtype])
+    np.testing.assert_allclose(float(tloss), float(jloss), **TOLS[dtype])
+    # the second document is its own sequence: it equals the reference's
+    # forward of its tokens alone, and not the unpacked forward of the batch
+    alone, _ = JT.forward(jparams, {"tokens": jbatch["tokens"][:, 32:]}, jcfg)
+    unpacked, _ = JT.forward(jparams, {"tokens": jbatch["tokens"]}, jcfg)
+    second = tlogits[:, 32:].detach().numpy()
+    np.testing.assert_allclose(second, np.asarray(alone, np.float32),
+                               **TOLS[dtype])
+    assert np.abs(second - np.asarray(unpacked[:, 32:], np.float32)).max() > 0.1
+
+
 @pytest.mark.parametrize("pct", [1.0, 0.25])
 def test_rope_matches_reference(pct):
     rng = np.random.default_rng(1)
