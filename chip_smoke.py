@@ -39,23 +39,39 @@ Phases, each reported on its own line:
                after every step, weights that move, the launch counts remat
                predicts, step 1 against the plain attention's step, then one
                profiled step;
-  6. ops     — ``dash_attention`` forward and backward at the training
+  6. train-resume — the train phase's flags (full width and depth) as two
+               launcher subprocesses with a checkpoint after every step (in
+               a temporary directory on tmpfs, the newest one kept): run
+               B killed with ``os._exit(17)`` at the top of step 2 (step 2's
+               async save possibly in flight), run C ``--resume``d from the
+               latest durable checkpoint; run C's digest chain head must
+               equal the train phase's first run's, it must resume from step
+               1 or 2, and each of its steps must launch 48 causal forwards,
+               24 worker backwards and 24 folds. Prints the checkpoint's
+               bytes, save and restore seconds, the directory's filesystem
+               and free bytes;
+  7. lifecycle — every cell of ``verify.lifecycle`` (base, mb4, int8, remat
+               "dots", gqa, bf16opt, plus adafactor and packed documents) at
+               full width cut to 2 layers, B=2 (mb4: 4), S=1024, 4 steps,
+               crash at 2, on the DASH kernels: straight ≡ crash/resume bit
+               for bit, with the launches each cell predicts;
+  8. ops     — ``dash_attention`` forward and backward at the training
                shape, full mask (schedule ``shift``) and serialized, against
                the plain op, counting the kernels each path launches; and a
                1024-token sliding window at the windowed training shape
                (B=1, H=32, S=4096, D=64; worker-parallel and serialized)
                against the plain query-chunked masked op, which must differ
                from the causal op beyond the window;
-  7. slice-window — the serving slice with ``attn_window=1024``: batch 2,
+  9. slice-window — the serving slice with ``attn_window=1024``: batch 2,
                prompt 2048, 32 new tokens; the prefill must launch the
                block-sparse forward once per layer;
-  8. train-window — the train phase again with ``--attn-window 1024`` at
+ 10. train-window — the train phase again with ``--attn-window 1024`` at
                B=1, S=4096 (the launcher's flags): 48 block-sparse forwards,
                24 masked worker backwards and 24 folds a step, no causal
                forward, step 1 and every layer's attention grads against the
                plain masked, query-chunked attention's step, then one
                profiled step;
-  9. timing  — each kernel at its training slice's attention shape beside
+ 11. timing  — each kernel at its training slice's attention shape beside
                its plain version, the PyTorch library call for the same
                function where there is one (for a mask, SDPA with the dense
                boolean mask; for the fold, ``torch.sum`` over the partials
@@ -67,12 +83,16 @@ Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -86,6 +106,7 @@ import torch.nn.functional as F  # noqa: E402
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.ckpt import checkpoint as CK  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.core.schedules import cached_schedule  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -99,6 +120,7 @@ from repro_torch.models.module import count_params, set_path, tree_paths  # noqa
 from repro_torch.serve.engine import Engine  # noqa: E402
 from repro_torch.train import optimizer as O  # noqa: E402
 from repro_torch.train import step as TS  # noqa: E402
+from repro_torch.verify import lifecycle as LC  # noqa: E402
 
 # H100 SXM, NVIDIA's data sheet (dense, at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -163,6 +185,21 @@ TRAIN_WINDOW_ARGV = ["--arch", "stablelm-1.6b", "--batch", "1", "--seq",
                      "4096", "--attn-window", "1024", "--steps", "3",
                      "--warmup-steps", "1", "--seed", "0", "--log-every", "1",
                      "--verify"]
+# [train-resume]: TRAIN_ARGV killed with os._exit(17) at the top of step 2
+# (from 0) after a checkpoint at every step (the newest kept), then resumed;
+# each run a subprocess of the launcher with up to this many seconds
+RESUME_DIE_AT = 2
+RESUME_TIMEOUT_S = 600
+# checkpoints go to RAM (tmpfs): a full-width checkpoint is ~20 GB, and the
+# chip machine's disk takes ~45 GB of writes in one call, freed blocks
+# included
+CKPT_ROOT = "/dev/shm"
+# [lifecycle]: the lifecycle cells at full width, cut to 2 layers, B=2
+# (mb4: B=4, so each of its 4 microbatches holds a row), S=1024, 4 steps,
+# crash at 2, on the DASH kernels
+LIFECYCLE = dict(reduced=False, steps=4, batch=2, seq=1024)
+LIFECYCLE_OVERRIDES = (("n_layers", 2), ("attention_impl", "cuda"))
+LIFECYCLE_CRASH_AT = 2
 # the windowed training slice's attention shape (B, H, Hk, S, D, dtype) and
 # mask
 WINDOW_CASE = ("train_window", 1, 32, 32, 4096, 64, torch.bfloat16)
@@ -360,10 +397,7 @@ def check_forward_bits():
     return result
 
 
-def _counts():
-    return dict(fwd_causal=FF.launches, fwd_full=FF.launches_full,
-                fwd_mask=FF.launches_mask, bwd_worker=FB.launches_worker,
-                bwd_serial=FB.launches_serial, fold=FB.launches_fold)
+_counts = ops.launch_counts
 
 
 def _zero_counts():
@@ -806,6 +840,184 @@ def run_train(argv=TRAIN_ARGV, label="train"):
     return result
 
 
+def _free_device_memory():
+    """Drop this process's cached device memory before a subprocess takes
+    the card."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved() / 1e9
+
+
+def _filesystem(path):
+    """(mount point, type) of the filesystem holding ``path``."""
+    path, best = os.path.realpath(path), ("?", "?")
+    with open("/proc/mounts") as f:
+        for line in f:
+            _, mount, fstype = line.split()[:3]
+            if (path == mount or path.startswith(mount.rstrip("/") + "/")) \
+                    and len(mount) >= len(best[0]):
+                best = (mount, fstype)
+    return best
+
+
+def _mem_available_gb():
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 1e6
+    return None
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def _launcher(argv, timeout=RESUME_TIMEOUT_S):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train"]
+                       + argv, env=env, cwd=ROOT, capture_output=True,
+                       text=True, timeout=timeout)
+    return r, time.perf_counter() - t0
+
+
+def run_train_resume(straight, label="train-resume"):
+    """StableLM-1.6B at full width and depth with ``TRAIN_ARGV``'s flags, as
+    two launcher subprocesses: run B saves a checkpoint after every step and
+    is killed with ``os._exit(17)`` at the top of step ``RESUME_DIE_AT``
+    (step 2's async save possibly in flight); run C resumes from the latest
+    durable checkpoint. Run C's digest chain head must equal ``straight``'s
+    (the first run of ``[train]``, in this process), and each of its steps
+    must launch what ``[train]``'s did."""
+    args, cfg, *_ = launch_train.configure(TRAIN_ARGV)
+    want = dict(fwd_causal=2 * cfg.n_layers, fwd_full=0, fwd_mask=0,
+                bwd_worker=cfg.n_layers, bwd_serial=0, fold=cfg.n_layers)
+    reserved_gb = _free_device_memory()
+    with tempfile.TemporaryDirectory(prefix="repro_torch_ckpt_",
+                                     dir=CKPT_ROOT) as d:
+        mount, fstype = _filesystem(d)
+        free_before = shutil.disk_usage(d).free
+        host_gb = _mem_available_gb()
+        flags = TRAIN_ARGV + ["--ckpt-dir", d, "--ckpt-every", "1",
+                              "--ckpt-keep", "1",
+                              "--verify-out", os.path.join(d, "chain.json")]
+        b, b_s = _launcher(flags + ["--die-at-step", str(RESUME_DIE_AT)])
+        if b.returncode != 17:
+            raise AssertionError(f"run B exited {b.returncode}, not 17:\n"
+                                 f"{b.stdout[-4000:]}\n{b.stderr[-4000:]}")
+        after_b = sorted(os.listdir(d))
+        durable = CK.available_steps(d)
+        ckpt_bytes = {s: _dir_bytes(os.path.join(d, f"step_{s}"))
+                      for s in durable}
+        b_saves = [dict(step=int(m[1]), snapshot_s=float(m[2]),
+                        write_s=float(m[3]), wait_s=float(m[4]))
+                   for m in re.finditer(r"\[ckpt\] step (\d+): snapshot "
+                                        r"([\d.]+)s, written in ([\d.]+)s "
+                                        r"\(([\d.]+)s waited\)", b.stdout)]
+        c, c_s = _launcher(flags + ["--resume"])
+        if c.returncode != 0:
+            raise AssertionError(f"run C exited {c.returncode}:\n"
+                                 f"{c.stdout[-4000:]}\n{c.stderr[-4000:]}")
+        resumed = re.search(r"^resumed from step (\d+)$", c.stdout, re.M)
+        summary = json.loads(c.stdout.strip().splitlines()[-1])
+    k = int(resumed[1]) if resumed else None
+    result = dict(
+        arch=cfg.name, batch=args.batch, seq=args.seq, steps=args.steps,
+        entry="python -m repro_torch.launch.train " + " ".join(TRAIN_ARGV)
+        + " --ckpt-dir D --ckpt-every 1 --ckpt-keep 1 --verify-out "
+        "D/chain.json, "
+        f"--die-at-step {RESUME_DIE_AT}, then --resume",
+        ckpt_dir_filesystem=dict(mount=mount, type=fstype),
+        free_bytes_before=free_before, host_mem_available_gb=host_gb,
+        parent_reserved_gb=reserved_gb,
+        run_b=dict(exit=b.returncode, seconds=b_s, dir_after=after_b,
+                   durable_steps=durable, saves=b_saves),
+        checkpoint_bytes=ckpt_bytes, resumed_from=k,
+        restore_s=summary.get("restore_s"), run_c_saves=summary.get("ckpt"),
+        run_c=dict(exit=c.returncode, seconds=c_s,
+                   step_ms=summary["step_ms"],
+                   final_loss=summary["final_loss"]),
+        launches_per_step=summary.get("launches"),
+        digest_chain_head=summary.get("digest_chain_head"),
+        straight_head=straight, heads_equal=summary.get(
+            "digest_chain_head") == straight)
+    print(f"[{label}] " + json.dumps(result), flush=True)
+    if k is None or not 1 <= k <= RESUME_DIE_AT or summary["start_step"] != k:
+        raise AssertionError(f"run C resumed from {k} (summary "
+                             f"{summary.get('start_step')}); expected a "
+                             f"durable step in 1..{RESUME_DIE_AT}")
+    if not result["heads_equal"]:
+        raise AssertionError("the resumed run's digest chain head differs "
+                             "from the straight run's")
+    if [l for l in summary["launches"] if l != want] or \
+            len(summary["launches"]) != args.steps - k:
+        raise AssertionError(f"run C's steps launched {summary['launches']},"
+                             f" expected {want} for each of "
+                             f"{args.steps - k} steps")
+    return result
+
+
+def _lifecycle_config(name):
+    """The cell's config at full width, 2 layers, on the DASH kernels."""
+    base = LC.cell_config(name)
+    kw = dict(LIFECYCLE, overrides=base.overrides + LIFECYCLE_OVERRIDES)
+    if base.microbatches > LIFECYCLE["batch"]:
+        kw["batch"] = base.microbatches
+    return dataclasses.replace(base, **kw)
+
+
+def _lifecycle_launches(lc, cfg):
+    """What a cell's runs launch: straight and resume both take ``steps``
+    steps; a step runs each layer's forward once per microbatch (twice
+    under remat) and its backward and folds once; packed batches take the
+    plain segment-masked attention."""
+    if lc.packed:
+        return dict.fromkeys(("fwd_causal", "fwd_full", "fwd_mask",
+                              "bwd_worker", "bwd_serial", "fold"), 0)
+    per = 2 * lc.steps * lc.microbatches * cfg.n_layers
+    # a GQA backward folds dK and dV over each group besides the dQ partials
+    folds = 3 if cfg.n_kv_heads < cfg.n_heads else 1
+    return dict(fwd_causal=per * (2 if lc.remat else 1), fwd_full=0,
+                fwd_mask=0, bwd_worker=per, bwd_serial=0, fold=folds * per)
+
+
+def run_lifecycle(label="lifecycle"):
+    """Every lifecycle cell (the reference's matrix, plus Adafactor and
+    packed documents) through straight ≡ crash/resume on the card."""
+    reports = []
+    for name in list(LC.MATRIX) + list(LC.EXTRA):
+        lc = _lifecycle_config(name)
+        cfg = lc.model_config()
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        rep = LC.run_cell(name, crash_at=LIFECYCLE_CRASH_AT, device="cuda",
+                          lc=lc, tmp_root=CKPT_ROOT)
+        torch.cuda.synchronize()
+        counts = _counts()
+        want = _lifecycle_launches(lc, cfg)
+        line = dict(cell=name, heads=rep["heads"],
+                    conformant=rep["conformant"],
+                    first_divergence=rep["first_divergence"],
+                    layers=cfg.n_layers, d_model=cfg.d_model,
+                    n_kv_heads=cfg.n_kv_heads, batch=lc.batch, seq=lc.seq,
+                    steps=lc.steps, crash_at=LIFECYCLE_CRASH_AT,
+                    launches=counts, launches_expected=want,
+                    seconds=time.perf_counter() - t0)
+        print(f"[{label}] " + json.dumps(line), flush=True)
+        reports.append(line)
+        if counts != want:
+            raise AssertionError(f"lifecycle cell {name} launched {counts}, "
+                                 f"expected {want}")
+    bad = [r["cell"] for r in reports if not r["conformant"]]
+    if bad:
+        raise AssertionError(f"lifecycle cells not conformant: {bad}")
+    _free_device_memory()
+    return reports
+
+
 def _op_path(q, k, v, do, dtype, kw, ref_kw):
     """One ``dash_attention`` path forward + backward, its launches counted
     from zero, against ``torch_attention(**ref_kw)`` on the same inputs."""
@@ -1221,6 +1433,8 @@ def main():
     serve = run_slice()
     serve_window = run_slice(SLICE_WINDOW, "slice-window")
     train = run_train()
+    resume = run_train_resume(train["digest_chain_heads"][0])
+    run_lifecycle()
     train_window = run_train(TRAIN_WINDOW_ARGV, "train-window")
     op_paths = run_ops()
     launches = dict(train["launches_per_step"])
@@ -1236,6 +1450,8 @@ def main():
     print(f"[done] serving prefill launched the causal forward "
           f"{serve['attention_launches']} times, the windowed one the "
           f"block-sparse forward {serve_window['attention_launches']} times; "
+          f"training resumed from step {resume['resumed_from']} with the "
+          f"straight run's digest chain; "
           f"{time.perf_counter() - t0:.1f}s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -38,6 +38,10 @@ class ModelConfig:
     attn_chunk_q: int = 1024       # q-chunked attention above this seq
     attn_window: int = 0           # sliding-window size in tokens (0 = full);
                                    # lowers as masks.SlidingWindow on both impls
+    packed_inputs: bool = False    # batches carry segment_ids/positions from
+                                   # the deterministic sequence packer
+                                   # (data.pipeline.pack_documents): attention
+                                   # is segment-masked, RoPE restarts per doc
     # structure
     block_pattern: Tuple[str, ...] = ("attn",)
     # numerics

@@ -19,7 +19,7 @@ def get(name: str):
     mod_name = ALIASES.get(name, name.replace("-", "_").replace(".", "_"))
     if mod_name not in ARCHS:
         raise NotImplementedError(
-            f"arch {name!r} is not ported yet (ROADMAP queue A: 'Other model "
+            f"arch {name!r} is not ported yet (ROADMAP A8: 'Other model "
             f"families'); ported: {ARCHS}")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.CONFIG

@@ -460,7 +460,7 @@ def cached_schedule(name: str, n: int, n_heads: int = 1, causal: bool = False,
     if tune:
         raise NotImplementedError(
             "cached_schedule(tune=True): the placement tuner is not ported "
-            "yet (ROADMAP queue A, observability and tuner)")
+            "yet (ROADMAP A7, observability and tuner)")
     # normalize to positional: lru_cache keys kwargs separately
     return _cached_schedule(name, n, n_heads, causal, n_q, mask,
                             block_q, block_k)

@@ -28,6 +28,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.schedules import cached_schedule
+from repro_torch.kernels import flash_bwd as FB
+from repro_torch.kernels import flash_fwd as FF
 from repro_torch.kernels import ref as ref_mod
 from repro_torch.kernels.flash_bwd import flash_bwd
 from repro_torch.kernels.flash_fwd import flash_fwd
@@ -36,6 +38,14 @@ from repro_torch.masks.spec import Causal, Full
 
 SCHEDULES = ("fa3", "descending", "shift", "symmetric_shift",
              "symmetric_shift_or_shift")
+
+
+def launch_counts():
+    """The CUDA kernels' launch counters (each wrapper adds one per launch
+    and nothing else touches them), by kernel."""
+    return dict(fwd_causal=FF.launches, fwd_full=FF.launches_full,
+                fwd_mask=FF.launches_mask, bwd_worker=FB.launches_worker,
+                bwd_serial=FB.launches_serial, fold=FB.launches_fold)
 
 
 def _flatten(x):  # (B, H, S, D) -> (BH, S, D)

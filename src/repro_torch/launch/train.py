@@ -8,20 +8,39 @@
         --steps 2 --batch 2 --seq 128
 
 Weights are random, from ``--seed``; data is the synthetic source
-(``data.pipeline.SyntheticLM``, a pure function of (seed, step)). On the
-card the attention runs the DASH kernels (``attention_impl="cuda"``: the
-flash forward and the deterministic backward), built before the first step;
-with ``--device cpu`` it is the plain PyTorch attention. bf16, AdamW, remat
-on, causal; ``--attn-window N`` sets the config's ``attn_window`` (a causal
-N-token sliding window: on the card the block-sparse forward and the masked
-DASH backward, on the CPU the plain masked attention). The steps run under ``torch.use_deterministic_algorithms`` (with
-cuBLAS's fixed workspace), so two runs from one seed give the same state.
-``--verify`` digests the whole state (params and optimizer moments) after
-every step into a :class:`~repro_torch.verify.digest.DigestChain` and prints
-its head; ``--profile-step N`` runs step N under ``torch.profiler`` and prints
-its busy time and top ops. The last line is the reference's summary JSON,
-plus each step's wall time. Checkpoints, ``--tune``, ``--track`` and
-``--chaos`` are not ported yet.
+(``data.pipeline.SyntheticLM``, a pure function of (seed, step)) or, with
+``--data FILE``, windows of a flat ``uint32`` token file (``MemmapCorpus``).
+On the card the attention runs the DASH kernels (``attention_impl="cuda"``:
+the flash forward and the deterministic backward), built before the first
+step; with ``--device cpu`` it is the plain PyTorch attention. bf16, remat
+on, causal; AdamW or ``--opt adafactor``; ``--grad-compression int8`` adds
+int8 error-feedback compression. ``--attn-window N`` sets the config's
+``attn_window`` (a causal N-token sliding window: on the card the
+block-sparse forward and the masked DASH backward, on the CPU the plain
+masked attention). The steps run under ``torch.use_deterministic_algorithms``
+(with cuBLAS's fixed workspace), so two runs from one seed give the same
+state.
+
+Checkpoints (off unless ``--ckpt-dir`` is given): every ``--ckpt-every``
+steps an async save (``ckpt.checkpoint``; the previous one is joined first,
+the last one before the run ends; a failed save fails the run), the newest
+``--ckpt-keep`` kept; ``--resume`` restores the latest durable checkpoint
+and continues from its step; ``--die-at-step N`` kills the process with
+``os._exit(17)`` at the top of step N (from 0), a save possibly in flight —
+the fault-tolerance protocol of ``launch/failures.py``.
+
+``--verify`` digests the whole state (params, optimizer state, error
+feedback) after every step into a
+:class:`~repro_torch.verify.digest.DigestChain` and prints its head; the
+chain is written to ``--verify-out`` (default ``<ckpt-dir>/digest_chain.json``
+with ``--ckpt-dir``) at every save and at the end, and a resumed run
+continues it from the restored step, so its head equals a straight run's.
+``--profile-step N`` runs step N under ``torch.profiler`` and prints its busy
+time and top ops. The last line is the reference's summary JSON, plus each
+step's wall time and, on the card, each step's kernel launches. ``--tune``,
+``--track``, ``--trace-out`` and ``--chaos`` wait for ``obs``, ``tune`` and
+``faults`` (ROADMAP A6-A7); ``--heartbeat`` for ``launch/heartbeat.py``
+(A10); ``--mesh`` for the distributed slice (A9).
 """
 from __future__ import annotations
 
@@ -34,10 +53,12 @@ import time
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.ckpt import checkpoint as C
 from repro_torch.configs import registry
 from repro_torch.data.pipeline import DataConfig, make_source
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_fwd import BLOCK
+from repro_torch.kernels.ops import launch_counts
 from repro_torch.train import optimizer as O
 from repro_torch.train import step as S
 from repro_torch.verify.digest import DigestChain
@@ -63,11 +84,27 @@ def configure(argv=None):
                     default=O.OptConfig.warmup_steps)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--opt", default="adamw", choices=["adamw", "adafactor"])
+    ap.add_argument("--grad-compression", default=None, choices=["int8"])
+    ap.add_argument("--data", default=None,
+                    help="memmap uint32 token file (else synthetic)")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--ckpt-keep", type=int, default=3, metavar="N",
+                    help="keep the newest N checkpoints (the reference "
+                         "keeps 3)")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the latest checkpoint in --ckpt-dir")
+    ap.add_argument("--die-at-step", type=int, default=None, metavar="N",
+                    help="simulate a hard failure: os._exit(17) at the top "
+                         "of step N")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--verify", action="store_true",
                     help="record a per-step state digest chain and print "
                          "its head")
+    ap.add_argument("--verify-out", default=None,
+                    help="write the digest-chain JSON here (default: "
+                         "<ckpt-dir>/digest_chain.json with --ckpt-dir)")
     ap.add_argument("--profile-step", type=int, default=None, metavar="N",
                     help="run step N (from 1) under torch.profiler")
     ap.add_argument("--device", default=None,
@@ -80,6 +117,10 @@ def configure(argv=None):
         ap.error("--steps must be >= 1")
     if args.attn_window is not None and args.attn_window < 0:
         ap.error("--attn-window must be >= 0")
+    if args.ckpt_every < 1 or args.ckpt_keep < 1:
+        ap.error("--ckpt-every and --ckpt-keep must be >= 1")
+    if args.resume and not args.ckpt_dir:
+        ap.error("--resume needs --ckpt-dir")
 
     device = resolve_device(args.device)
     cfg = registry.get(args.arch)
@@ -97,9 +138,11 @@ def configure(argv=None):
         opt=O.OptConfig(name=args.opt, lr=args.lr,
                         warmup_steps=args.warmup_steps,
                         total_steps=args.steps),
-        microbatches=args.microbatches, remat=True, seed=args.seed)
+        microbatches=args.microbatches, remat=True,
+        grad_compression=args.grad_compression, seed=args.seed)
     data = make_source(DataConfig(seed=args.seed, batch=args.batch,
-                                  seq=args.seq, vocab=cfg.vocab), device)
+                                  seq=args.seq, vocab=cfg.vocab,
+                                  path=args.data), device)
     return args, cfg, tcfg, data, device
 
 
@@ -124,6 +167,38 @@ def _profile_summary(prof, device):
                 ops=sum(a.count for a in ops), top_ops=top)
 
 
+def _chain_path(args):
+    if args.verify_out:
+        return args.verify_out
+    return (os.path.join(args.ckpt_dir, "digest_chain.json") if args.ckpt_dir
+            else None)
+
+
+def _write_chain(path, chain):
+    parent = os.path.dirname(path)
+    if parent:
+        os.makedirs(parent, exist_ok=True)
+    with open(path, "w") as f:
+        f.write(chain.to_json())
+
+
+def _join(pending, saves):
+    """Wait for an async save; record and print its times."""
+    if pending is None:
+        return
+    thread, info = pending
+    t0 = time.perf_counter()
+    thread.join()
+    info.update(wait_s=time.perf_counter() - t0, **thread.stats)
+    if "write_s" not in info:
+        raise RuntimeError(f"the checkpoint of step {info['step']} failed "
+                           f"(its writer's exception is printed above)")
+    saves.append(info)
+    print(f"[ckpt] step {info['step']}: snapshot {info['snapshot_s']:.2f}s, "
+          f"written in {info['write_s']:.2f}s ({info['wait_s']:.2f}s "
+          f"waited)", flush=True)
+
+
 def main(argv=None, on_step=None):
     """Run the flags' training. ``on_step(step, state, metrics)``, if given,
     is called after each step, outside its timing. Returns the summary:
@@ -141,41 +216,92 @@ def main(argv=None, on_step=None):
     torch.use_deterministic_algorithms(True)
     try:
         state = S.init_state(cfg, tcfg, seed=args.seed, device=device)
+        start, restore_s = 0, None
+        if args.resume:
+            k = C.latest_step(args.ckpt_dir)
+            if k is None:
+                print(f"[ckpt] no checkpoint in {args.ckpt_dir}; starting "
+                      f"from step 0", flush=True)
+            else:
+                t0 = time.perf_counter()
+                state = C.restore(args.ckpt_dir, k, state)
+                _sync(device)
+                restore_s = time.perf_counter() - t0
+                start = k
+                print(f"resumed from step {start}", flush=True)
         step_fn = S.make_train_step(cfg, tcfg)
-        chain = DigestChain() if args.verify else None
-        step_ms, profile = [], None
-        for step in range(args.steps):
+        chain_path = _chain_path(args)
+        chain = None
+        if args.verify:
+            chain = DigestChain()
+            if start and chain_path and os.path.exists(chain_path):
+                # keep the records up to the restored step, so the resumed
+                # run's head stays comparable to a straight run's
+                with open(chain_path) as f:
+                    prior = DigestChain.from_json(f.read())
+                chain = DigestChain(
+                    records=[(s, d) for s, d in prior.records if s <= start])
+                print(f"[verify] resumed digest chain at step {start} "
+                      f"({len(chain)} records)", flush=True)
+        step_ms, saves, profile, metrics, pending = [], [], None, None, None
+        launches = []       # per step, on the card: each kernel's launches
+        for step in range(start, args.steps):
+            if args.die_at_step is not None and step == args.die_at_step:
+                print(f"simulated failure at step {step}", flush=True)
+                os._exit(17)
             batch = data.batch(step)
             profiling = step + 1 == args.profile_step
             # the profiler starts before and is read after the timed step
             with (_profiler(device) if profiling
                   else contextlib.nullcontext()) as prof:
                 _sync(device)
+                before = launch_counts()
                 t0 = time.perf_counter()
                 state, metrics = step_fn(state, batch)
                 _sync(device)
                 step_ms.append((time.perf_counter() - t0) * 1e3)
+                launches.append({k: v - before[k]
+                                 for k, v in launch_counts().items()})
             if profiling:
                 profile = _profile_summary(prof, device)
             if chain is not None:
                 chain.append(step + 1, state)
             if on_step is not None:
                 on_step(step + 1, state, metrics)
-            if (step + 1) % args.log_every == 0 or step == 0:
+            if (step + 1) % args.log_every == 0 or step == start:
                 m = S.step_event(metrics)
                 print(f"step {step + 1} loss={m['loss']:.4f} "
                       f"gnorm={m['grad_norm']:.3f} lr={m['lr']:.2e} "
                       f"({step_ms[-1]:.1f} ms)", flush=True)
+            if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+                _join(pending, saves)
+                t0 = time.perf_counter()
+                thread = C.save(args.ckpt_dir, step + 1, state, async_=True,
+                                keep_last=args.ckpt_keep)
+                pending = (thread, dict(step=step + 1,
+                                        snapshot_s=time.perf_counter() - t0))
+                if chain is not None and chain_path:
+                    _write_chain(chain_path, chain)   # survives a crash
+        _join(pending, saves)
     finally:
         torch.use_deterministic_algorithms(was_deterministic)
     if profile is not None:
         print(f"[profile] step {args.profile_step}: " + json.dumps(profile),
               flush=True)
-    summary = {"final_step": args.steps, "final_loss": float(metrics["loss"]),
+    summary = {"final_step": args.steps,
+               "final_loss": None if metrics is None
+               else float(metrics["loss"]),
                "step_ms": step_ms}
+    if device.type == "cuda":
+        summary["launches"] = launches
+    if args.ckpt_dir:
+        summary.update(start_step=start, restore_s=restore_s, ckpt=saves)
     if chain is not None:
+        if chain_path:
+            _write_chain(chain_path, chain)
         print(f"[verify] digest chain head {chain.head} ({len(chain)} "
-              f"records)", flush=True)
+              f"records)" + (f" -> {chain_path}" if chain_path else ""),
+              flush=True)
         summary["digest_chain_head"] = chain.head
     print(json.dumps(summary))
     return dict(summary, profile=profile)

@@ -5,7 +5,7 @@ FULL / PARTIAL / EMPTY block maps, and :mod:`~repro_torch.masks.schedule`
 compiles a block map into a deterministic
 :class:`repro_torch.core.schedules.Schedule` (ragged worker chains +
 per-column reduction orders) that drives the masked backward kernels.
-The reference's ``cache_info`` is not ported yet.
+The reference's ``cache_info`` is not ported yet (ROADMAP A7).
 """
 from repro_torch.masks.spec import (EMPTY, FULL, PARTIAL, And, Causal,
                                     Document, Full, MaskSpec, Or, PrefixLM,

@@ -129,7 +129,7 @@ def cached_block_schedule(mask: MaskSpec, n_kv: int, n_q: int,
     if tune:
         raise NotImplementedError(
             "cached_block_schedule(tune=True): the placement tuner is not "
-            "ported yet (ROADMAP queue A, observability and tuner)")
+            "ported yet (ROADMAP A7, observability and tuner)")
     return _cached_block_schedule(mask, n_kv, n_q, block_q, block_k, placement)
 
 

@@ -189,8 +189,8 @@ def apply_mlp(p, x, cfg):
     """Gated SiLU MLP; the other activations come with their model families."""
     if cfg.activation != "silu":
         raise NotImplementedError(
-            f"activation {cfg.activation!r} is not ported yet (ROADMAP queue "
-            f"A, 'Other model families')")
+            f"activation {cfg.activation!r} is not ported yet (ROADMAP A8, "
+            f"'Other model families')")
     h = F.silu(dot(x, p["w_gate"])) * dot(x, p["w_up"])
     return dot(h.to(x.dtype), p["w_down"], out_dtype=x.dtype)
 

@@ -7,16 +7,32 @@ leaves, walked here by a Python loop over the repeats (the reference scans).
 Entry modes:
   forward:      full-sequence logits (train/prefill), each layer optionally
                 recomputed in the backward (``remat``: the counterpart of
-                ``jax.checkpoint`` on the scan body);
+                ``jax.checkpoint`` on the scan body, with the reference's
+                ``remat_policy``);
   loss_fn:      next-token cross-entropy over ``forward``;
   prefill_step: prompt processing that also fills the KV caches;
   decode_step:  one-token step over the caches (updated in place).
 Other block patterns (MoE, SSM, xLSTM) raise ``NotImplementedError``.
+
+Remat policies (``REMAT_POLICIES``), each a ``torch.utils.checkpoint`` of
+one layer: ``"none"`` recomputes everything; ``"dots"`` and ``"names"`` run a
+selective-checkpoint policy over the dispatched ops — ``"dots"`` saves every
+matrix product's output (the reference's ``dots_saveable``), ``"names"`` only
+the tensors the reference tags with ``checkpoint_name``: ``attn_out`` (the
+residual after attention) and ``ffn_in`` (the MLP's normed input);
+``ssm_out`` comes with the SSM blocks (ROADMAP A8). A policy decides what is
+*kept*; the backward still re-runs the layer's Python code, and a saved op
+returns its kept output instead of computing again. The DASH forward is a
+``torch.autograd.Function`` whose kernel launch is no dispatched op, so it is
+recomputed under every policy: with ``remat`` a train step launches the
+attention forward twice a layer for ``"none"``, ``"dots"`` and ``"names"``
+alike (once without remat), the backward kernels once.
 """
 from __future__ import annotations
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
@@ -30,7 +46,7 @@ def check_supported(cfg) -> None:
     if any(k != "attn" for k in cfg.block_pattern):
         raise NotImplementedError(
             f"{cfg.name}: block pattern {cfg.block_pattern} is not ported yet "
-            f"(ROADMAP queue A, 'Other model families')")
+            f"(ROADMAP A8, 'Other model families')")
 
 
 def _block_defs(cfg):
@@ -82,29 +98,85 @@ def _layer(unstacked, i):
             for k, v in unstacked.items()}
 
 
+# the matrix products as they reach the dispatcher (``torch.matmul`` lowers
+# to these; the reference's "dots" saves every dot_general)
+_DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                      torch.ops.aten.addmm.default,
+                      torch.ops.aten.baddbmm.default})
+_NAMES = ("attn_out", "ffn_in", "ssm_out")
+
+
+class _Policy:
+    """A selective-checkpoint policy over the ops of one remat'd layer.
+
+    ``"dots"`` saves the output of every matrix product; ``"names"`` saves
+    the copy :meth:`name` makes of a tagged tensor and nothing else."""
+
+    def __init__(self, kind: str):
+        self.kind = kind
+        self._tagging = False
+
+    def name(self, x, tag: str):
+        """``checkpoint_name``: under ``"names"`` a copy whose output the
+        policy keeps, else ``x`` itself."""
+        if self.kind != "names" or tag not in _NAMES:
+            return x
+        self._tagging = True
+        try:
+            return x.clone()
+        finally:
+            self._tagging = False
+
+    def __call__(self, ctx, op, *args, **kwargs):
+        keep = (op in _DOT_OPS if self.kind == "dots"
+                else self._tagging and op is torch.ops.aten.clone.default)
+        return (CheckpointPolicy.MUST_SAVE if keep
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    def contexts(self):
+        return create_selective_checkpoint_contexts(self)
+
+
+REMAT_POLICIES = ("none", "dots", "names")
+
+
+def _identity_name(x, tag):
+    return x
+
+
 def _apply_block(p, x, cfg, *, positions, cache=None, cache_pos=None,
-                 segment_ids=None):
+                 segment_ids=None, name=_identity_name):
     h, _ = L.attention_block(p["attn"], L.apply_norm(p["ln1"], x, cfg), cfg,
                              positions=positions, cache=cache,
                              cache_pos=cache_pos, segment_ids=segment_ids)
-    x = x + h
-    return x + L.apply_mlp(p["mlp"], L.apply_norm(p["ln2"], x, cfg), cfg)
+    x = name(x + h, "attn_out")
+    y_in = name(L.apply_norm(p["ln2"], x, cfg), "ffn_in")
+    return x + L.apply_mlp(p["mlp"], y_in, cfg)
+
+
+def _remat_layer(p, x, cfg, *, positions, segment_ids, remat_policy):
+    """One layer under ``torch.utils.checkpoint`` (non-reentrant) with the
+    policy ``remat_policy``."""
+    policy = _Policy(remat_policy)
+    selective = {} if remat_policy == "none" else dict(
+        context_fn=policy.contexts)
+    return checkpoint(
+        lambda x_: _apply_block(p, x_, cfg, positions=positions,
+                                segment_ids=segment_ids, name=policy.name),
+        x, use_reentrant=False, **selective)
 
 
 def _apply_stack(params, x, cfg, *, positions, caches=None, cache_pos=None,
-                 remat=False, segment_ids=None):
+                 remat=False, remat_policy="none", segment_ids=None):
     for key, stacked_p in _blocks(params):
         n_rep = stacked_p["ln1"]["scale"].shape[0]
         layers = _unstack(stacked_p)
         for i in range(n_rep):
             p = _layer(layers, i)
             if remat:
-                # recompute everything in the backward (remat_policy "none")
-                x = checkpoint(
-                    lambda x_, p_=p: _apply_block(p_, x_, cfg,
-                                                  positions=positions,
-                                                  segment_ids=segment_ids),
-                    x, use_reentrant=False)
+                x = _remat_layer(p, x, cfg, positions=positions,
+                                 segment_ids=segment_ids,
+                                 remat_policy=remat_policy)
                 continue
             cache = None
             if caches is not None:
@@ -122,20 +194,21 @@ def forward(params, batch, cfg, *, remat=False, remat_policy="none"):
     across documents is masked out (on the plain path, as in the reference).
 
     ``remat=True`` runs each layer under ``torch.utils.checkpoint`` (non-
-    reentrant): the backward recomputes the layer, attention forward
-    included. Only ``remat_policy="none"`` (recompute everything) is ported.
+    reentrant) with ``remat_policy`` (one of ``REMAT_POLICIES``, see the
+    module docstring): the backward recomputes the layer, attention forward
+    included, except the outputs the policy keeps.
     """
     check_supported(cfg)
-    if remat and remat_policy != "none":
-        raise NotImplementedError(
-            f"remat_policy={remat_policy!r} is not ported yet (ROADMAP queue "
-            f"A, dense train step); 'none' is")
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy={remat_policy!r}; one of "
+                         f"{REMAT_POLICIES}")
     tokens = batch["tokens"]
     x = L.apply_embed(params["embed"], tokens, cfg)
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
     x = _apply_stack(params, x, cfg, positions=positions, remat=remat,
+                     remat_policy=remat_policy,
                      segment_ids=batch.get("segment_ids"))
     x = L.apply_norm(params["ln_f"], x, cfg)
     logits = L.apply_lm_head(params["lm_head"], x, cfg)

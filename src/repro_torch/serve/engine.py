@@ -3,7 +3,7 @@
 Counterpart of the static ``Engine`` of ``repro.serve.engine``: one padded
 batch in, prefill (the causal DASH forward when ``attention_impl="cuda"``),
 then lockstep one-token decode over the KV caches. The continuous engine
-comes with its own slice (ROADMAP queue A).
+comes with its own slice (ROADMAP A5).
 
 Sampling semantics are the reference's: greedy is argmax over the raw
 logits (lowest id on ties); sampled applies temperature then an exact-k

@@ -1,4 +1,5 @@
-"""AdamW + LR schedules over plain parameter trees (nested dicts of tensors).
+"""AdamW, Adafactor + LR schedules over plain parameter trees (nested dicts
+of tensors).
 
 Port of ``repro.train.optimizer``. Every update is elementwise and every
 reduction runs in a fixed order, so a step is a pure function of its inputs
@@ -6,7 +7,7 @@ reduction runs in a fixed order, so a step is a pure function of its inputs
 tree order — keys sorted at every level, which is what ``jax.tree.leaves``
 does for dicts — so the global-norm sum adds the leaves in the same order.
 State dtype is configurable (fp32 default). Updates are functional: new
-tensors, the inputs are not modified. Adafactor is not ported yet.
+tensors, the inputs are not modified.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ F32 = torch.float32
 
 @dataclasses.dataclass(frozen=True)
 class OptConfig:
-    name: str = "adamw"            # adamw (adafactor: not ported yet)
+    name: str = "adamw"            # adamw | adafactor
     lr: float = 3e-4
     warmup_steps: int = 100
     total_steps: int = 10_000
@@ -112,22 +113,77 @@ def adamw_update(cfg: OptConfig, grads, state, params, step: int):
     return pick(0), {"m": pick(1), "v": pick(2)}
 
 
+# ------------------------------------------------------------------ Adafactor
+def adafactor_init(cfg: OptConfig, params):
+    """Factored second moments: a leaf of rank >= 2 keeps its row means
+    ``vr`` (shape[:-1]) and column means ``vc`` (shape[:-2] + shape[-1:]),
+    a vector keeps ``v``; all in ``state_dtype``."""
+    dt = _state_dtype(cfg)
+
+    def st(p):
+        if p.dim() >= 2:
+            return {"vr": torch.zeros(p.shape[:-1], dtype=dt, device=p.device),
+                    "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], dtype=dt,
+                                      device=p.device)}
+        return {"v": torch.zeros(p.shape, dtype=dt, device=p.device)}
+
+    return {"f": tree_map(st, params)}
+
+
+def adafactor_update(cfg: OptConfig, grads, state, params, step: int):
+    """Decay ``1 - (step+1)^-0.8``, the factored (or full) second moment,
+    RMS update clipping at 1, then weight decay — the reference's update."""
+    dt = _state_dtype(cfg)
+    lr = lr_at(cfg, step)
+    f = np.float32
+    decay32 = f(1.0) - (f(int(step)) + f(1.0)) ** f(-0.8)   # fp32, as traced
+    decay, keep = float(decay32), float(f(1.0) - decay32)
+
+    def upd(g, s, p):
+        gf = torch.square(g.to(F32)) + 1e-30
+        if p.dim() >= 2:
+            vr = decay * s["vr"].to(F32) + keep * gf.mean(-1)
+            vc = decay * s["vc"].to(F32) + keep * gf.mean(-2)
+            denom = (vr[..., None] * vc[..., None, :]
+                     / torch.clamp_min(vr.mean(-1, keepdim=True),
+                                       1e-30)[..., None])
+            new_s = {"vr": vr.to(dt), "vc": vc.to(dt)}
+        else:
+            v = decay * s["v"].to(F32) + keep * gf
+            denom = v
+            new_s = {"v": v.to(dt)}
+        delta = g.to(F32) * torch.rsqrt(denom + 1e-30)
+        # update clipping (Adafactor's RMS trick)
+        rms = torch.sqrt(torch.mean(torch.square(delta)) + 1e-30)
+        delta = delta / torch.clamp_min(rms, 1.0)
+        delta = delta + cfg.weight_decay * p.to(F32)
+        return (p.to(F32) - lr * delta).to(p.dtype), new_s
+
+    # the state tree mirrors the params with a dict per leaf: tree_map walks
+    # the grads' structure and hands each leaf its state dict
+    out = tree_map(upd, grads, state["f"], params)
+    pick = lambda i: tree_map(lambda o: o[i], out)
+    return pick(0), {"f": pick(1)}
+
+
 # ------------------------------------------------------------------ dispatch
-def _check_name(cfg: OptConfig):
-    if cfg.name != "adamw":
-        raise NotImplementedError(
-            f"optimizer {cfg.name!r} is not ported yet (ROADMAP queue A, "
-            f"dense train step); 'adamw' is")
+_OPTIMIZERS = {"adamw": (adamw_init, adamw_update),
+               "adafactor": (adafactor_init, adafactor_update)}
+
+
+def _impl(cfg: OptConfig):
+    if cfg.name not in _OPTIMIZERS:
+        raise ValueError(f"unknown optimizer {cfg.name!r}; one of "
+                         f"{sorted(_OPTIMIZERS)}")
+    return _OPTIMIZERS[cfg.name]
 
 
 def opt_init(cfg: OptConfig, params):
-    _check_name(cfg)
-    return adamw_init(cfg, params)
+    return _impl(cfg)[0](cfg, params)
 
 
 def opt_update(cfg: OptConfig, grads, state, params, step: int):
     """Clip, then update. Returns (new params, new state, grad norm)."""
-    _check_name(cfg)
     grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
-    new_p, new_s = adamw_update(cfg, grads, state, params, step)
+    new_p, new_s = _impl(cfg)[1](cfg, grads, state, params, step)
     return new_p, new_s, gnorm

@@ -1,13 +1,17 @@
 """Train step over plain parameter trees.
 
 Port of the single-device part of ``repro.train.step``:
-``init_state(cfg, tcfg, seed, device)`` builds ``{params, opt, step}`` and
-``make_train_step(cfg, tcfg)`` returns ``step(state, batch) → (state,
+``init_state(cfg, tcfg, seed, device)`` builds ``{params, opt, ef?, step}``
+and ``make_train_step(cfg, tcfg)`` returns ``step(state, batch) → (state,
 metrics)``. Gradients come from ``torch.autograd.grad`` over detached copies
 of the parameters, so the state holds plain tensors and a step is a function
 of (state, batch): microbatch accumulation is a fixed-order fp32 sum then a
-divide, remat comes from ``tcfg.remat``, and clipping precedes the update.
-Mesh shardings and int8 error-feedback compression are not ported yet.
+divide, remat and its policy come from ``tcfg``, int8 error-feedback
+compression (``grad_compression="int8"``, residuals in ``state["ef"]``)
+follows the microbatch sum, and clipping precedes the update. A packed batch
+carries ``segment_ids`` and ``positions`` through ``loss_fn``. Mesh
+shardings (``state_pspecs``, ``batch_pspecs``) wait for the distributed
+slice (ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.dist import compression
 from repro_torch.models import transformer as T
 from repro_torch.models.module import set_path, tree_paths
 from repro_torch.train import optimizer as O
@@ -28,23 +33,22 @@ class TrainConfig:
     opt: O.OptConfig = O.OptConfig()
     microbatches: int = 1
     remat: bool = True
-    remat_policy: str = "none"    # none (recompute all)
-    grad_compression: Optional[str] = None    # None (int8: not ported yet)
+    remat_policy: str = "none"    # none (recompute all) | dots | names
+    grad_compression: Optional[str] = None    # None | "int8"
     seed: int = 0
 
 
 def _check(tcfg: TrainConfig):
-    if tcfg.grad_compression is not None:
-        raise NotImplementedError(
-            f"grad_compression={tcfg.grad_compression!r} (int8 error "
-            f"feedback) is not ported yet (ROADMAP queue A, dense train step)")
+    if tcfg.grad_compression not in (None, "int8"):
+        raise ValueError(f"grad_compression={tcfg.grad_compression!r}; "
+                         f"None or 'int8'")
 
 
 def init_state(cfg, tcfg: TrainConfig, seed: int = 0, device=None):
-    """``{"params", "opt", "step"}`` with random parameters from ``seed``
-    (``T.init``) on ``device`` (the card by default); ``step`` is a 0-dim
-    int32 tensor, as in the reference's state."""
-    _check(tcfg)
+    """``{"params", "opt", "step"}`` (plus ``"ef"`` under int8 compression)
+    with random parameters from ``seed`` (``T.init``) on ``device`` (the card
+    by default); ``step`` is a 0-dim int32 tensor, as in the reference's
+    state."""
     params = T.init(cfg, seed=seed, device=device)
     return state_from_params(params, tcfg)
 
@@ -53,8 +57,11 @@ def state_from_params(params, tcfg: TrainConfig):
     """A fresh train state around given parameters (e.g. bridged ones)."""
     _check(tcfg)
     device = O.tree_leaves(params)[0].device
-    return {"params": params, "opt": O.opt_init(tcfg.opt, params),
-            "step": torch.zeros((), dtype=torch.int32, device=device)}
+    state = {"params": params, "opt": O.opt_init(tcfg.opt, params),
+             "step": torch.zeros((), dtype=torch.int32, device=device)}
+    if tcfg.grad_compression:
+        state["ef"] = compression.ef_init(params)
+    return state
 
 
 def _tree(paths, leaves):
@@ -104,11 +111,14 @@ def make_train_step(cfg, tcfg: TrainConfig):
         else:
             loss, metrics, grads = grads_of(params, batch)
 
+        new_state = dict(state)
+        if tcfg.grad_compression == "int8":
+            grads, new_state["ef"] = compression.compress_grads(grads,
+                                                                state["ef"])
         step_i = int(state["step"])
         new_p, new_opt, gnorm = O.opt_update(tcfg.opt, grads, state["opt"],
                                              params, step_i)
-        new_state = dict(state, params=new_p, opt=new_opt,
-                         step=state["step"] + 1)
+        new_state.update(params=new_p, opt=new_opt, step=state["step"] + 1)
         metrics = dict(metrics, loss=loss, grad_norm=gnorm,
                        lr=O.lr_at(tcfg.opt, step_i))
         return new_state, metrics

@@ -336,3 +336,30 @@ def test_causal_forward_is_batch_invariant():
         assert torch.equal(one, out[i * h:(i + 1) * h])
         assert torch.equal(one_lse, lse[i * h:(i + 1) * h])
 
+
+
+def test_checkpoint_of_card_tensors_restores_onto_the_card(tmp_path):
+    """bf16 and fp32 leaves on the card (and an int32 step) go through a
+    checkpoint (bf16 stored as its fp32 upcast) and come back onto the card
+    with the same bits."""
+    _card()
+    from repro_torch.ckpt import checkpoint as CK
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tree = {"params": {"w": torch.randn((64, 48), generator=gen,
+                                        device="cuda").bfloat16(),
+                       "b": torch.randn(48, generator=gen, device="cuda")},
+            "step": torch.tensor(7, dtype=torch.int32, device="cuda")}
+    CK.save(str(tmp_path), 7, tree, async_=True).join(timeout=60)
+    target = {"params": {k: torch.zeros_like(v)
+                         for k, v in tree["params"].items()},
+              "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    restored = CK.restore(str(tmp_path), 7, target)
+    assert CK.read_manifest(str(tmp_path), 7)["tree_digest"] == tree_digest(
+        tree)
+    for got, want in ((restored["params"]["w"], tree["params"]["w"]),
+                      (restored["params"]["b"], tree["params"]["b"]),
+                      (restored["step"], tree["step"])):
+        assert got.device.type == "cuda" and got.dtype == want.dtype
+        assert torch.equal(got.view(torch.uint8) if got.dim() else got,
+                           want.view(torch.uint8) if want.dim() else want)
