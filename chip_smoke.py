@@ -25,13 +25,36 @@ Phases, each reported on its own line:
                the masked forward and both masked backwards against their
                plain versions, serialized ≡ worker + fold bit for bit, KV
                rows no task visits exactly 0, and 20 bitwise-identical
-               repetitions of the window's worker backward;
+               repetitions of the window's worker backward. Then the
+               continuous engine's kernels: the paged attention (decode
+               (4, 1), prefill (1, 32), a 1024-token window, segment ids,
+               GQA 32/8; bf16 and fp32) against its plain version, with a
+               permuted page table, trailing NaN pages, rows launched alone
+               and 20 repetitions bitwise equal; the GEMM (plain and
+               canonical, shard widths 64 and 176, StableLM's widths) and the
+               row norm and log-softmax against theirs, each row bitwise the
+               same at M = 1, 3, 4, 32, 64; and a printed finding: whether
+               torch.matmul, F.layer_norm and torch.log_softmax give rows the
+               same bits at M = 1, 4, 32 on this card;
   4. serve   — serve StableLM-1.6B at full width and depth in bf16 (random
                weights, seed 0) through the static engine: greedy, batch 4,
                prompt 512, 32 new tokens. Checks that the prefill launched the
                attention kernel once per layer, that tokens are in range and
                bitwise equal across two runs, and that the prefill logits match
                the plain attention's on the same weights;
+     serve-continuous — StableLM-1.6B at full width and depth through
+               ``launch.serve.main --engine continuous``: 8 requests of
+               64-512 prompt tokens, 32 greedy tokens each, 4 slots, 16-token
+               pages, 32-token chunks; the run's launches and one decode
+               step's (24 paged attentions, 169 GEMMs, 49 norms, 1
+               log-softmax) equal to the code's count; prefill chunk ms,
+               TTFT, decode step ms and tok/s, peak memory, the busy share of
+               one profiled decode step;
+     serve-invariance — the same requests: tokens and logprobs bitwise
+               equal across a second run, request subsets, 2 slots, chunks
+               16/64, a tight pool (page reuse), and seeded sampling across
+               subsets and slots; prefill logits bitwise across chunks and
+               within 0.1 of the plain attention's;
   5. train   — train StableLM-1.6B at full width and depth (bf16, AdamW,
                remat, causal, B=4, S=1024, 3 steps, warmup 1) through the
                DASH kernels, twice from seed 0 under
@@ -54,7 +77,10 @@ Phases, each reported on its own line:
                "dots", gqa, bf16opt, plus adafactor and packed documents) at
                full width cut to 2 layers, B=2 (mb4: 4), S=1024, 4 steps,
                crash at 2, on the DASH kernels: straight ≡ crash/resume bit
-               for bit, with the launches each cell predicts;
+               for bit, with the launches each cell predicts; then the
+               train_serve_parity cell at full width cut to 2 layers for
+               StableLM-1.6B, Qwen1.5-110B and Mistral-NeMo-12B: the
+               canonical forward's logits digest equal to the engine's;
   8. ops     — ``dash_attention`` forward and backward at the training
                shape, full mask (schedule ``shift``) and serialized, against
                the plain op, counting the kernels each path launches; and a
@@ -75,7 +101,11 @@ Phases, each reported on its own line:
                its plain version, the PyTorch library call for the same
                function where there is one (for a mask, SDPA with the dense
                boolean mask; for the fold, ``torch.sum`` over the partials
-               with the unvisited tiles zeroed), and its bound.
+               with the unvisited tiles zeroed), and its bound; and the four
+               serving kernels at the serve shapes (paged attention beside
+               SDPA over the gathered K/V, the GEMM beside torch.matmul, the
+               norm beside F.layer_norm, the log-softmax beside
+               torch.log_softmax).
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script exits
 non-zero and prints no result; so does a machine without CUDA.
@@ -100,6 +130,7 @@ from pathlib import Path
 # torch touches the card, so the train phase's GEMMs are deterministic
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
@@ -110,14 +141,19 @@ from repro_torch.ckpt import checkpoint as CK  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.core.schedules import cached_schedule  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import decode as DEC  # noqa: E402
+from repro_torch.kernels import gemm as GEMM  # noqa: E402
+from repro_torch.kernels import rows as ROWS  # noqa: E402
 from repro_torch.kernels import flash_bwd as FB  # noqa: E402
 from repro_torch.kernels import flash_fwd as FF  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch import masks as M  # noqa: E402
 from repro_torch.models.module import count_params, set_path, tree_paths  # noqa: E402,E501
-from repro_torch.serve.engine import Engine  # noqa: E402
+from repro_torch.serve.engine import (ContinuousEngine, Engine,  # noqa: E402
+                                      SampleConfig)
 from repro_torch.train import optimizer as O  # noqa: E402
 from repro_torch.train import step as TS  # noqa: E402
 from repro_torch.verify import lifecycle as LC  # noqa: E402
@@ -204,6 +240,26 @@ LIFECYCLE_CRASH_AT = 2
 # mask
 WINDOW_CASE = ("train_window", 1, 32, 32, 4096, 64, torch.bfloat16)
 WINDOW = M.SlidingWindow(1024)
+# [serve-continuous]: StableLM-1.6B at full width and depth through the
+# continuous engine (launch.serve --engine continuous): 8 requests, prompts
+# of 64-512 tokens from the launcher's seeded draws, 32 greedy tokens each, 4
+# slots, 1024 positions a slot; the launcher's 16-token pages and 32-token
+# prefill chunks (min(32, prompt length))
+SERVE_REQUESTS, SERVE_SLOTS, SERVE_GEN, SERVE_SEED = 8, 4, 32, 0
+SERVE_MIN_PROMPT, SERVE_PROMPT = 64, 512
+SERVE_PAGE, SERVE_CHUNK, SERVE_MAX_SEQ = 16, 32, 1024
+SERVE_PAGES = SERVE_MAX_SEQ // SERVE_PAGE
+SERVE_ARGV = ["--engine", "continuous", "--arch", "stablelm-1.6b",
+              "--requests", str(SERVE_REQUESTS), "--slots", str(SERVE_SLOTS),
+              "--min-prompt-len", str(SERVE_MIN_PROMPT), "--prompt-len",
+              str(SERVE_PROMPT), "--gen", str(SERVE_GEN), "--max-seq",
+              str(SERVE_MAX_SEQ), "--seed", str(SERVE_SEED)]
+# unused pool pages beside the rows' pages in the paged-attention checks
+PAGED_SPARE = 5
+# the GEMM kernel's fp32 product vs its plain version: both sum the same
+# exact products in fp32, in another order (up to 5632 terms of |x w| of a
+# few 1e-2)
+GEMM_TOL = 1e-4
 # the mask families of the kernel checks: the reference's
 # (tests/test_mask_kernels.py:43-48) scaled from S=256 to S=1024, and
 # causal ∧ sink, which leaves KV rows with no task
@@ -1416,6 +1472,668 @@ def time_masks(mask_check, launches):
     ]
 
 
+# ------------------------------------------------ the continuous engine slice
+def _rand(shape, gen, dtype=torch.float32, scale=1.0):
+    return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+
+def _paged_inputs(b, l, h, hk, d, dtype, seed, positions=None, pages=None):
+    """Pools of ``b`` rows of ``SERVE_PAGES`` pages (page ``SERVE_PAGE``) at
+    permuted physical ids plus ``PAGED_SPARE`` unused ones, a page table, q,
+    and positions (``positions``, or each row's last ``l`` up to a seeded
+    length)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ps, n_pg = SERVE_PAGE, pages or SERVE_PAGES
+    n_pages = b * n_pg + PAGED_SPARE
+    kp, vp = (_rand((n_pages, ps, hk, d), gen, dtype) for _ in range(2))
+    perm = torch.randperm(n_pages, generator=torch.Generator().manual_seed(
+        seed))
+    table = perm[:b * n_pg].reshape(b, n_pg).to(torch.int32).cuda()
+    q = _rand((b, l, h, d), gen, dtype)
+    if positions is None:
+        ends = torch.randint(l, n_pg * ps, (b, 1),
+                             generator=torch.Generator().manual_seed(seed))
+        positions = ends - l + torch.arange(l)
+    qpos = torch.as_tensor(positions).to(torch.int32).cuda()
+    return q, kp, vp, table, qpos, perm[b * n_pg:]
+
+
+def check_paged():
+    """The paged attention kernel against its plain version, bf16 and fp32:
+    decode (4, 1), prefill (1, 32), a 1024-token window, segment ids, GQA
+    32/8, at the serve path's width (H=32, D=64, 16-token pages, 1024
+    positions a row); and its bits: a permuted page table, trailing pages
+    (over NaN-filled unused pages), each row of a co-batched launch equal to
+    the row alone, 20 repetitions."""
+    results, failed = [], []
+    h, d = 32, 64
+    cases = [("decode", 4, 1, 32, {}), ("prefill", 1, 32, 32, {}),
+             ("window", 2, 32, 32, {"window": 1024}),
+             ("gqa_32_8", 4, 1, 8, {}), ("segments", 2, 16, 8, {"seg": 1})]
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, b, l, hk, kw in cases:
+            seed = len(name) + b
+            q, kp, vp, table, qpos, spare = _paged_inputs(b, l, h, hk, d,
+                                                          dtype, seed)
+            args = dict(window=kw.get("window"))
+            if kw.get("seg"):
+                gen = torch.Generator(device="cuda").manual_seed(seed)
+                args["q_segments"] = torch.randint(
+                    0, 2, (b, l), generator=gen, device="cuda",
+                    dtype=torch.int32)
+                args["kv_segments"] = torch.randint(
+                    0, 2, kp.shape[:2], generator=gen, device="cuda",
+                    dtype=torch.int32)
+
+            def kernel(q=q, kp=kp, vp=vp, table=table, qpos=qpos, **over):
+                return DEC.paged_attention_cuda(q, kp, vp, table, qpos,
+                                                d ** -0.5, **dict(args,
+                                                                  **over))
+            out = kernel()
+            plain = DEC.paged_attention_plain(q, kp, vp, table, qpos,
+                                              d ** -0.5, **args)
+            torch.cuda.synchronize()
+            err = (out.float() - plain.float()).abs().max().item()
+            tol = OUT_TOL[dtype]
+            close = torch.allclose(out.float(), plain.float(), atol=tol,
+                                   rtol=tol)
+            # the same rows over the pages (and their segment ids) moved to
+            # other physical ids
+            moved = torch.roll(torch.arange(kp.shape[0]), 3).cuda()
+            kp2, vp2 = torch.empty_like(kp), torch.empty_like(vp)
+            kp2[moved], vp2[moved] = kp, vp
+            over = {}
+            if "kv_segments" in args:
+                over["kv_segments"] = torch.empty_like(args["kv_segments"])
+                over["kv_segments"][moved] = args["kv_segments"]
+            permuted = torch.equal(kernel(kp=kp2, vp=vp2,
+                                          table=moved[table.long()]
+                                          .to(torch.int32).contiguous(),
+                                          **over), out)
+            # trailing table columns over unused pages full of NaN
+            kp3, vp3 = kp.clone(), vp.clone()
+            kp3[spare.cuda()] = float("nan")
+            vp3[spare.cuda()] = float("nan")
+            extra = spare[:3].to(torch.int32).cuda().expand(b, 3)
+            trailing = torch.equal(kernel(kp=kp3, vp=vp3, table=torch.cat(
+                [table, extra], 1).contiguous()), out)
+            single = all(torch.equal(DEC.paged_attention_cuda(
+                q[i:i + 1].contiguous(), kp, vp, table[i:i + 1].contiguous(),
+                qpos[i:i + 1].contiguous(), d ** -0.5, window=args["window"],
+                q_segments=None if "q_segments" not in args
+                else args["q_segments"][i:i + 1].contiguous(),
+                kv_segments=args.get("kv_segments")), out[i:i + 1])
+                for i in range(b))
+            reps = all(torch.equal(kernel(), out) for _ in range(20))
+            ok = close and permuted and trailing and single and reps and bool(
+                torch.isfinite(out).all())
+            results.append(dict(case=name, shape=[b, l, h, hk, d, SERVE_PAGE],
+                                dtype=str(dtype).split(".")[-1],
+                                max_abs_err=err, tol=tol,
+                                permuted_pages_bitwise=permuted,
+                                trailing_nan_pages_bitwise=trailing,
+                                rows_alone_bitwise=single,
+                                reps20_bitwise=reps, ok=ok))
+            if not ok:
+                failed.append(f"{name}/{dtype}")
+    print("[kernel-check] paged " + json.dumps(results), flush=True)
+    if failed:
+        raise AssertionError(f"paged attention failed its checks in {failed}")
+    return results
+
+
+# (name, K, N, shard width) at StableLM-1.6B's widths: the up projection,
+# wo and w_down in canonical form, the LM head
+GEMM_CASES = [("w_up", 2048, 5632, 0), ("wo_canonical", 2048, 2048, 64),
+              ("w_down_canonical", 5632, 2048, 176),
+              ("lm_head", 2048, 100352, 0)]
+M_VALUES = (1, 3, 4, 32, 64)
+
+
+def check_gemm():
+    """The GEMM kernel against its plain version in bf16 (and fp32 on the
+    up projection) at the serve path's widths, with an fp32 and a bf16
+    output; each output row bitwise the same at every M of ``M_VALUES`` and
+    at another row position, plain and canonical mode."""
+    results, failed = [], []
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    cases = [(c, torch.bfloat16) for c in GEMM_CASES] + [
+        (GEMM_CASES[0], torch.float32), (GEMM_CASES[2], torch.float32)]
+    for (name, k, n, width), dtype in cases:
+        x = _rand((max(M_VALUES), k), gen, dtype)
+        w = _rand((k, n), gen, dtype, 0.02)
+        y = GEMM.matmul_cuda(x, w, shard_width=width)
+        plain = GEMM.matmul_plain(x, w, shard_width=width)
+        torch.cuda.synchronize()
+        err = (y - plain).abs().max().item()
+        close = torch.allclose(y, plain, atol=GEMM_TOL, rtol=GEMM_TOL)
+        rows_eq = {m: torch.equal(GEMM.matmul_cuda(x[:m].contiguous(), w,
+                                                   shard_width=width), y[:m])
+                   for m in M_VALUES}
+        moved = GEMM.matmul_cuda(torch.cat([x[5:9], x[:1]]).contiguous(), w,
+                                 shard_width=width)
+        at_row4 = torch.equal(moved[4], y[0])
+        cast_err = None
+        if dtype == torch.bfloat16:
+            yb = GEMM.matmul_cuda(x, w, out_dtype=torch.bfloat16,
+                                  shard_width=width)
+            cast_err = (yb.float() - y).abs().max().item()
+            close &= torch.equal(yb, y.to(torch.bfloat16))
+        ok = close and all(rows_eq.values()) and at_row4
+        results.append(dict(case=name, k=k, n=n, shard_width=width,
+                            dtype=str(dtype).split(".")[-1], max_abs_err=err,
+                            tol=GEMM_TOL, bf16_out_max_abs_err=cast_err,
+                            rows_bitwise_at_m={str(m): v
+                                               for m, v in rows_eq.items()},
+                            row_moved_bitwise=at_row4, ok=ok))
+        if not ok:
+            failed.append(f"{name}/{dtype}")
+    print("[kernel-check] gemm " + json.dumps(results), flush=True)
+    if failed:
+        raise AssertionError(f"the GEMM kernel failed its checks in {failed}")
+    return results
+
+
+def check_rows():
+    """The row norm (LayerNorm and RMSNorm, bf16 and fp32, d=2048) and the
+    row log-softmax (fp32, V=100352, a tie at the maximum) against their
+    plain versions; each row bitwise the same at every M of ``M_VALUES``."""
+    results, failed = [], []
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    d, v = 2048, 100352
+    scale = _rand((d,), gen) + 1.0
+    bias = _rand((d,), gen)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = (_rand((max(M_VALUES), d), gen) * 3 + 1).to(dtype)
+        for kind, b in (("layernorm", bias), ("rmsnorm", None)):
+            y = ROWS.norm_cuda(x, scale, b)
+            plain = ROWS.norm_plain(x, scale, b)
+            torch.cuda.synchronize()
+            err = (y.float() - plain.float()).abs().max().item()
+            close = torch.allclose(y.float(), plain.float(),
+                                   atol=OUT_TOL[dtype], rtol=OUT_TOL[dtype])
+            rows_eq = {m: torch.equal(ROWS.norm_cuda(x[:m].contiguous(),
+                                                     scale, b), y[:m])
+                       for m in M_VALUES}
+            ok = close and all(rows_eq.values())
+            results.append(dict(kernel="norm", case=kind, d=d,
+                                dtype=str(dtype).split(".")[-1],
+                                max_abs_err=err, tol=OUT_TOL[dtype],
+                                rows_bitwise_at_m={str(m): e for m, e in
+                                                   rows_eq.items()}, ok=ok))
+            if not ok:
+                failed.append(f"norm/{kind}/{dtype}")
+    logits = _rand((max(M_VALUES), v), gen, scale=4.0)
+    logits[2, 11] = logits[2, 70000] = logits[2].max() + 1.0
+    lp, arg = ROWS.log_softmax_argmax_cuda(logits)
+    plp, parg = ROWS.log_softmax_argmax_plain(logits)
+    torch.cuda.synchronize()
+    err = (lp - plp).abs().max().item()
+    rows_eq = {}
+    for m in M_VALUES:
+        sub, sub_arg = ROWS.log_softmax_argmax_cuda(logits[:m].contiguous())
+        rows_eq[m] = torch.equal(sub, lp[:m]) and torch.equal(sub_arg, arg[:m])
+    ok = (torch.allclose(lp, plp, atol=OUT_TOL[torch.float32],
+                         rtol=OUT_TOL[torch.float32])
+          and torch.equal(arg, parg) and int(arg[2]) == 11
+          and all(rows_eq.values()))
+    results.append(dict(kernel="log_softmax", v=v, dtype="float32",
+                        max_abs_err=err, tol=OUT_TOL[torch.float32],
+                        argmax_equal=torch.equal(arg, parg),
+                        tie_to_lowest_id=int(arg[2]) == 11,
+                        rows_bitwise_at_m={str(m): e for m, e in
+                                           rows_eq.items()}, ok=ok))
+    if not ok:
+        failed.append("log_softmax")
+    print("[kernel-check] rows " + json.dumps(results), flush=True)
+    if failed:
+        raise AssertionError(f"the row kernels failed their checks in "
+                             f"{failed}")
+    return results
+
+
+def library_m_invariance():
+    """A finding, not a check: whether ``torch.matmul`` (bf16, and fp32 as
+    the training path's ``layers.dot`` calls it), ``F.layer_norm`` and
+    ``torch.log_softmax`` give each row the same bits at M = 1, 4 and 32 on
+    this card, at the serve path's widths (the record of why the GEMM and
+    the row kernels exist)."""
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    x = _rand((32, 2048), gen, torch.bfloat16)
+    w = _rand((2048, 5632), gen, torch.bfloat16, 0.02)
+    h = _rand((32, 2048), gen, scale=3.0)
+    scale, bias = _rand((2048,), gen) + 1, _rand((2048,), gen)
+    logits = _rand((32, 100352), gen, scale=4.0)
+    fns = {
+        "torch.matmul bf16 (2048x5632)": lambda m: torch.matmul(x[:m], w),
+        "torch.matmul fp32 (2048x5632)": lambda m: torch.matmul(
+            x[:m].float(), w.float()),
+        "F.layer_norm (2048)": lambda m: F.layer_norm(h[:m], (2048,), scale,
+                                                      bias),
+        "torch.log_softmax (100352)": lambda m: torch.log_softmax(logits[:m],
+                                                                  -1),
+    }
+    finding = {}
+    for name, fn in fns.items():
+        full = fn(32)
+        finding[name] = {str(m): torch.equal(fn(m), full[:m])
+                         for m in (1, 4, 32)}
+    print("[finding] library rows bitwise equal at M=1/4/32 (row-prefix of "
+          "the M=32 call): " + json.dumps(finding), flush=True)
+    return finding
+
+
+def _serve_counts():
+    return dict(paged_attention=DEC.launches, gemm=GEMM.launches,
+                row_norm=ROWS.launches_norm,
+                row_log_softmax=ROWS.launches_log_softmax)
+
+
+def _zero_serve_counts():
+    DEC.launches = GEMM.launches = 0
+    ROWS.launches_norm = ROWS.launches_log_softmax = 0
+
+
+def _step_launches(cfg, decode=True):
+    """Launches of one paged step, from the code (``models/layers.py``): per
+    layer the ln1 and ln2 norms, q/k/v/wo/gate/up/down GEMMs (wo and w_down
+    in canonical form) and one paged attention; then ln_f and the LM head.
+    A decode step's sampler adds one row log-softmax."""
+    n = cfg.n_layers
+    return dict(paged_attention=n, gemm=7 * n + 1, row_norm=2 * n + 1,
+                row_log_softmax=int(decode))
+
+
+def _continuous_engine(params, cfg, **kw):
+    args = dict(n_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
+                page_size=SERVE_PAGE, prefill_chunk=SERVE_CHUNK)
+    args.update(kw)
+    return ContinuousEngine(cfg, params, **args)
+
+
+@torch.inference_mode()
+def run_serve_continuous(label="serve-continuous"):
+    """StableLM-1.6B at full width and depth (bf16, weights from seed 0)
+    through ``repro_torch.launch.serve.main --engine continuous``: 8
+    requests, prompts of 64-512 tokens, 32 greedy tokens each, 4 slots,
+    16-token pages, 32-token prefill chunks, 1024 positions a slot. The
+    run's launches must equal what the code predicts (per paged step and
+    sampler call); one decode step alone must launch exactly the predicted
+    count (24 paged attentions among them). Reports prefill ms a chunk, TTFT,
+    decode step ms, decode tok/s, peak memory and the busy share of one
+    profiled decode step."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    _zero_serve_counts()
+    eng = launch_serve.main(SERVE_ARGV)
+    torch.cuda.synchronize()
+    counts = _serve_counts()
+    flash = _counts()
+    cfg, params = eng.cfg, eng.params
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prompts = launch_serve.continuous_prompts(cfg.vocab, SERVE_REQUESTS,
+                                              SERVE_MIN_PROMPT, SERVE_PROMPT,
+                                              SERVE_SEED)
+    chunks = sum(-(-len(p) // SERVE_CHUNK) for p in prompts)
+    steps = chunks + eng.decode_steps
+    per_chunk = _step_launches(cfg, decode=False)
+    want = {k: per_chunk[k] * steps for k in per_chunk}
+    want["row_log_softmax"] = SERVE_REQUESTS + eng.decode_steps
+    results = eng.results
+    in_range = all(len(results[i]) == SERVE_GEN and all(
+        0 <= t < cfg.padded_vocab for t in results[i])
+        for i in range(SERVE_REQUESTS))
+    finite = all(np.isfinite(eng.result_logprobs[i]).all()
+                 and (eng.result_logprobs[i] <= 0).all()
+                 for i in range(SERVE_REQUESTS))
+
+    # one decode step alone: 4 requests admitted and prefilled, then a step
+    # with nothing to admit
+    probe = _continuous_engine(params, cfg)
+    for i in range(SERVE_SLOTS):
+        probe.submit(prompts[i], req_id=i, max_new_tokens=SERVE_GEN)
+    probe.step()
+    torch.cuda.synchronize()
+    _zero_serve_counts()
+    probe.step()
+    torch.cuda.synchronize()
+    per_decode = _serve_counts()
+    want_decode = _step_launches(cfg)
+    # the busy share of one profiled decode step
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        probe.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ops_ = [a for a in prof.key_averages()
+            if a.device_type == DeviceType.CUDA]
+    busy_ms = sum(a.self_device_time_total for a in ops_) / 1e3
+    top = [dict(ms=a.self_device_time_total / 1e3, count=a.count,
+                name=a.key[:80])
+           for a in sorted(ops_, key=lambda a: -a.self_device_time_total)[:8]]
+    # unprofiled decode steps of the probe, and prefill chunks alone
+    decode_ms = [s * 1e3 for s in eng.decode_s]
+    table = torch.from_numpy(probe.cache.page_table[[SERVE_SLOTS - 1]]).cuda()
+    chunk_toks = torch.tensor([prompts[0][:SERVE_CHUNK]], device="cuda")
+    chunk_pos = torch.arange(SERVE_CHUNK, dtype=torch.int32,
+                             device="cuda")[None]
+    trash = probe.cache.layout.trash_page
+    wp = torch.full((SERVE_CHUNK,), trash, dtype=torch.int32, device="cuda")
+    wo = torch.arange(SERVE_CHUNK, dtype=torch.int32,
+                      device="cuda") % SERVE_PAGE
+    chunk_ms = []
+    for _ in range(6):
+        _, dt = _timed(lambda: T.paged_step(params, probe.cache.pools,
+                                            chunk_toks, chunk_pos, table, wp,
+                                            wo, cfg))
+        chunk_ms.append(dt * 1e3)
+    del probe
+    first_tokens = SERVE_REQUESTS
+    decode_tokens = sum(len(v) for v in results.values()) - first_tokens
+    ttft_steps = [eng.first_token_step[i] for i in range(SERVE_REQUESTS)]
+    ttft_ms = [eng.ttft_s[i] * 1e3 for i in range(SERVE_REQUESTS)]
+    result = dict(
+        arch=cfg.name, params=count_params(params),
+        entry="repro_torch.launch.serve.main " + " ".join(SERVE_ARGV),
+        requests=SERVE_REQUESTS, prompt_lens=[len(p) for p in prompts],
+        new_tokens=SERVE_GEN, slots=SERVE_SLOTS, page_size=SERVE_PAGE,
+        prefill_chunk=SERVE_CHUNK, max_seq=SERVE_MAX_SEQ,
+        run_s=eng.run_s, engine_steps=eng.engine_steps,
+        decode_steps=eng.decode_steps, prefill_chunks=chunks,
+        launches=counts, launches_expected=want,
+        flash_launches=flash,
+        launches_per_decode_step=per_decode,
+        launches_per_decode_step_expected=want_decode,
+        prefill_chunk_ms=statistics.median(chunk_ms[1:]),
+        prefill_chunk_ms_all=chunk_ms,
+        decode_step_ms_median=statistics.median(decode_ms),
+        decode_step_ms_p90=sorted(decode_ms)[int(0.9 * len(decode_ms))],
+        decode_tok_per_s=decode_tokens / sum(eng.decode_s),
+        ttft_engine_steps=ttft_steps, ttft_ms=ttft_ms,
+        ttft_ms_median=statistics.median(ttft_ms),
+        peak_mem_gb=peak_gb, tokens_in_range=in_range,
+        logprobs_finite_nonpositive=finite,
+        tokens_req0=[int(t) for t in results[0][:8]])
+    print(f"[{label}] " + json.dumps(result), flush=True)
+    print(f"[{label}-profile] " + json.dumps(dict(
+        step="one decode step over 4 live slots", wall_ms_traced=wall_ms,
+        device_busy_ms=busy_ms, busy_share=busy_ms / wall_ms,
+        device_ops=sum(a.count for a in ops_), top_device_ops=top)),
+        flush=True)
+    if counts != want or any(flash.values()):
+        raise AssertionError(f"the continuous run launched {counts} (flash "
+                             f"{flash}), expected {want} and no flash kernel")
+    if per_decode != want_decode:
+        raise AssertionError(f"one decode step launched {per_decode}, "
+                             f"expected {want_decode}")
+    if not (in_range and finite):
+        raise AssertionError("continuous serving gave tokens out of range or "
+                             "non-finite logprobs")
+    return result, eng
+
+
+def _served(eng, ids):
+    return {i: (np.asarray(eng.results[i]), eng.result_logprobs[i])
+            for i in ids}
+
+
+@torch.inference_mode()
+def run_serve_invariance(base_eng, label="serve-invariance"):
+    """The requests of ``[serve-continuous]`` again: per request, tokens and
+    logprobs bitwise equal to that run across a second run, request subsets
+    ({0}, {0,2}, {1,3} of all 8), 2 slots, prefill chunks 16 and 64, a tight
+    pool that forces page reuse; seeded sampling (temperature 1, top_k 20)
+    bitwise equal across subsets and slots; captured prefill logits bitwise
+    equal across chunks 16/32/64 and within ``LOGITS_ATOL`` of the plain
+    attention's (the training forward, cuBLAS GEMMs)."""
+    cfg, params = base_eng.cfg, base_eng.params
+    prompts = launch_serve.continuous_prompts(cfg.vocab, SERVE_REQUESTS,
+                                              SERVE_MIN_PROMPT, SERVE_PROMPT,
+                                              SERVE_SEED)
+    all_ids = list(range(SERVE_REQUESTS))
+    base = _served(base_eng, all_ids)
+
+    def run(ids, **kw):
+        eng = _continuous_engine(params, cfg, **kw)
+        for i in ids:
+            eng.submit(prompts[i], req_id=i, max_new_tokens=SERVE_GEN)
+        t0 = time.perf_counter()
+        eng.run()
+        return eng, time.perf_counter() - t0
+
+    def same(ref, eng, ids):
+        got = _served(eng, ids)
+        return all(np.array_equal(ref[i][0], got[i][0])
+                   and np.array_equal(ref[i][1], got[i][1]) for i in ids)
+
+    checks, seconds = {}, {}
+    pages_one = -(-(max(len(p) for p in prompts) + SERVE_GEN) // SERVE_PAGE)
+    greedy = [("second_run", all_ids, {}), ("subset_0", [0], {}),
+              ("subset_0_2", [0, 2], {}), ("subset_1_3", [1, 3], {}),
+              ("slots_2", all_ids, {"n_slots": 2}),
+              ("chunk_16", all_ids, {"prefill_chunk": 16,
+                                     "capture_prefill_logits": True}),
+              ("chunk_64", all_ids, {"prefill_chunk": 64,
+                                     "capture_prefill_logits": True}),
+              ("chunk_32_capture", all_ids, {"capture_prefill_logits": True}),
+              ("tight_pool", all_ids, {"n_pages": pages_one + 8})]
+    captured = {}
+    for name, ids, kw in greedy:
+        eng, seconds[name] = run(ids, **kw)
+        checks[name] = same(base, eng, ids)
+        if kw.get("capture_prefill_logits"):
+            captured[kw.get("prefill_chunk", SERVE_CHUNK)] = eng.prefill_logits
+        del eng
+    logits_bitwise = all(
+        np.array_equal(captured[32][i], captured[c][i])
+        for c in (16, 64) for i in all_ids)
+    scfg = SampleConfig(temperature=1.0, top_k=20, seed=SERVE_SEED)
+    sampled_all, seconds["sampled_all"] = run(all_ids, scfg=scfg)
+    sampled = _served(sampled_all, all_ids)
+    for name, ids, kw in (("sampled_subset_1_3", [1, 3], {}),
+                          ("sampled_slots_2", all_ids, {"n_slots": 2})):
+        eng, seconds[name] = run(ids, scfg=scfg, **kw)
+        checks[name] = same(sampled, eng, ids)
+    differs = any(not np.array_equal(sampled[i][0], base[i][0])
+                  for i in all_ids)
+    # prefill logits against the plain attention's on two prompts
+    plain_cfg = cfg.replace(attention_impl="torch")
+    errs = []
+    for i in (0, 1):
+        toks = torch.tensor([prompts[i]], device="cuda")
+        plain_logits = T.forward(params, {"tokens": toks}, plain_cfg)[0][0]
+        errs.append(float(np.abs(plain_logits.float().cpu().numpy()
+                                 - captured[32][i]).max()))
+        del plain_logits
+    result = dict(checks=checks, prefill_logits_bitwise_across_chunks=
+                  logits_bitwise, prefill_logits_max_abs_err_vs_plain=errs,
+                  logits_atol=LOGITS_ATOL, sampled_differs_from_greedy=differs,
+                  tight_pool_pages=pages_one + 8, seconds=seconds)
+    print(f"[{label}] " + json.dumps(result), flush=True)
+    if not (all(checks.values()) and logits_bitwise and differs):
+        raise AssertionError(f"serve invariance failed: {result}")
+    if max(errs) > LOGITS_ATOL:
+        raise AssertionError(f"prefill logits vs the plain attention: {errs} "
+                             f"> {LOGITS_ATOL}")
+    return result
+
+
+def run_train_serve_parity(label="lifecycle"):
+    """The ``train_serve_parity`` lifecycle cell at full width cut to 2
+    layers, for each of the reference's parity archs (StableLM-1.6B,
+    Qwen1.5-110B, Mistral-NeMo-12B): the canonical forward's logits digest
+    equal to the engine's prefill logits digest."""
+    torch.cuda.synchronize()
+    _zero_serve_counts()
+    t0 = time.perf_counter()
+    rep = LC.run_train_serve_parity(device="cuda", reduced=False,
+                                    overrides=(("n_layers", 2),))
+    torch.cuda.synchronize()
+    counts = _serve_counts()
+    line = dict(cell=rep["cell"], archs=rep["config"]["archs"], layers=2,
+                page_size=rep["config"]["page_size"],
+                prompt_lens=rep["config"]["prompt_lens"], heads=rep["heads"],
+                conformant=rep["conformant"],
+                first_divergence=rep["first_divergence"], launches=counts,
+                seconds=time.perf_counter() - t0)
+    print(f"[{label}] " + json.dumps(line), flush=True)
+    _free_device_memory()
+    if not rep["conformant"] or not all(counts.values()):
+        raise AssertionError(f"train_serve_parity: conformant="
+                             f"{rep['conformant']}, launches {counts}")
+    return line
+
+
+def bound_paged(qpos, hk, d, elt, q_bytes, window=None):
+    """Least time for the paged attention on these inputs: the K and V
+    positions each row's walk needs (its live positions, once per KV head
+    it reads) read once, q read once, out written once."""
+    pos = qpos.to(torch.int64).cpu() + 1
+    if window:
+        pos = pos.clamp(max=window)
+    # rows of one (b, kv head) share pages: count the widest row of each b
+    per_b = pos.max(dim=1).values
+    moved = int(per_b.sum()) * hk * d * elt * 2 + 2 * q_bytes
+    return _bound(moved, 0, torch.bfloat16)
+
+
+@torch.inference_mode()
+def time_serve(serve, paged_check, gemm_check, rows_check):
+    """The four serving kernels at the serve path's shapes (StableLM-1.6B,
+    bf16): the paged attention at decode (4 rows at positions from the
+    serving run) and a prefill chunk; the GEMM at the decode shape (M=4)
+    of the up projection, with the prefill chunk (M=32), canonical w_down
+    and the LM head beside it; the row norm at M=4; the row log-softmax at
+    M=4 over the vocabulary. Each beside its plain version, its bound and
+    one PyTorch call (SDPA over the ``gather_kv`` output, the gather
+    excluded; ``torch.matmul``; ``F.layer_norm``; ``torch.log_softmax``).
+    The kernel's and the library call's ``ms`` are ``_queued_ms`` (the calls
+    back to back on the card: the wrappers' host time, ~20 µs a call,
+    exceeds these kernels); ``event_ms`` beside them is ``_ms``, host
+    included. The plain versions synchronise inside, so they take ``_ms``."""
+    launches = serve["launches"]
+    src = "src/repro_torch/kernels/csrc/"
+    entries = []
+    h, hk, d, dt = 32, 32, 64, torch.bfloat16
+    ends = [[p - 1 + SERVE_GEN // 2] for p in serve["prompt_lens"][:4]]
+    q, kp, vp, table, qpos, _ = _paged_inputs(4, 1, h, hk, d, dt, 31,
+                                              positions=ends)
+    scale = d ** -0.5
+
+    def both(fn):
+        return _queued_ms(fn), _ms(fn, reps=50)
+    ms, event_ms = both(lambda: DEC.paged_attention_cuda(q, kp, vp, table,
+                                                         qpos, scale))
+    plain_ms = _ms(lambda: DEC.paged_attention_plain(q, kp, vp, table, qpos,
+                                                     scale), reps=2, rounds=3)
+    s = int(qpos.max()) + 1
+    kg = DEC.gather_kv(kp, table, s).permute(0, 2, 1, 3)
+    vg = DEC.gather_kv(vp, table, s).permute(0, 2, 1, 3)
+    mask = (torch.arange(s, device="cuda")[None, :]
+            <= qpos.long())[:, None, None, :]     # (B, 1, 1, S)
+    qt = q.permute(0, 2, 1, 3)
+    library_ms, library_event_ms = both(lambda: F.scaled_dot_product_attention(
+        qt, kg, vg, attn_mask=mask, scale=scale))
+    err = max(c["max_abs_err"] for c in paged_check
+              if c["dtype"] == "bfloat16")
+    e = _entry("paged_attention", src + "paged_attn.cu",
+               "src/repro/kernels/decode.py:58 (lax.scan, not Pallas)",
+               launches["paged_attention"],
+               "continuous engine: prefill chunks and decode steps (one per "
+               "layer a step)", err, ms, plain_ms,
+               bound_paged(qpos, hk, d, 2, q.numel() * 2), library_ms)
+    e.update(event_ms=event_ms, library_event_ms=library_event_ms,
+             library_note="SDPA over gather_kv's K/V (boolean length mask), "
+             "the gather excluded")
+    pq, pkp, pvp, ptable, pqpos, _ = _paged_inputs(
+        1, SERVE_CHUNK, h, hk, d, dt, 32,
+        positions=[list(range(480, 480 + SERVE_CHUNK))])
+    e.update(prefill_chunk_ms=_queued_ms(lambda: DEC.paged_attention_cuda(
+        pq, pkp, pvp, ptable, pqpos, scale)),
+        prefill_chunk_bound_ms=bound_paged(pqpos, hk, d, 2,
+                                           pq.numel() * 2)[0])
+    print(f"[timing] paged_attention prefill chunk (1, {SERVE_CHUNK}): "
+          f"{e['prefill_chunk_ms']:.4f} ms, bound "
+          f"{e['prefill_chunk_bound_ms']:.4f} ms", flush=True)
+    entries.append(e)
+
+    gen = torch.Generator(device="cuda").manual_seed(33)
+
+    def gemm_times(m, k, n, width):
+        x = _rand((m, k), gen, dt)
+        w = _rand((k, n), gen, dt, 0.02)
+        kernel = _queued_ms(lambda: GEMM.matmul_cuda(x, w,
+                                                     shard_width=width))
+        lib = _queued_ms(lambda: torch.matmul(x, w))
+        bound = _bound((m * k + k * n) * 2 + m * n * 4, 2 * m * k * n, dt)
+        return x, w, kernel, lib, bound
+    x, w, ms, library_ms, bound = gemm_times(SERVE_SLOTS, 2048, 5632, 0)
+    event_ms = _ms(lambda: GEMM.matmul_cuda(x, w), reps=50)
+    plain_ms = _ms(lambda: GEMM.matmul_plain(x, w), reps=2, rounds=3)
+    err = max(c["max_abs_err"] for c in gemm_check
+              if c["dtype"] == "bfloat16")
+    e = _entry("gemm", src + "gemm.cu",
+               "no TPU kernel: XLA dot_general (src/repro/models/layers.py:31"
+               ", src/repro/dist/fold.py:155)", launches["gemm"],
+               "continuous engine: every projection (7 a layer + LM head a "
+               "step)", err, ms, plain_ms, bound, library_ms)
+    e.update(event_ms=event_ms,
+             library_note="torch.matmul bf16 (cuBLAS), bf16 output")
+    for name, m, k, n, width in (("prefill_w_up", SERVE_CHUNK, 2048, 5632, 0),
+                                 ("w_down_canonical", SERVE_SLOTS, 5632, 2048,
+                                  176),
+                                 ("lm_head", SERVE_SLOTS, 2048, 100352, 0)):
+        _, _, k_ms, l_ms, b = gemm_times(m, k, n, width)
+        e[name] = dict(m=m, k=k, n=n, shard_width=width, ms=k_ms,
+                       library_ms=l_ms, bound_ms=b[0], bound_by=b[1])
+        print(f"[timing] gemm {name} M={m} K={k} N={n}: kernel {k_ms:.4f} ms"
+              f", library {l_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]})",
+              flush=True)
+    entries.append(e)
+
+    xn = (_rand((SERVE_SLOTS, 2048), gen) * 3).to(dt)
+    sc, bi = _rand((2048,), gen) + 1, _rand((2048,), gen)
+    ms, event_ms = both(lambda: ROWS.norm_cuda(xn, sc, bi))
+    plain_ms = _ms(lambda: ROWS.norm_plain(xn, sc, bi), reps=5)
+    sc16, bi16 = sc.to(dt), bi.to(dt)
+    library_ms, library_event_ms = both(lambda: F.layer_norm(
+        xn, (2048,), sc16, bi16))
+    err = max(c["max_abs_err"] for c in rows_check if c["kernel"] == "norm"
+              and c["dtype"] == "bfloat16")
+    e = _entry("row_norm", src + "rows.cu",
+               "no TPU kernel: XLA reduction (src/repro/models/layers.py:44)",
+               launches["row_norm"],
+               "continuous engine: ln1, ln2 a layer and ln_f a step", err,
+               ms, plain_ms,
+               _bound(2 * xn.numel() * 2 + 2 * 2048 * 4, 0, dt), library_ms)
+    e.update(event_ms=event_ms, library_event_ms=library_event_ms,
+             library_note="F.layer_norm with bf16 weight and bias")
+    entries.append(e)
+
+    lg = _rand((SERVE_SLOTS, 100352), gen, scale=4.0)
+    ms, event_ms = both(lambda: ROWS.log_softmax_argmax_cuda(lg))
+    plain_ms = _ms(lambda: ROWS.log_softmax_argmax_plain(lg), reps=5)
+    library_ms, library_event_ms = both(lambda: torch.log_softmax(lg, -1))
+    err = next(c["max_abs_err"] for c in rows_check
+               if c["kernel"] == "log_softmax")
+    e = _entry(
+        "row_log_softmax", src + "rows.cu",
+        "no TPU kernel: XLA log_softmax/argmax "
+        "(src/repro/serve/engine.py:114)", launches["row_log_softmax"],
+        "continuous engine sampler: one a decode step and a first token",
+        err, ms, plain_ms,
+        _bound(2 * lg.numel() * 4 + SERVE_SLOTS * 8, 0, torch.float32),
+        library_ms)
+    e.update(event_ms=event_ms, library_event_ms=library_event_ms)
+    entries.append(e)
+    return entries
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the card",
@@ -1430,11 +2148,20 @@ def main():
     check_forward_bits()
     bwd_check = check_backward()
     mask_check = check_masks()
+    paged_check = check_paged()
+    gemm_check = check_gemm()
+    rows_check = check_rows()
+    library_m_invariance()
     serve = run_slice()
     serve_window = run_slice(SLICE_WINDOW, "slice-window")
+    continuous, cont_eng = run_serve_continuous()
+    run_serve_invariance(cont_eng)
+    del cont_eng
+    _free_device_memory()
     train = run_train()
     resume = run_train_resume(train["digest_chain_heads"][0])
     run_lifecycle()
+    run_train_serve_parity()
     train_window = run_train(TRAIN_WINDOW_ARGV, "train-window")
     op_paths = run_ops()
     launches = dict(train["launches_per_step"])
@@ -1447,9 +2174,12 @@ def main():
     kernels = time_forward(fwd_check, full_check, launches)
     kernels += time_backward(bwd_check, launches)
     kernels += time_masks(mask_check, window_launches)
+    kernels += time_serve(continuous, paged_check, gemm_check, rows_check)
     print(f"[done] serving prefill launched the causal forward "
           f"{serve['attention_launches']} times, the windowed one the "
           f"block-sparse forward {serve_window['attention_launches']} times; "
+          f"the continuous engine served {SERVE_REQUESTS} requests with "
+          f"{continuous['launches']['paged_attention']} paged attentions; "
           f"training resumed from step {resume['resumed_from']} with the "
           f"straight run's digest chain; "
           f"{time.perf_counter() - t0:.1f}s in all", flush=True)

@@ -49,6 +49,13 @@ class ModelConfig:
     vocab_pad: int = 2048                   # pad vocab to multiple of tp*128
     det_embed_grad: bool = True    # embedding bwd as pinned one-hot matmul
     moe_aux_weight: float = 0.01   # weight of the (MoE) aux loss in loss_fn
+    canonical_reductions: int = 0  # 0 = the training forward's products.
+                                   # N>0 = serve-canonical mode: forward()
+                                   # runs under dist.fold's canonical fold
+                                   # with an N-token paged attention walk,
+                                   # bitwise matching ContinuousEngine
+                                   # prefill at page_size=N (train≡serve
+                                   # parity; no gradient)
 
     @property
     def head_dim(self) -> int:

@@ -1,9 +1,14 @@
-"""Serving launcher: the static engine on the card.
+"""Serving launcher: the static engine or continuous batching over paged
+KV, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
         --batch 4 --prompt-len 512 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
         --reduced --device cpu --prompt-len 128 --gen 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine continuous \
+        --requests 8 --slots 4 --prompt-len 512 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine continuous \
+        --reduced --device cpu --requests 8 --slots 4 --prompt-len 64 --gen 8
 
 Weights are random, from ``--seed``. On the card the prefill attention is
 the causal DASH forward kernel (``attention_impl="cuda"``), or with
@@ -12,21 +17,44 @@ over an N-token sliding window, which decode then honors too; with
 ``--device cpu`` it is the plain PyTorch attention. The prompt length must be
 a multiple of 128, the kernel's square tile. ``--profile`` (card only)
 then traces one prefill and one decode step with ``torch.profiler`` and
-prints wall time, device-busy time and the kernels that take it. The
-continuous engine comes with its own slice.
+prints wall time, device-busy time and the kernels that take it.
+
+``--engine continuous`` runs :class:`repro_torch.serve.engine.
+ContinuousEngine` (chunked prefill into paged KV pools, batched one-token
+decode over the live slots, keyed per-request sampling): ``--requests``
+prompts of lengths drawn from ``[--min-prompt-len, --prompt-len]`` (by
+default the reference's ``[prompt_len // 2, prompt_len]``) with the
+reference's numpy draws from ``--seed``, ``--gen`` greedy tokens each, over
+``--slots`` slots, with the reference's 16-token pages and
+``min(32, prompt_len)``-token prefill chunks. Every request's tokens are
+bitwise the same whatever the co-batch, slot count, chunk or page
+placement. The reference's
+``--tp/--mesh`` (ROADMAP A9), ``--spec-k/--chaos`` (A6) and
+``--track/--trace-out`` (A7) raise until their items land.
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import registry
 from repro_torch.kernels.flash_fwd import BLOCK
 from repro_torch.models import transformer as T
-from repro_torch.serve.engine import Engine, SampleConfig
+from repro_torch.serve.engine import ContinuousEngine, Engine, SampleConfig
+
+# the reference's continuous-engine flags this port does not cover yet
+_UNPORTED_FLAGS = {
+    "tp": "--tp (mesh-sharded serving) waits for ROADMAP A9",
+    "mesh": "--mesh (mesh-sharded serving) waits for ROADMAP A9",
+    "spec_k": "--spec-k (speculative decoding) waits for ROADMAP A6",
+    "chaos": "--chaos (fault injection) waits for ROADMAP A6",
+    "track": "--track (the event tracker) waits for ROADMAP A7",
+    "trace_out": "--trace-out (the span trace) waits for ROADMAP A7",
+}
 
 
 def _sync(device):
@@ -68,11 +96,66 @@ def profile_steps(cfg, params, prompt, max_seq):
                                                   prompt.shape[1], cfg))
 
 
+def continuous_prompts(vocab: int, requests: int, min_len: int,
+                       max_len: int, seed: int):
+    """The continuous run's prompts: ``requests`` lengths uniform in
+    ``[min_len, max_len]`` and tokens in ``[1, vocab)``, drawn in turn from
+    ``np.random.RandomState(seed)`` (the reference launcher's draws)."""
+    rng = np.random.RandomState(seed)
+    prompts = []
+    for _ in range(requests):
+        plen = rng.randint(min_len, max_len + 1)
+        prompts.append(rng.randint(1, vocab, size=plen).tolist())
+    return prompts
+
+
+def _continuous(cfg, params, args, device):
+    """The continuous engine over ``args.requests`` seeded prompts; prints
+    the run's totals and each request's first tokens, returns the engine."""
+    page = 16
+    max_seq = args.max_seq or -(-(args.prompt_len + args.gen) // page) * page
+    eng = ContinuousEngine(cfg, params, n_slots=args.slots, max_seq=max_seq,
+                           page_size=page,
+                           prefill_chunk=min(32, args.prompt_len),
+                           scfg=SampleConfig(seed=args.seed))
+    lo = args.min_prompt_len or max(1, args.prompt_len // 2)
+    prompts = continuous_prompts(cfg.vocab, args.requests, lo,
+                                 args.prompt_len, args.seed)
+    for i, prompt in enumerate(prompts):
+        eng.submit(prompt, req_id=i, max_new_tokens=args.gen)
+    _sync(device)
+    out = eng.run()
+    dt = eng.run_s
+    total = sum(len(v) for v in out.values())
+    print(f"continuous: {args.requests} requests / {args.slots} slots, "
+          f"{total} tokens in {dt:.2f}s ({total / max(1e-9, dt):.1f} tok/s, "
+          f"{eng.decode_steps} decode steps, {eng.engine_steps} engine steps)"
+          f" on {device}")
+    for rid in sorted(out):
+        print(f"request {rid} tokens:", out[rid][:16].tolist())
+    return eng
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="stablelm-1.6b")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--engine", choices=("static", "continuous"),
+                    default="static")
     ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--min-prompt-len", type=int, default=None,
+                    help="--engine continuous: the shortest prompt (default "
+                         "prompt_len // 2)")
+    ap.add_argument("--max-seq", type=int, default=None,
+                    help="--engine continuous: slot capacity (default the "
+                         "prompt + gen rounded up to a page)")
+    for flag, kind in (("--tp", int), ("--mesh", str), ("--spec-k", int),
+                       ("--chaos", int), ("--track", str),
+                       ("--trace-out", str)):
+        ap.add_argument(flag, type=kind, default=None,
+                        help="not ported yet: raises NotImplementedError")
     ap.add_argument("--prompt-len", type=int, default=512)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
@@ -84,11 +167,25 @@ def main(argv=None):
                     help="sliding-window attention over the last N tokens "
                          "(the config's attn_window; 0: full causal)")
     args = ap.parse_args(argv)
+    for name, why in _UNPORTED_FLAGS.items():
+        if getattr(args, name) is not None:
+            raise NotImplementedError(why)
+    if args.gen < 1:
+        ap.error("--gen must be >= 1")
+    if args.engine == "continuous":
+        if args.requests < 1 or args.slots < 1 or args.prompt_len < 1:
+            ap.error("--requests, --slots and --prompt-len must be >= 1")
+        if args.profile or args.attn_window is not None:
+            ap.error("--profile and --attn-window apply to the static engine")
+        device = resolve_device(args.device)
+        cfg = registry.get(args.arch)
+        if args.reduced:
+            cfg = cfg.reduced()
+        params = T.init(cfg, seed=args.seed, device=device)
+        return _continuous(cfg, params, args, device)
     if args.prompt_len <= 0 or args.prompt_len % BLOCK:
         ap.error(f"--prompt-len must be a positive multiple of {BLOCK} (the "
                  f"attention kernel's square tile); got {args.prompt_len}")
-    if args.gen < 1:
-        ap.error("--gen must be >= 1")
     if args.attn_window is not None and args.attn_window < 0:
         ap.error("--attn-window must be >= 0")
 

@@ -4,8 +4,16 @@ GQA attention (train/prefill + cached decode), MLP, embeddings.
 Counterpart of ``repro.models.layers`` over plain parameter dicts in the same
 layout. Matrix products compute in fp32 (:func:`dot`, like the reference's
 ``preferred_element_type=f32``) and cast where the reference casts. GQA is
-native: K/V tensors and caches keep ``n_kv_heads`` heads. The KV cache is
-updated in place (the reference returns a new one).
+native: K/V tensors and caches keep ``n_kv_heads`` heads. The KV cache and
+the paged pools are updated in place (the reference returns new ones).
+
+Inside :func:`repro_torch.dist.fold.canonical_scope` (the paged serving step
+and the canonical forward) every reduction takes a form whose bits a row
+cannot see the batch through: :func:`dot` runs the M-invariant GEMM kernel,
+:func:`apply_norm` the row-norm kernel, ``wo`` and ``w_down`` the canonical
+virtual-shard fold, attention the paged walk of ``kernels/decode.py``, and
+SiLU is written ``x · sigmoid(x)`` (``F.silu`` on the CPU picks its formula by
+the element's place in the tensor).
 """
 from __future__ import annotations
 
@@ -14,6 +22,9 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import fold
+from repro_torch.kernels import gemm, rows
+from repro_torch.kernels.decode import paged_attention
 from repro_torch.kernels.ops import attention as attention_op
 from repro_torch.masks.spec import SlidingWindow
 from repro_torch.models.module import ParamDef as PD
@@ -22,7 +33,10 @@ F32 = torch.float32
 
 
 def dot(x, w, out_dtype=None):
-    """x @ w in fp32 (bf16 products are exact in fp32); cast if asked."""
+    """x @ w in fp32 (bf16 products are exact in fp32); cast if asked. Under
+    the canonical scope: the M-invariant GEMM (``kernels/gemm.py``)."""
+    if fold.active():
+        return gemm.matmul(x.contiguous(), w, out_dtype=out_dtype)
     y = torch.matmul(x.to(F32), w.to(F32))
     return y if out_dtype is None else y.to(out_dtype)
 
@@ -36,6 +50,8 @@ def norm_defs(cfg):
 
 
 def apply_norm(p, x, cfg, eps=1e-5):
+    if fold.active():
+        return rows.norm(x.contiguous(), p["scale"], p.get("bias"), eps)
     xf = x.to(F32)
     if "bias" in p:  # layernorm
         mu = xf.mean(-1, keepdim=True)
@@ -139,14 +155,57 @@ def _sdpa_decode(q, k_cache, v_cache, valid_len, window=None):
     return out.reshape(b, 1, h, hd).to(q.dtype)
 
 
+def _canonical_paged_sdpa(q, k, v, cfg, window=None, segment_ids=None):
+    """Training-side attention computed with the serve kernel: fresh K/V laid
+    out as trivially paged pools (logical page ``j`` of row ``b`` is pool page
+    ``b·n_pg + j``) and reduced by the same fixed-order page walk
+    (:func:`repro_torch.kernels.decode.paged_attention`) the engine runs, at
+    the canonical scope's page size — so the canonical forward is bitwise the
+    engine's chunked prefill at that page size (the reference's
+    ``_canonical_paged_sdpa``). Causality is over the row index (RoPE
+    positions restart per document in packed batches); ``segment_ids`` mask
+    everything across documents."""
+    b, s, hk, hd = k.shape
+    ps = fold.scope_pages() or 16
+    n_pg = -(-s // ps)
+    pad = n_pg * ps - s
+
+    def pool(t):   # (B, S, Hk, D) -> (B·n_pg, ps, Hk, D); pad rows masked
+        return F.pad(t, (0, 0, 0, 0, 0, pad)).reshape(b * n_pg, ps, hk,
+                                                      hd).contiguous()
+
+    dev = q.device
+    table = (torch.arange(b, dtype=torch.int32, device=dev)[:, None] * n_pg
+             + torch.arange(n_pg, dtype=torch.int32, device=dev)[None, :])
+    qpos = torch.arange(s, dtype=torch.int32, device=dev)[None, :].expand(
+        b, s).contiguous()
+    q_seg = kv_seg = None
+    if segment_ids is not None:
+        q_seg = segment_ids.to(torch.int32).contiguous()
+        kv_seg = F.pad(q_seg, (0, pad), value=-1).reshape(b * n_pg,
+                                                          ps).contiguous()
+    return paged_attention(q.contiguous(), pool(k), pool(v), table, qpos,
+                           window=window or None, q_segments=q_seg,
+                           kv_segments=kv_seg)
+
+
 def attention_block(p, x, cfg, *, positions=None, cache=None, cache_pos=None,
-                    window=None, segment_ids=None):
+                    window=None, segment_ids=None, paged=None):
     """Causal GQA self-attention. Modes:
-      train/prefill: cache=None → full causal attention.
+      train/prefill: cache=None → full causal attention (under the canonical
+                     scope: the serve kernel's page walk,
+                     :func:`_canonical_paged_sdpa`).
       cache:         cache=(k, v) (B,S_max,Hk,D), cache_pos int — the fresh
                      K/V are written at ``cache_pos`` in place; a multi-token
                      x (prefill) attends over its own K/V, a one-token x
                      (decode) over the cache up to ``cache_pos``.
+      paged:         cache=(k_pages, v_pages) pools (P, page_size, Hk, D),
+                     ``paged`` a dict with ``page_table`` (B, max_pages) and
+                     ``write_pages``/``write_offsets`` (B·L,) token-major
+                     targets: the fresh K/V are written into the pools in
+                     place (``index_put_``; duplicates only ever land on the
+                     masked trash page), then the batch-invariant page walk
+                     runs (chunked prefill and batched decode alike).
       window:        optional sliding-window size in tokens (defaults to
                      ``cfg.attn_window``), honored on train/prefill (as a
                      SlidingWindow spec) and on cached decode (the last
@@ -161,7 +220,26 @@ def attention_block(p, x, cfg, *, positions=None, cache=None, cache_pos=None,
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
     q, k, v = _project_qkv(p, x, cfg, positions)
-    if cache is None:
+    if paged is not None:
+        k_pages, v_pages = cache
+        idx = (paged["write_pages"].to(torch.int64),
+               paged["write_offsets"].to(torch.int64))
+        k_pages.index_put_(idx, k.reshape((-1,) + k.shape[2:]).to(
+            k_pages.dtype))
+        v_pages.index_put_(idx, v.reshape((-1,) + v.shape[2:]).to(
+            v_pages.dtype))
+        out = paged_attention(q.contiguous(), k_pages, v_pages,
+                              paged["page_table"],
+                              positions.to(torch.int32).contiguous(),
+                              window=window or None)
+        out = out.reshape(x.shape[:-1] + (out.shape[-2] * out.shape[-1],))
+        # canonical fold, one virtual shard a head
+        return fold.canonical_row_dot(out, p["wo"], cfg.head_dim,
+                                      out_dtype=x.dtype), cache
+    if cache is None and fold.active():
+        out = _canonical_paged_sdpa(q, k, v, cfg, window=window,
+                                    segment_ids=segment_ids)
+    elif cache is None:
         out = _sdpa_full(q, k, v, cfg, causal=True, window=window,
                          segment_ids=segment_ids)
     else:
@@ -175,6 +253,9 @@ def attention_block(p, x, cfg, *, positions=None, cache=None, cache_pos=None,
             out = _sdpa_decode(q, k_cache, v_cache, cache_pos + 1,
                                window=window)
     out = out.reshape(out.shape[:-2] + (out.shape[-2] * out.shape[-1],))
+    if fold.active():
+        return fold.canonical_row_dot(out, p["wo"], cfg.head_dim,
+                                      out_dtype=x.dtype), cache
     return dot(out, p["wo"], out_dtype=x.dtype), cache
 
 
@@ -191,8 +272,18 @@ def apply_mlp(p, x, cfg):
         raise NotImplementedError(
             f"activation {cfg.activation!r} is not ported yet (ROADMAP A8, "
             f"'Other model families')")
-    h = F.silu(dot(x, p["w_gate"])) * dot(x, p["w_up"])
-    return dot(h.to(x.dtype), p["w_down"], out_dtype=x.dtype)
+    if not fold.active():
+        h = F.silu(dot(x, p["w_gate"])) * dot(x, p["w_up"])
+        return dot(h.to(x.dtype), p["w_down"], out_dtype=x.dtype)
+    gate = dot(x, p["w_gate"])
+    h = (gate * torch.sigmoid(gate)) * dot(x, p["w_up"])
+    # canonical grid for the down-projection: V = n_heads virtual shards
+    width, rem = divmod(cfg.d_ff, cfg.n_heads)
+    if rem:
+        raise ValueError(f"canonical reductions need n_heads | d_ff; got "
+                         f"d_ff={cfg.d_ff}, n_heads={cfg.n_heads}")
+    return fold.canonical_row_dot(h.to(x.dtype), p["w_down"], width,
+                                  out_dtype=x.dtype)
 
 
 # ----------------------------------------------------------------- embeddings

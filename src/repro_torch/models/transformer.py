@@ -11,8 +11,17 @@ Entry modes:
                 ``remat_policy``);
   loss_fn:      next-token cross-entropy over ``forward``;
   prefill_step: prompt processing that also fills the KV caches;
-  decode_step:  one-token step over the caches (updated in place).
+  decode_step:  one-token step over the caches (updated in place);
+  paged_step:   the continuous engine's step over paged KV pools (a prefill
+                chunk or a batched one-token decode), always under the
+                canonical reduction scope (``dist/fold.py``).
 Other block patterns (MoE, SSM, xLSTM) raise ``NotImplementedError``.
+
+``cfg.canonical_reductions = N`` runs ``forward`` in serve-canonical mode:
+the paged attention walk over N-token pages and the canonical folds, so its
+logits are bitwise the engine's chunked prefill at ``page_size=N``. That
+mode serves the train≡serve parity cell only: it runs without a gradient,
+and a gradient through it raises.
 
 Remat policies (``REMAT_POLICIES``), each a ``torch.utils.checkpoint`` of
 one layer: ``"none"`` recomputes everything; ``"dots"`` and ``"names"`` run a
@@ -35,8 +44,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
+from repro_torch.dist import fold
 from repro_torch.models import layers as L
-from repro_torch.models.module import init_tree, stacked
+from repro_torch.models.module import init_tree, stacked, tree_paths
 
 F32 = torch.float32
 
@@ -145,10 +155,11 @@ def _identity_name(x, tag):
 
 
 def _apply_block(p, x, cfg, *, positions, cache=None, cache_pos=None,
-                 segment_ids=None, name=_identity_name):
+                 segment_ids=None, name=_identity_name, paged=None):
     h, _ = L.attention_block(p["attn"], L.apply_norm(p["ln1"], x, cfg), cfg,
                              positions=positions, cache=cache,
-                             cache_pos=cache_pos, segment_ids=segment_ids)
+                             cache_pos=cache_pos, segment_ids=segment_ids,
+                             paged=paged)
     x = name(x + h, "attn_out")
     y_in = name(L.apply_norm(p["ln2"], x, cfg), "ffn_in")
     return x + L.apply_mlp(p["mlp"], y_in, cfg)
@@ -167,7 +178,8 @@ def _remat_layer(p, x, cfg, *, positions, segment_ids, remat_policy):
 
 
 def _apply_stack(params, x, cfg, *, positions, caches=None, cache_pos=None,
-                 remat=False, remat_policy="none", segment_ids=None):
+                 remat=False, remat_policy="none", segment_ids=None,
+                 paged=None):
     for key, stacked_p in _blocks(params):
         n_rep = stacked_p["ln1"]["scale"].shape[0]
         layers = _unstack(stacked_p)
@@ -183,7 +195,8 @@ def _apply_stack(params, x, cfg, *, positions, caches=None, cache_pos=None,
                 k_all, v_all = caches[key]["attn"]
                 cache = (k_all[i], v_all[i])
             x = _apply_block(p, x, cfg, positions=positions, cache=cache,
-                             cache_pos=cache_pos, segment_ids=segment_ids)
+                             cache_pos=cache_pos, segment_ids=segment_ids,
+                             paged=paged)
     return x
 
 
@@ -197,11 +210,31 @@ def forward(params, batch, cfg, *, remat=False, remat_policy="none"):
     reentrant) with ``remat_policy`` (one of ``REMAT_POLICIES``, see the
     module docstring): the backward recomputes the layer, attention forward
     included, except the outputs the policy keeps.
+
+    ``cfg.canonical_reductions = N`` runs the serve-canonical mode (module
+    docstring) under ``torch.no_grad``; it raises if a gradient is asked
+    for (parameters that require one, or ``remat``).
     """
     check_supported(cfg)
     if remat_policy not in REMAT_POLICIES:
         raise ValueError(f"remat_policy={remat_policy!r}; one of "
                          f"{REMAT_POLICIES}")
+    if cfg.canonical_reductions:
+        wants_grad = torch.is_grad_enabled() and any(
+            t.requires_grad for _, t in tree_paths(params))
+        if remat or wants_grad:
+            raise NotImplementedError(
+                "the canonical forward (canonical_reductions) serves the "
+                "train≡serve parity cell only and has no gradient")
+        with fold.canonical_scope(page_size=cfg.canonical_reductions), \
+                torch.no_grad():
+            return _forward_body(params, batch, cfg, remat=False,
+                                 remat_policy=remat_policy)
+    return _forward_body(params, batch, cfg, remat=remat,
+                         remat_policy=remat_policy)
+
+
+def _forward_body(params, batch, cfg, *, remat, remat_policy):
     tokens = batch["tokens"]
     x = L.apply_embed(params["embed"], tokens, cfg)
     positions = batch.get("positions")
@@ -261,6 +294,54 @@ def prefill_step(params, batch, cfg, *, max_seq=None):
                      cache_pos=0)
     x = L.apply_norm(params["ln_f"], x[:, -1:], cfg)
     return L.apply_lm_head(params["lm_head"], x, cfg), caches
+
+
+def supports_paged(cfg) -> bool:
+    """True iff the paged serving path covers this config: an attention-only
+    block pattern (the reference's rule; the port has no frontends)."""
+    return all(k == "attn" for k in cfg.block_pattern)
+
+
+def init_paged_cache(cfg, n_pages: int, page_size: int, device):
+    """Paged KV pools per pattern position: ``{"attn": (k_pages, v_pages)}``,
+    each (n_repeats, n_pages, page_size, Hk, D) in cfg.dtype from
+    ``torch.zeros`` (never ``torch.empty``: under deterministic algorithms
+    that fills NaN, and a stale page must hold finite values)."""
+    if not supports_paged(cfg):
+        raise NotImplementedError(
+            f"paged serving supports attention-only patterns; got "
+            f"{cfg.block_pattern} (ROADMAP A8)")
+    n_rep = cfg.n_layers // len(cfg.block_pattern)
+    shape = (n_rep, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+    return {f"b{i}_attn": {"attn": (
+        torch.zeros(shape, dtype=cfg.dtype, device=device),
+        torch.zeros(shape, dtype=cfg.dtype, device=device))}
+        for i in range(len(cfg.block_pattern))}
+
+
+def paged_step(params, caches, tokens, positions, page_table, write_pages,
+               write_offsets, cfg):
+    """One paged serving step: a prefill chunk or a batched one-token decode.
+
+    tokens / positions: (B, L) token ids and absolute positions (L=1 for the
+    cross-slot decode; B=1, L=chunk for chunked prefill). page_table:
+    (B, max_pages) int32 physical page per logical page. write_pages /
+    write_offsets: (B·L,) token-major targets for the fresh K/V (the engine
+    points pad tokens and idle slots at its trash page). Returns (logits
+    (B, L, V) fp32, caches), the pools updated in place. Every op is
+    row-independent and the KV reduction order is fixed, so a row's logits
+    are a function of its own (params, tokens, positions, page history).
+    Always runs under :func:`repro_torch.dist.fold.canonical_scope`.
+    """
+    check_supported(cfg)
+    with fold.canonical_scope(), torch.no_grad():
+        x = L.apply_embed(params["embed"], tokens, cfg)
+        paged = dict(page_table=page_table, write_pages=write_pages,
+                     write_offsets=write_offsets)
+        x = _apply_stack(params, x, cfg, positions=positions, caches=caches,
+                         cache_pos=0, paged=paged)
+        x = L.apply_norm(params["ln_f"], x, cfg)
+        return L.apply_lm_head(params["lm_head"], x, cfg), caches
 
 
 def decode_step(params, caches, tokens, cache_pos: int, cfg):

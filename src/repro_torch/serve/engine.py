@@ -1,25 +1,66 @@
-"""Static-batch serving engine.
+"""Serving engines: the static-batch baseline and batch-invariant continuous
+batching.
 
-Counterpart of the static ``Engine`` of ``repro.serve.engine``: one padded
-batch in, prefill (the causal DASH forward when ``attention_impl="cuda"``),
-then lockstep one-token decode over the KV caches. The continuous engine
-comes with its own slice (ROADMAP A5).
+Counterpart of ``repro.serve.engine``. ``Engine`` takes one padded batch,
+prefills it (the causal DASH forward when ``attention_impl="cuda"``) and
+decodes in lockstep over the KV caches. ``ContinuousEngine`` is the
+deterministic serving engine:
+
+  * **paged KV** (:mod:`repro_torch.serve.kv_cache`): per-request page tables
+    over a fixed pool; physical placement never reaches the math;
+  * **deterministic scheduling** (:mod:`repro_torch.serve.scheduler`): FCFS
+    by request id, lowest free slot and pages first;
+  * **chunked prefill**: each prompt alone, in fixed-size ``(1, chunk)``
+    steps;
+  * **in-flight batched decode**: one token per live slot a step over a
+    fixed ``(n_slots, 1)`` shape; idle rows carry garbage never read;
+  * **per-request sampling keys**: a sampled row draws from a generator
+    seeded by a fixed integer mix of ``(seed, request_id, token_index)``
+    (:func:`_row_seed`), never from a generator the batch shares.
+
+Contract (the reference's): for fixed (params, prompt, seed, sampling
+config), a request's tokens and logprobs are bitwise the same whatever it is
+co-batched with, the slot count, the arrival order, the prefill chunk and
+page placement. It rests on ``transformer.paged_step``: every reduction on
+the serve path is row-invariant (the paged attention, the M-invariant GEMM,
+the row norm; the sampler's row log-softmax), on the card and on the CPU.
 
 Sampling semantics are the reference's: greedy is argmax over the raw
-logits (lowest id on ties); sampled applies temperature then an exact-k
-top-k. Seeded sampling draws from a ``torch.Generator`` seeded from
-``SampleConfig.seed``, so its numbers are reproducible within the port but
-not equal to ``jax.random``'s.
+logits (lowest id on ties) and reports ``log_softmax(raw)[tok]``; sampled
+applies temperature then an exact-k top-k and reports
+``log_softmax(transformed)[tok]``. Seeded numbers come from
+``torch.Generator``, so they are reproducible within the port but not equal
+to ``jax.random``'s.
+
+Not ported, and raising with their ROADMAP item: speculative decoding,
+fault injection with preemption and snapshots (A6), the tracker and span
+profiler (A7), mesh-sharded serving (A9).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import time
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.kernels import rows
 from repro_torch.models import transformer as T
+from repro_torch.serve.kv_cache import PagedKVCache, PagedLayout
+from repro_torch.serve.scheduler import FCFSScheduler, Request
+
+
+class QueueFull(RuntimeError):
+    """Deterministic load shedding: the bounded queue rejected a request
+    (a pure function of request id and queue state). Carries
+    ``(req_id, depth)``; the engine records it in ``rejected``."""
+
+    def __init__(self, req_id: int, depth: int):
+        self.req_id, self.depth = req_id, depth
+        super().__init__(
+            f"request {req_id} shed: queue depth is at the "
+            f"max_queue_depth={depth} bound")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,3 +164,361 @@ class Engine:
                              n_tokens - 1)
             self.last_decode_steps = int(first.max()) if first.size else 0
         return gen_tokens
+
+
+# --------------------------------------------------------------------------- #
+# continuous batching
+# --------------------------------------------------------------------------- #
+_MASK64 = (1 << 64) - 1
+
+
+def _row_seed(seed: int, request_id: int, token_index: int) -> int:
+    """The seed of one sampled row: a fixed integer mix (splitmix64's
+    finaliser) of ``(seed, request_id, token_index)``, below 2**63."""
+    x = (seed * 0x9E3779B97F4A7C15 + request_id * 0xBF58476D1CE4E5B9
+         + token_index * 0x94D049BB133111EB + 0x632BE59BD9B4E019) & _MASK64
+    x ^= x >> 30
+    x = (x * 0xBF58476D1CE4E5B9) & _MASK64
+    x ^= x >> 27
+    x = (x * 0x94D049BB133111EB) & _MASK64
+    x ^= x >> 31
+    return x & ((1 << 63) - 1)
+
+
+def _sample_rows(logits, req_ids, steps, scfg: SampleConfig):
+    """The continuous engine's keyed row sampler: ``(B, V)`` logits →
+    (tokens (B,) int64, logprobs (B,) fp32), each row a function of its own
+    logits and ``(seed, request_id, token_index)``.
+
+    Greedy: the argmax of the raw logits (lowest id on ties) and
+    ``log_softmax(raw)[tok]``, both from the row log-softmax
+    (``kernels/rows.py``). Sampled: the transformed logits (temperature, then
+    exact-k top-k) plus Gumbel noise drawn per row from
+    ``torch.Generator(device).manual_seed(_row_seed(...))``, argmax'd; the
+    logprob is ``log_softmax(transformed)[tok]``."""
+    logits = logits.to(torch.float32).contiguous()
+    if scfg.temperature == 0.0:
+        lp_all, tok = rows.log_softmax_argmax(logits)
+    else:
+        tl = _transform_logits(logits, scfg).contiguous()
+        lp_all, _ = rows.log_softmax_argmax(tl)
+        noise = []
+        for rid, t in zip(req_ids, steps):
+            gen = torch.Generator(device=logits.device).manual_seed(
+                _row_seed(scfg.seed, int(rid), int(t)))
+            noise.append(torch.rand(logits.shape[-1], generator=gen,
+                                    device=logits.device))
+        gumbel = -torch.log(-torch.log(torch.stack(noise)))
+        tok = torch.argmax(tl + gumbel, dim=-1)
+    lp = torch.gather(lp_all, 1, tok[:, None])[:, 0]
+    return tok, lp
+
+
+@dataclasses.dataclass
+class _Active:
+    """Host-side per-slot decode state."""
+    req: Request
+    produced: List[int]
+    logprobs: List[float] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+    @property
+    def next_pos(self) -> int:
+        # position of the last sampled (not yet KV-written) token
+        return len(self.req.tokens) + len(self.produced) - 1
+
+
+_UNPORTED = {
+    "spec_k": "speculative decoding (serve/spec.py) waits for ROADMAP A6",
+    "draft_cfg": "speculative decoding (serve/spec.py) waits for ROADMAP A6",
+    "draft_params": "speculative decoding (serve/spec.py) waits for ROADMAP "
+                    "A6",
+    "faults": "fault injection and preemption (faults/*) wait for ROADMAP A6",
+    "snapshot_dir": "engine snapshots (serve/snapshot.py) wait for ROADMAP A6",
+    "snapshot_every": "engine snapshots (serve/snapshot.py) wait for ROADMAP "
+                      "A6",
+    "tracker": "the tracker and span profiler (obs/*) wait for ROADMAP A7",
+    "run_id": "the tracker and span profiler (obs/*) wait for ROADMAP A7",
+    "mesh": "mesh-sharded serving (serve/sharded.py) waits for ROADMAP A9",
+}
+
+
+def _to_device(device, *arrays):
+    """The int32 numpy ``arrays`` on ``device`` in one host→device copy, as
+    contiguous views of one buffer."""
+    flat = np.concatenate([np.asarray(a, np.int32).reshape(-1)
+                           for a in arrays])
+    buf = torch.from_numpy(flat).to(device)
+    out, at = [], 0
+    for a in arrays:
+        n = int(np.prod(np.shape(a)))
+        out.append(buf[at:at + n].view(np.shape(a)))
+        at += n
+    return out
+
+
+class ContinuousEngine:
+    """Continuous-batching deterministic engine over paged KV slots.
+
+    The pools live on the params' device. ``capture_prefill_logits`` keeps
+    each request's per-position prefill logits in ``prefill_logits[req_id]``
+    (the train≡serve parity cell); ``max_queue_depth`` bounds pending
+    requests (``submit`` beyond it raises :class:`QueueFull`). Besides the
+    reference's telemetry (``decode_steps``, ``engine_steps``), the engine
+    keeps host-clock records that end in a device sync anyway: ``run_s``
+    (the last :meth:`run`), ``decode_s`` (each decode step, sampler
+    included) and, per request, ``first_token_step`` and ``ttft_s`` (submit
+    → first token on the host)."""
+
+    def __init__(self, cfg, params, *, n_slots: int = 4, max_seq: int = 128,
+                 page_size: int = 16, n_pages: Optional[int] = None,
+                 prefill_chunk: int = 32, scfg: SampleConfig = SampleConfig(),
+                 tracker=None, mesh=None, capture_prefill_logits: bool = False,
+                 faults=None, max_queue_depth: Optional[int] = None,
+                 snapshot_dir: Optional[str] = None,
+                 snapshot_every: Optional[int] = None,
+                 spec_k: int = 0, draft_cfg=None, draft_params=None,
+                 run_id: Optional[str] = None):
+        asked = dict(spec_k=spec_k, draft_cfg=draft_cfg,
+                     draft_params=draft_params, faults=faults,
+                     snapshot_dir=snapshot_dir, snapshot_every=snapshot_every,
+                     tracker=tracker, run_id=run_id, mesh=mesh)
+        for name, value in asked.items():
+            if value:
+                raise NotImplementedError(f"ContinuousEngine({name}=...): "
+                                          f"{_UNPORTED[name]}")
+        if not T.supports_paged(cfg):
+            raise NotImplementedError(
+                "paged serving covers attention-only patterns (ROADMAP A8)")
+        if max_seq % page_size or prefill_chunk < 1:
+            raise ValueError(f"max_seq={max_seq} must be a multiple of "
+                             f"page_size={page_size}, prefill_chunk >= 1")
+        self.cfg, self.params, self.scfg = cfg, params, scfg
+        self.device = params["embed"]["tok"].device
+        self.prefill_chunk = prefill_chunk
+        self.max_seq = max_seq
+        mpps = max_seq // page_size
+        layout = PagedLayout(page_size=page_size,
+                             n_pages=n_pages or n_slots * mpps,
+                             n_slots=n_slots, max_pages_per_slot=mpps)
+        self.cache = PagedKVCache(cfg, layout, self.device)
+        self.sched = FCFSScheduler(n_slots)
+        self._slots: Dict[int, _Active] = {}
+        self.results: Dict[int, List[int]] = {}
+        self.result_logprobs: Dict[int, np.ndarray] = {}
+        self.prefill_logits: Dict[int, np.ndarray] = {}
+        self._capture = capture_prefill_logits
+        self._next_id = 0
+        self.decode_steps = 0
+        self.engine_steps = 0               # the deterministic clock
+        self.max_queue_depth = max_queue_depth
+        self.preemptions = 0
+        self.rejected: Dict[int, str] = {}          # req_id -> shed reason
+        self.cancelled: Dict[int, np.ndarray] = {}  # req_id -> partial tokens
+        self._deadline: Dict[int, int] = {}         # req_id -> absolute step
+        # host-clock records (each ends in the step's device sync)
+        self.run_s: Optional[float] = None
+        self.decode_s: List[float] = []
+        self.first_token_step: Dict[int, int] = {}
+        self.ttft_s: Dict[int, float] = {}
+        self._submit_t: Dict[int, float] = {}
+
+    # ------------------------------------------------------------ request API
+    def submit(self, tokens, *, req_id: Optional[int] = None,
+               max_new_tokens: int = 16,
+               deadline_steps: Optional[int] = None) -> int:
+        """Queue a request; lower ids are served first (FCFS by id).
+
+        Validates the whole worst case up front (positions against
+        ``max_seq``, pages against the pool) with a ``ValueError`` naming the
+        limit. ``deadline_steps``: cancel the request if it has not finished
+        within that many engine steps from now (a deterministic deadline)."""
+        if req_id is None:
+            req_id = self._next_id
+        tokens = tuple(int(t) for t in np.asarray(tokens).reshape(-1))
+        if (req_id in self.results or req_id in self.cancelled
+                or req_id in self.rejected or any(
+                    st.req.id == req_id for st in self._slots.values())):
+            raise ValueError(f"request id {req_id} was already served")
+        total = len(tokens) + max_new_tokens
+        if total > self.max_seq:
+            raise ValueError(
+                f"request {req_id} needs {total} positions "
+                f"({len(tokens)} prompt + {max_new_tokens} new); "
+                f"slot capacity is max_seq={self.max_seq}")
+        need = self.cache.layout.pages_for(total)
+        if need > self.cache.layout.n_pages:
+            raise ValueError(
+                f"request {req_id} needs {need} pages (worst case) but the "
+                f"pool only has n_pages={self.cache.layout.n_pages}; raise "
+                f"n_pages or shrink the request")
+        if deadline_steps is not None and deadline_steps <= 0:
+            raise ValueError(f"deadline_steps must be > 0, got "
+                             f"{deadline_steps}")
+        if (self.max_queue_depth is not None
+                and len(self.sched.pending) >= self.max_queue_depth):
+            self.rejected[req_id] = "queue_full"
+            self._next_id = max(self._next_id, req_id + 1)
+            raise QueueFull(req_id, self.max_queue_depth)
+        self.sched.submit(Request(req_id, tokens, max_new_tokens))
+        if deadline_steps is not None:
+            self._deadline[req_id] = self.engine_steps + deadline_steps
+        self._next_id = max(self._next_id, req_id + 1)
+        self._submit_t[req_id] = time.perf_counter()
+        return req_id
+
+    def run(self) -> Dict[int, np.ndarray]:
+        """Drive steps until every submitted request finished; return the
+        completed requests' tokens (shed ones are in ``rejected``,
+        deadline-cancelled ones in ``cancelled``)."""
+        t0 = time.perf_counter()
+        while not self.sched.idle:
+            self.step()
+        self.run_s = time.perf_counter() - t0
+        return {rid: np.asarray(toks, np.int32)
+                for rid, toks in self.results.items()}
+
+    # ---------------------------------------------------------------- engine
+    def _admission_check(self):
+        """Capacity predicate for one admission round; counts the pages that
+        earlier admissions of the same round claimed."""
+        reserved = 0
+
+        def fits(req: Request) -> bool:
+            nonlocal reserved
+            need = self.cache.layout.pages_for(
+                len(req.tokens) + req.max_new_tokens)
+            if need + reserved > self.cache.free_pages:
+                return False
+            reserved += need
+            return True
+
+        return fits
+
+    def _step(self, toks, pos, table, wp, wo):
+        toks, pos, table, wp, wo = _to_device(self.device, toks, pos, table,
+                                              wp, wo)
+        logits, self.cache.pools = T.paged_step(
+            self.params, self.cache.pools, toks, pos, table, wp, wo,
+            self.cfg)
+        return logits
+
+    def _chunked_prefill(self, slot: int, tokens: np.ndarray,
+                         rows_out: Optional[list] = None):
+        """Run ``tokens`` through the paged step in fixed-size ``(1, chunk)``
+        steps, writing their K/V into ``slot``'s pages; returns the last
+        chunk's logits."""
+        plen, c = len(tokens), self.prefill_chunk
+        table = self.cache.page_table[[slot]]
+        logits = None
+        for start in range(0, plen, c):
+            pos = np.arange(start, start + c, dtype=np.int32)
+            valid = pos < plen
+            toks = np.where(valid, tokens[np.minimum(pos, plen - 1)], 0)
+            wp, wo = self.cache.write_targets(slot, pos, valid)
+            logits = self._step(toks[None], pos[None], table, wp, wo)
+            if rows_out is not None:    # valid rows only, fp32 (bitwise)
+                rows_out.append(logits[0, :min(c, plen - start)].cpu()
+                                .numpy())
+        return logits
+
+    def _prefill(self, slot: int, req: Request) -> None:
+        """Chunked prefill of one request; samples its first token."""
+        lay = self.cache.layout
+        self.cache.alloc(slot, lay.pages_for(len(req.tokens)
+                                             + req.max_new_tokens))
+        plen, c = len(req.tokens), self.prefill_chunk
+        rows_out = [] if self._capture else None
+        logits = self._chunked_prefill(slot, np.asarray(req.tokens, np.int32),
+                                       rows_out)
+        if self._capture:
+            self.prefill_logits[req.id] = np.concatenate(rows_out, axis=0)
+        tok, lp = _sample_rows(logits[:, (plen - 1) % c], [req.id], [0],
+                               self.scfg)
+        first, first_lp = int(tok[0]), float(lp[0])
+        self.first_token_step[req.id] = self.engine_steps
+        self.ttft_s[req.id] = time.perf_counter() - self._submit_t.get(
+            req.id, time.perf_counter())
+        self._slots[slot] = st = _Active(req, [first], [first_lp])
+        self._finish_check(st)
+
+    def _finish_check(self, st: _Active) -> None:
+        last = st.produced[-1]
+        if ((self.scfg.eos_id is not None and last == self.scfg.eos_id)
+                or len(st.produced) >= st.req.max_new_tokens):
+            st.done = True
+
+    def _cancel_expired(self, step_idx: int) -> None:
+        """Cancel every request whose step deadline has passed: pending ones
+        leave the queue, active ones free their slot and pages now; partial
+        tokens go to ``cancelled`` (never ``results``)."""
+        if not self._deadline:
+            return
+        for rid in sorted(self.sched.pending):
+            if self._deadline.get(rid, step_idx + 1) <= step_idx:
+                del self.sched.pending[rid]
+                self.cancelled[rid] = np.zeros((0,), np.int32)
+                del self._deadline[rid]
+        for slot in sorted(self._slots):
+            rid = self._slots[slot].req.id
+            if self._deadline.get(rid, step_idx + 1) <= step_idx:
+                st = self._slots.pop(slot)
+                self.cancelled[rid] = np.asarray(st.produced, np.int32)
+                self.cache.free_slot(slot)
+                self.sched.release(slot)
+                del self._deadline[rid]
+
+    def step(self) -> None:
+        """One engine step: deadline sweep → admit + prefill → one batched
+        decode step over the live slots → reap."""
+        step_idx = self.engine_steps
+        self._cancel_expired(step_idx)
+        for slot, req in self.sched.admit(self._admission_check()):
+            self._prefill(slot, req)
+
+        live = [s for s, st in self._slots.items() if not st.done]
+        if live:
+            t0 = time.perf_counter()
+            lay = self.cache.layout
+            n = lay.n_slots
+            toks = np.zeros((n, 1), np.int32)
+            pos = np.zeros((n, 1), np.int32)
+            wp = np.full(n, lay.trash_page, np.int32)
+            wo = np.arange(n, dtype=np.int32) % lay.page_size
+            rids = np.zeros(n, np.int64)
+            steps = np.zeros(n, np.int64)
+            for s in live:
+                st = self._slots[s]
+                toks[s, 0] = st.produced[-1]
+                pos[s, 0] = st.next_pos
+                wp[s], wo[s] = (a[0] for a in self.cache.write_targets(
+                    s, np.asarray([st.next_pos]), np.asarray([True])))
+                rids[s] = st.req.id
+                steps[s] = len(st.produced)
+            logits = self._step(toks, pos, self.cache.page_table, wp, wo)
+            self.decode_steps += 1
+            nxt, lps = _sample_rows(logits[:, 0], rids, steps, self.scfg)
+            nxt, lps = nxt.cpu().numpy(), lps.cpu().numpy()
+            for s in live:
+                st = self._slots[s]
+                st.produced.append(int(nxt[s]))
+                st.logprobs.append(float(lps[s]))
+                self._finish_check(st)
+            self.decode_s.append(time.perf_counter() - t0)
+
+        for s in [s for s, st in self._slots.items() if st.done]:
+            st = self._slots.pop(s)
+            self.results[st.req.id] = st.produced
+            self.result_logprobs[st.req.id] = np.asarray(st.logprobs,
+                                                         np.float32)
+            self._deadline.pop(st.req.id, None)
+            self.cache.free_slot(s)
+            self.sched.release(s)
+        self.engine_steps = step_idx + 1
+
+    def save_snapshot(self, directory: Optional[str] = None) -> int:
+        raise NotImplementedError(_UNPORTED["snapshot_dir"])
+
+    @classmethod
+    def from_snapshot(cls, *args, **kwargs) -> "ContinuousEngine":
+        raise NotImplementedError(_UNPORTED["snapshot_dir"])

@@ -16,10 +16,14 @@ the reference's matrix lacks: Adafactor, and packed documents
 (:class:`~repro_torch.data.pipeline.PackedDocs`, segment-masked attention on
 the plain path).
 
-Not ported: the ``moe`` cell (waits for ``models/moe.py``, ROADMAP A8), the
-``elastic`` scenario (re-sharding onto another mesh, ``dist/sharding.py``,
-ROADMAP A9) and the ``train_serve_parity`` cell (the continuous engine,
-ROADMAP A5); each raises ``NotImplementedError``.
+The ``train_serve_parity`` cell (:func:`run_train_serve_parity`) is not a
+chain: per arch of ``PARITY_ARCHS`` it digests the canonical training
+forward's logits and the continuous engine's captured prefill logits over the
+same prompts; it is conformant iff the two digests are equal for every arch.
+
+Not ported: the ``moe`` cell (waits for ``models/moe.py``, ROADMAP A8) and
+the ``elastic`` scenario (re-sharding onto another mesh,
+``dist/sharding.py``, ROADMAP A9); each raises ``NotImplementedError``.
 
 Every driver takes ``device=`` (the card by default; ``"cpu"`` runs the
 plain path). Runnable as a module:
@@ -35,6 +39,7 @@ import os
 import tempfile
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -43,7 +48,8 @@ from repro_torch.configs import registry
 from repro_torch.data.pipeline import DataConfig, PackedDocs, make_source
 from repro_torch.train import optimizer as O
 from repro_torch.train import step as S
-from repro_torch.verify.digest import DigestChain, batch_digest
+from repro_torch.verify.digest import (DigestChain, batch_digest,
+                                       combine_leaf_digests, leaf_digest)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,13 +193,84 @@ EXTRA: Dict[str, LifecycleConfig] = {
 }
 _UNPORTED = {
     "moe": "the moe cell waits for models/moe.py (ROADMAP A8)",
-    "train_serve_parity": "the train_serve_parity cell waits for the "
-                          "continuous engine (ROADMAP A5)",
 }
 SCENARIOS = ("straight", "resume")
 
+PARITY_ARCHS = ("stablelm-1.6b", "qwen1.5-110b", "mistral-nemo-12b")
+PARITY_PROMPT_LENS = (5, 13, 32, 7)
+_PARITY_PAGE = 8
+
+
+def run_train_serve_parity(archs=PARITY_ARCHS, page_size: int = _PARITY_PAGE,
+                           device=None, reduced: bool = True,
+                           overrides: Tuple[Tuple[str, object], ...] = ()
+                           ) -> Dict:
+    """Train≡serve logits parity as a conformance cell (the reference's
+    ``run_train_serve_parity``).
+
+    For each arch (``reduced`` widths, or the published ones, with
+    ``overrides``): the canonical training forward
+    (``canonical_reductions=page_size``) over a fixed prompt set, and the
+    paged ``ContinuousEngine`` with ``capture_prefill_logits`` over the same
+    prompts (chunked prefill at the same page size). Each prompt's fp32
+    logits are digested with :func:`repro_torch.verify.digest.leaf_digest`;
+    the cell is conformant iff every arch's train and serve digests match.
+    Weights come from ``T.init(seed=0)`` on ``device``."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ContinuousEngine
+
+    device = resolve_device(device)
+    heads: Dict[str, str] = {}
+    records: Dict[str, Dict[str, Dict[str, str]]] = {}
+    for arch in archs:
+        cfg = registry.get(arch)
+        kw = dict(overrides)
+        cfg = cfg.reduced(**kw) if reduced else cfg.replace(**kw)
+        params = T.init(cfg, seed=0, device=device)
+        rng = np.random.RandomState(0)
+        prompts = [rng.randint(1, cfg.vocab, size=n).tolist()
+                   for n in PARITY_PROMPT_LENS]
+        eng = ContinuousEngine(cfg, params, n_slots=2, max_seq=64,
+                               page_size=page_size, prefill_chunk=16,
+                               capture_prefill_logits=True)
+        for i, p in enumerate(prompts):
+            eng.submit(p, req_id=i, max_new_tokens=1)
+        eng.run()
+        pcfg = cfg.replace(canonical_reductions=page_size)
+        train_d, serve_d = {}, {}
+        for i, p in enumerate(prompts):
+            toks = torch.tensor([p], dtype=torch.int64, device=device)
+            logits = T.forward(params, {"tokens": toks}, pcfg)[0][0, :len(p)]
+            train_d[f"req{i}"] = leaf_digest(logits.float())
+            serve_d[f"req{i}"] = leaf_digest(
+                eng.prefill_logits[i].astype(np.float32))
+        heads[f"{arch}/train"] = combine_leaf_digests(train_d)
+        heads[f"{arch}/serve"] = combine_leaf_digests(serve_d)
+        records[arch] = {"train": train_d, "serve": serve_d}
+        del params, eng
+    conformant = all(heads[f"{a}/train"] == heads[f"{a}/serve"]
+                     for a in archs)
+    return {
+        "cell": "train_serve_parity",
+        "config": {"archs": list(archs), "page_size": page_size,
+                   "prompt_lens": list(PARITY_PROMPT_LENS),
+                   "reduced": reduced, "overrides": [list(o)
+                                                     for o in overrides]},
+        "heads": heads,
+        "records": records,
+        "conformant": conformant,
+        "first_divergence": {} if conformant else {
+            a: [r for r in records[a]["train"]
+                if records[a]["train"][r] != records[a]["serve"][r]]
+            for a in archs
+            if heads[f"{a}/train"] != heads[f"{a}/serve"]},
+    }
+
 
 def cell_config(name: str) -> LifecycleConfig:
+    if name == "train_serve_parity":
+        raise ValueError("train_serve_parity is not a chain cell: run it with "
+                         "run_train_serve_parity (or run_cell)")
     if name in _UNPORTED:
         raise NotImplementedError(_UNPORTED[name])
     if name in MATRIX:
@@ -210,7 +287,10 @@ def run_cell(name: str, *, crash_at: int = 2, scenarios=SCENARIOS,
     """Run one cell (``lc``, by default the named cell's config) through the
     scenarios; returns a report with chain records and a ``conformant``
     verdict. The resume scenario's checkpoint goes to a temporary directory
-    under ``tmp_root`` (the system's default when None), removed after."""
+    under ``tmp_root`` (the system's default when None), removed after.
+    ``train_serve_parity`` runs :func:`run_train_serve_parity` instead."""
+    if name == "train_serve_parity":
+        return run_train_serve_parity(device=device)
     lc = lc or cell_config(name)
     if "elastic" in scenarios:
         run_elastic_reshard()               # raises: not ported
@@ -246,7 +326,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cells", default=",".join(MATRIX),
-                    help="comma-separated cell names (MATRIX, EXTRA)")
+                    help="comma-separated cell names (MATRIX, EXTRA, "
+                         "train_serve_parity)")
     ap.add_argument("--scenarios", default=",".join(SCENARIOS))
     ap.add_argument("--crash-at", type=int, default=2)
     ap.add_argument("--device", default=None,

@@ -1,6 +1,7 @@
 """Checks of the port that need the card (marker ``gpu``; they skip without
 one). Run them there with ``python -m pytest -q -m gpu tests/test_torch_cuda.py``.
 This file imports no JAX, so it also runs where JAX is not installed."""
+import numpy as np
 import pytest
 import torch
 
@@ -363,3 +364,145 @@ def test_checkpoint_of_card_tensors_restores_onto_the_card(tmp_path):
         assert got.device.type == "cuda" and got.dtype == want.dtype
         assert torch.equal(got.view(torch.uint8) if got.dim() else got,
                            want.view(torch.uint8) if want.dim() else want)
+
+
+# ------------------------------------------- the continuous engine's kernels
+def _paged_case(b, l, h, hk, d, ps, n_pg, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n_pages = b * n_pg + 2
+    kp, vp = (torch.randn((n_pages, ps, hk, d), generator=gen, device="cuda")
+              .to(dtype) for _ in range(2))
+    perm = torch.randperm(n_pages, generator=torch.Generator().manual_seed(
+        seed))[:b * n_pg]
+    table = perm.reshape(b, n_pg).to(torch.int32).cuda()
+    q = torch.randn((b, l, h, d), generator=gen, device="cuda").to(dtype)
+    start = torch.randint(0, n_pg * ps - l, (b, 1),
+                          generator=torch.Generator().manual_seed(seed + 1))
+    qpos = (start + torch.arange(l)).to(torch.int32).cuda()
+    return q, kp, vp, table, qpos
+
+
+@pytest.mark.parametrize("dtype,tol", [("bfloat16", 2e-2), ("float32", 2e-5)])
+@pytest.mark.parametrize("shape", [(4, 1, 8, 8, 64, 16, 8),     # decode
+                                   (1, 16, 8, 2, 64, 16, 8),    # prefill, GQA
+                                   (2, 3, 4, 4, 128, 8, 4),
+                                   (2, 5, 4, 2, 32, 8, 6)])
+def test_paged_attention_kernel_matches_plain_and_holds_its_bits(dtype, tol,
+                                                                 shape):
+    """Kernel vs plain (window and segment ids too); each row bitwise the
+    same launched alone, behind trailing pages, and over 20 repetitions."""
+    _card()
+    from repro_torch.kernels import decode as D
+    b, l, h, hk, d, ps, n_pg = shape
+    q, kp, vp, table, qpos = _paged_case(b, l, h, hk, d, ps, n_pg,
+                                         getattr(torch, dtype), sum(shape))
+    seg = torch.randint(0, 2, (b, l), dtype=torch.int32, device="cuda")
+    kv_seg = torch.randint(0, 2, kp.shape[:2], dtype=torch.int32,
+                           device="cuda")
+    for kw in ({}, {"window": 5}, {"q_segments": seg, "kv_segments": kv_seg}):
+        before = D.launches
+        out = D.paged_attention(q, kp, vp, table, qpos, **kw)
+        assert D.launches == before + 1
+        plain = D.paged_attention_plain(q, kp, vp, table, qpos, d ** -0.5,
+                                        kw.get("window"),
+                                        kw.get("q_segments"),
+                                        kw.get("kv_segments"))
+        torch.testing.assert_close(out.float(), plain.float(), atol=tol,
+                                   rtol=tol)
+    out = D.paged_attention(q, kp, vp, table, qpos)
+    for i in range(b):
+        one = D.paged_attention(q[i:i + 1].contiguous(), kp, vp,
+                                table[i:i + 1].contiguous(),
+                                qpos[i:i + 1].contiguous())
+        assert torch.equal(one, out[i:i + 1])
+    longer = torch.cat([table, table[:, :3]], 1).contiguous()
+    assert torch.equal(D.paged_attention(q, kp, vp, longer, qpos), out)
+    for _ in range(20):
+        assert torch.equal(D.paged_attention(q, kp, vp, table, qpos), out)
+
+
+@pytest.mark.parametrize("width", [0, 64, 176])
+@pytest.mark.parametrize("dtype,tol", [("bfloat16", 1e-3), ("float32", 1e-4)])
+def test_gemm_kernel_matches_plain_and_rows_are_m_invariant(dtype, tol, width):
+    _card()
+    from repro_torch.kernels import gemm
+    gen = torch.Generator(device="cuda").manual_seed(width)
+    k = 352 if width == 176 else 256
+    x = torch.randn((64, k), generator=gen, device="cuda").to(
+        getattr(torch, dtype))
+    w = (torch.randn((k, 200), generator=gen, device="cuda") * 0.05).to(
+        getattr(torch, dtype))
+    before = gemm.launches
+    y = gemm.matmul(x, w, shard_width=width)
+    assert gemm.launches == before + 1 and y.dtype == torch.float32
+    torch.testing.assert_close(y, gemm.matmul_plain(x, w, shard_width=width),
+                               atol=tol, rtol=tol)
+    for m in (1, 3, 4, 32):
+        assert torch.equal(gemm.matmul(x[:m].contiguous(), w,
+                                       shard_width=width), y[:m])
+    moved = gemm.matmul(torch.cat([x[7:10], x[:1]]).contiguous(), w,
+                        shard_width=width)
+    assert torch.equal(moved[3], y[0])
+    with pytest.raises(ValueError, match="contiguous"):
+        gemm.matmul(x.t(), w[:64].contiguous())
+
+
+def test_row_kernels_match_plain_and_rows_are_m_invariant():
+    _card()
+    from repro_torch.kernels import rows
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = (torch.randn((16, 384), generator=gen, device="cuda") * 2 + 1)
+    scale = torch.randn(384, generator=gen, device="cuda") + 1
+    bias = torch.randn(384, generator=gen, device="cuda")
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
+        for b in (bias, None):
+            y = rows.norm(x.to(dtype), scale, b)
+            torch.testing.assert_close(
+                y.float(), rows.norm_plain(x.to(dtype), scale, b).float(),
+                atol=tol, rtol=tol)
+            for m in (1, 3, 4):
+                assert torch.equal(rows.norm(x[:m].to(dtype), scale, b),
+                                   y[:m])
+    logits = torch.randn((6, 1000), generator=gen, device="cuda") * 4
+    logits[2, 5] = logits[2, 600] = logits[2].max() + 1
+    lp, arg = rows.log_softmax_argmax(logits)
+    plp, parg = rows.log_softmax_argmax_plain(logits)
+    torch.testing.assert_close(lp, plp, atol=2e-5, rtol=2e-5)
+    assert torch.equal(arg, parg) and int(arg[2]) == 5
+    for m in (1, 4):
+        sub, sub_arg = rows.log_softmax_argmax(logits[:m].contiguous())
+        assert torch.equal(sub, lp[:m]) and torch.equal(sub_arg, arg[:m])
+
+
+@torch.inference_mode()
+def test_reduced_continuous_engine_on_the_card():
+    """The reduced StableLM through the continuous engine on the card: a
+    request's tokens and logprobs are bitwise the same alone, co-batched, at
+    2 slots and another chunk; decode launches the paged attention once per
+    layer a step."""
+    _card()
+    from repro_torch.kernels import decode as D
+    from repro_torch.serve.engine import ContinuousEngine
+    cfg = registry.get("stablelm-1.6b").reduced(n_layers=2)
+    params = T.init(cfg, seed=0, device="cuda")
+    gen = torch.Generator().manual_seed(0)
+    prompts = {i: torch.randint(1, cfg.vocab, (n,), generator=gen).tolist()
+               for i, n in enumerate((5, 13, 32, 7))}
+
+    def run(ids, n_slots=4, chunk=16):
+        eng = ContinuousEngine(cfg, params, n_slots=n_slots, max_seq=64,
+                               page_size=8, prefill_chunk=chunk)
+        for i in ids:
+            eng.submit(prompts[i], req_id=i, max_new_tokens=6)
+        return eng.run(), eng.result_logprobs, eng
+
+    before = D.launches
+    full, lps, eng = run([0, 1, 2, 3])
+    chunks = sum(-(-len(prompts[i]) // 16) for i in range(4))
+    assert D.launches - before == cfg.n_layers * (chunks + eng.decode_steps)
+    for ids, kw in (([0], {}), ([1, 3], {}), ([0, 1, 2, 3], {"n_slots": 2}),
+                    ([0, 1, 2, 3], {"chunk": 8})):
+        got, got_lps, _ = run(ids, **kw)
+        for i in ids:
+            assert np.array_equal(got[i], full[i]), (ids, kw, i)
+            assert np.array_equal(got_lps[i], lps[i]), (ids, kw, i)

@@ -149,4 +149,4 @@ def test_unported_configs_raise():
                    {"tokens": torch.zeros((1, 128), dtype=torch.long)},
                    tcfg.replace(activation="relu2"))
     with pytest.raises(NotImplementedError, match="not ported"):
-        tregistry.get("qwen1.5-110b")
+        tregistry.get("phi3.5-moe-42b-a6.6b")
