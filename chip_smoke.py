@@ -33,7 +33,10 @@ Phases, each reported on its own line:
                and 20 repetitions bitwise equal; the GEMM (plain and
                canonical, shard widths 64 and 176, StableLM's widths) and the
                row norm and log-softmax against theirs, each row bitwise the
-               same at M = 1, 3, 4, 32, 64; and a printed finding: whether
+               same at M = 1, 3, 4, 32, 64; every paged and GEMM launch of
+               these checks bitwise equal to the kernel's first design
+               (``csrc/{paged_attn,gemm}_v1.cu``) on the same inputs; and a
+               printed finding: whether
                torch.matmul, F.layer_norm and torch.log_softmax give rows the
                same bits at M = 1, 4, 32 on this card;
   4. serve   — serve StableLM-1.6B at full width and depth in bf16 (random
@@ -48,8 +51,10 @@ Phases, each reported on its own line:
                pages, 32-token chunks; the run's launches and one decode
                step's (24 paged attentions, 169 GEMMs, 49 norms, 1
                log-softmax) equal to the code's count; prefill chunk ms,
-               TTFT, decode step ms and tok/s, peak memory, the busy share of
-               one profiled decode step;
+               TTFT, decode step ms and tok/s, peak memory; one profiled
+               decode step's device ms, host ms, busy share and the GEMM's
+               and paged attention's device ms, beside the same step with
+               the kernels' first designs;
      serve-invariance — the same requests: tokens and logprobs bitwise
                equal across a second run, request subsets, 2 slots, chunks
                16/64, a tight pool (page reuse), and seeded sampling across
@@ -105,7 +110,9 @@ Phases, each reported on its own line:
                serving kernels at the serve shapes (paged attention beside
                SDPA over the gathered K/V, the GEMM beside torch.matmul, the
                norm beside F.layer_norm, the log-softmax beside
-               torch.log_softmax).
+               torch.log_softmax), the paged attention and the GEMM also
+               beside their first designs in turns (``v1_ms``), bitwise
+               equal to them at every timed shape.
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script exits
 non-zero and prints no result; so does a machine without CUDA.
@@ -254,6 +261,13 @@ SERVE_ARGV = ["--engine", "continuous", "--arch", "stablelm-1.6b",
               "--min-prompt-len", str(SERVE_MIN_PROMPT), "--prompt-len",
               str(SERVE_PROMPT), "--gen", str(SERVE_GEN), "--max-seq",
               str(SERVE_MAX_SEQ), "--seed", str(SERVE_SEED)]
+# [serve-continuous-profile]: the same profiled decode step with the GEMM
+# and the paged attention of their first designs (csrc/*_v1.cu), measured
+# by this script on an H100 80GB HBM3 at 700 W: device and traced wall ms,
+# the busy share, the two kernels' device ms, an unprofiled step's median ms
+FIRST_DESIGN_DECODE_STEP = dict(device_busy_ms=13.24, wall_ms_traced=52.41,
+                                busy_share=0.253, gemm_ms=9.73,
+                                paged_attention_ms=1.19, step_ms=20.29)
 # unused pool pages beside the rows' pages in the paged-attention checks
 PAGED_SPARE = 5
 # the GEMM kernel's fp32 product vs its plain version: both sum the same
@@ -1504,7 +1518,9 @@ def check_paged():
     32/8, at the serve path's width (H=32, D=64, 16-token pages, 1024
     positions a row); and its bits: a permuted page table, trailing pages
     (over NaN-filled unused pages), each row of a co-batched launch equal to
-    the row alone, 20 repetitions."""
+    the row alone, 20 repetitions, and every one of these launches bitwise
+    equal to the first design's (``csrc/paged_attn_v1.cu``) on the same
+    inputs."""
     results, failed = [], []
     h, d = 32, 64
     cases = [("decode", 4, 1, 32, {}), ("prefill", 1, 32, 32, {}),
@@ -1524,11 +1540,15 @@ def check_paged():
                 args["kv_segments"] = torch.randint(
                     0, 2, kp.shape[:2], generator=gen, device="cuda",
                     dtype=torch.int32)
+            v1_equal = []
 
             def kernel(q=q, kp=kp, vp=vp, table=table, qpos=qpos, **over):
-                return DEC.paged_attention_cuda(q, kp, vp, table, qpos,
-                                                d ** -0.5, **dict(args,
-                                                                  **over))
+                kw_ = dict(args, **over)
+                y = DEC.paged_attention_cuda(q, kp, vp, table, qpos,
+                                             d ** -0.5, **kw_)
+                v1_equal.append(torch.equal(y, DEC.paged_attention_v1(
+                    q, kp, vp, table, qpos, d ** -0.5, **kw_)))
+                return y
             out = kernel()
             plain = DEC.paged_attention_plain(q, kp, vp, table, qpos,
                                               d ** -0.5, **args)
@@ -1557,23 +1577,27 @@ def check_paged():
             extra = spare[:3].to(torch.int32).cuda().expand(b, 3)
             trailing = torch.equal(kernel(kp=kp3, vp=vp3, table=torch.cat(
                 [table, extra], 1).contiguous()), out)
-            single = all(torch.equal(DEC.paged_attention_cuda(
-                q[i:i + 1].contiguous(), kp, vp, table[i:i + 1].contiguous(),
-                qpos[i:i + 1].contiguous(), d ** -0.5, window=args["window"],
-                q_segments=None if "q_segments" not in args
-                else args["q_segments"][i:i + 1].contiguous(),
-                kv_segments=args.get("kv_segments")), out[i:i + 1])
-                for i in range(b))
-            reps = all(torch.equal(kernel(), out) for _ in range(20))
-            ok = close and permuted and trailing and single and reps and bool(
-                torch.isfinite(out).all())
+            single = all(torch.equal(kernel(
+                q=q[i:i + 1].contiguous(), table=table[i:i + 1].contiguous(),
+                qpos=qpos[i:i + 1].contiguous(),
+                **({} if "q_segments" not in args else
+                   {"q_segments": args["q_segments"][i:i + 1].contiguous()})),
+                out[i:i + 1]) for i in range(b))
+            reps = all(torch.equal(DEC.paged_attention_cuda(
+                q, kp, vp, table, qpos, d ** -0.5, **args), out)
+                for _ in range(20))
+            v1 = all(v1_equal)
+            ok = close and permuted and trailing and single and reps and v1 \
+                and bool(torch.isfinite(out).all())
             results.append(dict(case=name, shape=[b, l, h, hk, d, SERVE_PAGE],
                                 dtype=str(dtype).split(".")[-1],
                                 max_abs_err=err, tol=tol,
                                 permuted_pages_bitwise=permuted,
                                 trailing_nan_pages_bitwise=trailing,
                                 rows_alone_bitwise=single,
-                                reps20_bitwise=reps, ok=ok))
+                                reps20_bitwise=reps,
+                                v1_bitwise_launches=len(v1_equal),
+                                v1_bitwise=v1, ok=ok))
             if not ok:
                 failed.append(f"{name}/{dtype}")
     print("[kernel-check] paged " + json.dumps(results), flush=True)
@@ -1594,7 +1618,10 @@ def check_gemm():
     """The GEMM kernel against its plain version in bf16 (and fp32 on the
     up projection) at the serve path's widths, with an fp32 and a bf16
     output; each output row bitwise the same at every M of ``M_VALUES`` and
-    at another row position, plain and canonical mode."""
+    at another row position, plain and canonical mode; and every one of
+    these launches bitwise equal to the first design's
+    (``csrc/gemm_v1.cu``) on the same inputs. Prints the bf16 tile
+    (BN, BK) of each case: a function of K and N."""
     results, failed = [], []
     gen = torch.Generator(device="cuda").manual_seed(21)
     cases = [(c, torch.bfloat16) for c in GEMM_CASES] + [
@@ -1602,30 +1629,42 @@ def check_gemm():
     for (name, k, n, width), dtype in cases:
         x = _rand((max(M_VALUES), k), gen, dtype)
         w = _rand((k, n), gen, dtype, 0.02)
-        y = GEMM.matmul_cuda(x, w, shard_width=width)
+        v1_equal = []
+
+        def kernel(xm, out_dtype=None):
+            y = GEMM.matmul_cuda(xm, w, out_dtype, width)
+            v1_equal.append(torch.equal(
+                y, GEMM.matmul_v1(xm, w, out_dtype, width)))
+            return y
+        y = kernel(x)
         plain = GEMM.matmul_plain(x, w, shard_width=width)
         torch.cuda.synchronize()
         err = (y - plain).abs().max().item()
         close = torch.allclose(y, plain, atol=GEMM_TOL, rtol=GEMM_TOL)
-        rows_eq = {m: torch.equal(GEMM.matmul_cuda(x[:m].contiguous(), w,
-                                                   shard_width=width), y[:m])
+        rows_eq = {m: torch.equal(kernel(x[:m].contiguous()), y[:m])
                    for m in M_VALUES}
-        moved = GEMM.matmul_cuda(torch.cat([x[5:9], x[:1]]).contiguous(), w,
-                                 shard_width=width)
+        moved = kernel(torch.cat([x[5:9], x[:1]]).contiguous())
         at_row4 = torch.equal(moved[4], y[0])
         cast_err = None
         if dtype == torch.bfloat16:
-            yb = GEMM.matmul_cuda(x, w, out_dtype=torch.bfloat16,
-                                  shard_width=width)
+            yb = kernel(x, torch.bfloat16)
             cast_err = (yb.float() - y).abs().max().item()
             close &= torch.equal(yb, y.to(torch.bfloat16))
-        ok = close and all(rows_eq.values()) and at_row4
+            for m in M_VALUES:
+                kernel(x[:m].contiguous(), torch.bfloat16)
+        v1 = all(v1_equal)
+        ok = close and all(rows_eq.values()) and at_row4 and v1
         results.append(dict(case=name, k=k, n=n, shard_width=width,
-                            dtype=str(dtype).split(".")[-1], max_abs_err=err,
+                            dtype=str(dtype).split(".")[-1],
+                            tile_bn_bk=(GEMM.tile(k, n)
+                                        if dtype == torch.bfloat16 else None),
+                            max_abs_err=err,
                             tol=GEMM_TOL, bf16_out_max_abs_err=cast_err,
                             rows_bitwise_at_m={str(m): v
                                                for m, v in rows_eq.items()},
-                            row_moved_bitwise=at_row4, ok=ok))
+                            row_moved_bitwise=at_row4,
+                            v1_bitwise_launches=len(v1_equal),
+                            v1_bitwise=v1, ok=ok))
         if not ok:
             failed.append(f"{name}/{dtype}")
     print("[kernel-check] gemm " + json.dumps(results), flush=True)
@@ -1860,11 +1899,19 @@ def run_serve_continuous(label="serve-continuous"):
         logprobs_finite_nonpositive=finite,
         tokens_req0=[int(t) for t in results[0][:8]])
     print(f"[{label}] " + json.dumps(result), flush=True)
+    by_kernel = {k: sum(a.self_device_time_total for a in ops_
+                        if name in a.key) / 1e3
+                 for k, name in (("gemm", "gemm_bf16"),
+                                 ("paged_attention", "paged_attn"))}
     print(f"[{label}-profile] " + json.dumps(dict(
         step="one decode step over 4 live slots", wall_ms_traced=wall_ms,
-        device_busy_ms=busy_ms, busy_share=busy_ms / wall_ms,
-        device_ops=sum(a.count for a in ops_), top_device_ops=top)),
-        flush=True)
+        device_busy_ms=busy_ms, host_ms=wall_ms - busy_ms,
+        busy_share=busy_ms / wall_ms, device_ms_by_kernel=by_kernel,
+        step_ms_unprofiled=statistics.median(decode_ms),
+        unprofiled_step_beyond_device_ms=statistics.median(decode_ms)
+        - busy_ms,
+        device_ops=sum(a.count for a in ops_), top_device_ops=top,
+        first_design=FIRST_DESIGN_DECODE_STEP)), flush=True)
     if counts != want or any(flash.values()):
         raise AssertionError(f"the continuous run launched {counts} (flash "
                              f"{flash}), expected {want} and no flash kernel")
@@ -2002,6 +2049,18 @@ def bound_paged(qpos, hk, d, elt, q_bytes, window=None):
     return _bound(moved, 0, torch.bfloat16)
 
 
+def _turns_ms(new, old):
+    """``_queued_ms`` of a kernel and of its first design in turns (new,
+    old, old, new) in this call: the mean of each pair."""
+    a, b, c, d = (_queued_ms(fn) for fn in (new, old, old, new))
+    return (a + d) / 2, (b + c) / 2
+
+
+def _vs_v1(label, ms, v1_ms):
+    print(f"[timing] {label}: kernel {ms:.4f} ms, first design {v1_ms:.4f} "
+          f"ms, {v1_ms / ms:.2f}x", flush=True)
+
+
 @torch.inference_mode()
 def time_serve(serve, paged_check, gemm_check, rows_check):
     """The four serving kernels at the serve path's shapes (StableLM-1.6B,
@@ -2011,14 +2070,18 @@ def time_serve(serve, paged_check, gemm_check, rows_check):
     and the LM head beside it; the row norm at M=4; the row log-softmax at
     M=4 over the vocabulary. Each beside its plain version, its bound and
     one PyTorch call (SDPA over the ``gather_kv`` output, the gather
-    excluded; ``torch.matmul``; ``F.layer_norm``; ``torch.log_softmax``).
-    The kernel's and the library call's ``ms`` are ``_queued_ms`` (the calls
-    back to back on the card: the wrappers' host time, ~20 µs a call,
-    exceeds these kernels); ``event_ms`` beside them is ``_ms``, host
-    included. The plain versions synchronise inside, so they take ``_ms``."""
+    excluded, with a length mask at decode and a causal one for the prefill
+    chunk; ``torch.matmul``; ``F.layer_norm``; ``torch.log_softmax``); the
+    paged attention and the GEMM also beside their first designs
+    (``csrc/*_v1.cu``, in turns within this call, ``v1_ms``), whose bits
+    they must give at every timed shape. The kernel's and the library
+    call's ``ms`` are ``_queued_ms`` (the calls back to back on the card:
+    the wrappers' host time, ~20 µs a call, exceeds these kernels);
+    ``event_ms`` beside them is ``_ms``, host included. The plain versions
+    synchronise inside, so they take ``_ms``."""
     launches = serve["launches"]
     src = "src/repro_torch/kernels/csrc/"
-    entries = []
+    entries, not_v1 = [], []
     h, hk, d, dt = 32, 32, 64, torch.bfloat16
     ends = [[p - 1 + SERVE_GEN // 2] for p in serve["prompt_lens"][:4]]
     q, kp, vp, table, qpos, _ = _paged_inputs(4, 1, h, hk, d, dt, 31,
@@ -2027,8 +2090,16 @@ def time_serve(serve, paged_check, gemm_check, rows_check):
 
     def both(fn):
         return _queued_ms(fn), _ms(fn, reps=50)
-    ms, event_ms = both(lambda: DEC.paged_attention_cuda(q, kp, vp, table,
-                                                         qpos, scale))
+
+    def paged(fn, *a):
+        return lambda: fn(*a, scale)
+    args = (q, kp, vp, table, qpos)
+    if not torch.equal(DEC.paged_attention_cuda(*args, scale),
+                       DEC.paged_attention_v1(*args, scale)):
+        not_v1.append("paged decode")
+    ms, v1_ms = _turns_ms(paged(DEC.paged_attention_cuda, *args),
+                          paged(DEC.paged_attention_v1, *args))
+    event_ms = _ms(paged(DEC.paged_attention_cuda, *args), reps=50)
     plain_ms = _ms(lambda: DEC.paged_attention_plain(q, kp, vp, table, qpos,
                                                      scale), reps=2, rounds=3)
     s = int(qpos.max()) + 1
@@ -2047,19 +2118,39 @@ def time_serve(serve, paged_check, gemm_check, rows_check):
                "continuous engine: prefill chunks and decode steps (one per "
                "layer a step)", err, ms, plain_ms,
                bound_paged(qpos, hk, d, 2, q.numel() * 2), library_ms)
-    e.update(event_ms=event_ms, library_event_ms=library_event_ms,
+    _vs_v1("paged_attention decode (4, 1)", ms, v1_ms)
+    e.update(v1_ms=v1_ms, event_ms=event_ms,
+             library_event_ms=library_event_ms,
              library_note="SDPA over gather_kv's K/V (boolean length mask), "
              "the gather excluded")
     pq, pkp, pvp, ptable, pqpos, _ = _paged_inputs(
         1, SERVE_CHUNK, h, hk, d, dt, 32,
         positions=[list(range(480, 480 + SERVE_CHUNK))])
-    e.update(prefill_chunk_ms=_queued_ms(lambda: DEC.paged_attention_cuda(
-        pq, pkp, pvp, ptable, pqpos, scale)),
-        prefill_chunk_bound_ms=bound_paged(pqpos, hk, d, 2,
-                                           pq.numel() * 2)[0])
+    pargs = (pq, pkp, pvp, ptable, pqpos)
+    if not torch.equal(DEC.paged_attention_cuda(*pargs, scale),
+                       DEC.paged_attention_v1(*pargs, scale)):
+        not_v1.append("paged prefill chunk")
+    chunk_ms, chunk_v1_ms = _turns_ms(paged(DEC.paged_attention_cuda, *pargs),
+                                      paged(DEC.paged_attention_v1, *pargs))
+    ps_ = int(pqpos.max()) + 1
+    pkg = DEC.gather_kv(pkp, ptable, ps_).permute(0, 2, 1, 3)
+    pvg = DEC.gather_kv(pvp, ptable, ps_).permute(0, 2, 1, 3)
+    causal = (torch.arange(ps_, device="cuda")[None, :]
+              <= pqpos[0].long()[:, None])[None, None]   # (1, 1, L, S)
+    pqt = pq.permute(0, 2, 1, 3)
+    e.update(prefill_chunk_ms=chunk_ms, prefill_chunk_v1_ms=chunk_v1_ms,
+             prefill_chunk_library_ms=_queued_ms(
+                 lambda: F.scaled_dot_product_attention(
+                     pqt, pkg, pvg, attn_mask=causal, scale=scale)),
+             prefill_chunk_bound_ms=bound_paged(pqpos, hk, d, 2,
+                                                pq.numel() * 2)[0])
     print(f"[timing] paged_attention prefill chunk (1, {SERVE_CHUNK}): "
-          f"{e['prefill_chunk_ms']:.4f} ms, bound "
-          f"{e['prefill_chunk_bound_ms']:.4f} ms", flush=True)
+          f"{chunk_ms:.4f} ms, library "
+          f"{e['prefill_chunk_library_ms']:.4f} ms (SDPA, causal mask, the "
+          f"gather excluded), bound {e['prefill_chunk_bound_ms']:.4f} ms",
+          flush=True)
+    _vs_v1(f"paged_attention prefill chunk (1, {SERVE_CHUNK})", chunk_ms,
+           chunk_v1_ms)
     entries.append(e)
 
     gen = torch.Generator(device="cuda").manual_seed(33)
@@ -2067,12 +2158,18 @@ def time_serve(serve, paged_check, gemm_check, rows_check):
     def gemm_times(m, k, n, width):
         x = _rand((m, k), gen, dt)
         w = _rand((k, n), gen, dt, 0.02)
-        kernel = _queued_ms(lambda: GEMM.matmul_cuda(x, w,
-                                                     shard_width=width))
+        if not torch.equal(GEMM.matmul_cuda(x, w, shard_width=width),
+                           GEMM.matmul_v1(x, w, shard_width=width)):
+            not_v1.append(f"gemm M={m} K={k} N={n} shard {width}")
+        kernel, v1 = _turns_ms(
+            lambda: GEMM.matmul_cuda(x, w, shard_width=width),
+            lambda: GEMM.matmul_v1(x, w, shard_width=width))
         lib = _queued_ms(lambda: torch.matmul(x, w))
         bound = _bound((m * k + k * n) * 2 + m * n * 4, 2 * m * k * n, dt)
-        return x, w, kernel, lib, bound
-    x, w, ms, library_ms, bound = gemm_times(SERVE_SLOTS, 2048, 5632, 0)
+        _vs_v1(f"gemm M={m} K={k} N={n} shard {width}", kernel, v1)
+        return x, w, kernel, v1, lib, bound
+    x, w, ms, v1_ms, library_ms, bound = gemm_times(SERVE_SLOTS, 2048, 5632,
+                                                    0)
     event_ms = _ms(lambda: GEMM.matmul_cuda(x, w), reps=50)
     plain_ms = _ms(lambda: GEMM.matmul_plain(x, w), reps=2, rounds=3)
     err = max(c["max_abs_err"] for c in gemm_check
@@ -2082,19 +2179,25 @@ def time_serve(serve, paged_check, gemm_check, rows_check):
                ", src/repro/dist/fold.py:155)", launches["gemm"],
                "continuous engine: every projection (7 a layer + LM head a "
                "step)", err, ms, plain_ms, bound, library_ms)
-    e.update(event_ms=event_ms,
+    e.update(v1_ms=v1_ms, event_ms=event_ms,
              library_note="torch.matmul bf16 (cuBLAS), bf16 output")
     for name, m, k, n, width in (("prefill_w_up", SERVE_CHUNK, 2048, 5632, 0),
+                                 ("w_qkv", SERVE_SLOTS, 2048, 2048, 0),
+                                 ("wo_canonical", SERVE_SLOTS, 2048, 2048,
+                                  64),
                                  ("w_down_canonical", SERVE_SLOTS, 5632, 2048,
                                   176),
                                  ("lm_head", SERVE_SLOTS, 2048, 100352, 0)):
-        _, _, k_ms, l_ms, b = gemm_times(m, k, n, width)
-        e[name] = dict(m=m, k=k, n=n, shard_width=width, ms=k_ms,
+        _, _, k_ms, k_v1, l_ms, b = gemm_times(m, k, n, width)
+        e[name] = dict(m=m, k=k, n=n, shard_width=width, ms=k_ms, v1_ms=k_v1,
                        library_ms=l_ms, bound_ms=b[0], bound_by=b[1])
         print(f"[timing] gemm {name} M={m} K={k} N={n}: kernel {k_ms:.4f} ms"
               f", library {l_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]})",
               flush=True)
     entries.append(e)
+    if not_v1:
+        raise AssertionError(f"not bitwise the first design's at the timed "
+                             f"shapes: {not_v1}")
 
     xn = (_rand((SERVE_SLOTS, 2048), gen) * 3).to(dt)
     sc, bi = _rand((2048,), gen) + 1, _rand((2048,), gen)

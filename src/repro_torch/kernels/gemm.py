@@ -12,11 +12,17 @@ same bits whatever M is and wherever the row sits, and neither cuBLAS (which
 picks its kernel and split-K by M) nor ``torch.matmul`` on the CPU (whose
 blocking changes with M) gives that.
 
-CUDA tensors launch ``csrc/gemm.cu`` (one fixed tile, no split-K, bf16 on the
-tensor cores, fp32 on the CUDA cores); CPU tensors take
-:func:`matmul_plain`, whose row-invariant formulation is one ``(1, K) @
-(K, N)`` product per row (per row and shard in canonical mode), so a row's
-bits never depend on M there either.
+CUDA tensors launch ``csrc/gemm.cu``: bf16 on the tensor cores, each output
+one ``mma.sync`` chain over ascending K, no split-K; a CTA owns a strip of
+16-64 columns (:func:`tile`, a function of K and N, never of M) and streams
+its weights through a deep cp.async ring, its warps split over N; canonical
+mode restarts the chain at each shard and adds the shards' partials in
+ascending order. fp32 operands stay on the CUDA cores. Its first design,
+``csrc/gemm_v1.cu`` (one 64×32 tile, warps split over M), stays as its bit
+oracle: :func:`matmul_v1`, for ``chip_smoke.py`` and the gpu-marked tests
+only. CPU tensors take :func:`matmul_plain`, whose row-invariant formulation
+is one ``(1, K) @ (K, N)`` product per row (per row and shard in canonical
+mode), so a row's bits never depend on M there either.
 """
 from __future__ import annotations
 
@@ -69,22 +75,35 @@ def matmul_plain(x, w, out_dtype=None, shard_width: int = 0):
     return y if out_dtype is None else y.to(out_dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _lib():
-    fn = build.load("gemm").dash_gemm
+def _bind(fn):
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def matmul_cuda(x, w, out_dtype=None, shard_width: int = 0):
-    """Launch ``csrc/gemm.cu`` on PyTorch's current stream. Raises on
-    anything the kernel does not take: operands on different devices, of
-    different dtypes or other than bf16/fp32, not contiguous, bf16 with K or
-    ``shard_width`` not a multiple of 16 or N not a multiple of 8, a bf16
-    output of fp32 operands."""
-    global launches
+@functools.lru_cache(maxsize=None)
+def _lib():
+    return _bind(build.load("gemm").dash_gemm)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_v1():
+    return _bind(build.load("gemm_v1").dash_gemm)
+
+
+def tile(k: int, n: int):
+    """``(BN, BK)``: the bf16 tile ``csrc/gemm.cu`` launches for these
+    widths (a function of K and N, never of M)."""
+    fn = build.load("gemm").dash_gemm_tile
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = None
+    bn, bk = ctypes.c_int(), ctypes.c_int()
+    fn(k, n, ctypes.byref(bn), ctypes.byref(bk))
+    return bn.value, bk.value
+
+
+def _launch(fn, x, w, out_dtype, shard_width):
     _check(x, w, out_dtype, shard_width)
     if not (x.is_cuda and w.device == x.device):
         raise ValueError("matmul_cuda needs x and w on one CUDA device")
@@ -105,18 +124,37 @@ def matmul_cuda(x, w, out_dtype=None, shard_width: int = 0):
     out = torch.empty(x.shape[:-1] + (n,), dtype=out_dtype or F32,
                       device=x.device)
     if m == 0:
-        return out
+        return out, False
     if bf16 and (x.data_ptr() | w.data_ptr() | out.data_ptr()) % 16:
         raise ValueError("the bf16 kernel needs 16-byte aligned operands")
     with torch.cuda.device(x.device):
-        err = _lib()(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k,
-                     shard_width, int(bf16), int(out.dtype == torch.bfloat16),
-                     torch.cuda.current_stream().cuda_stream)
+        err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k,
+                 shard_width, int(bf16), int(out.dtype == torch.bfloat16),
+                 torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"gemm CUDA kernel failed to launch: cudaError "
                            f"{err}")
-    launches += 1
+    return out, True
+
+
+def matmul_cuda(x, w, out_dtype=None, shard_width: int = 0):
+    """Launch ``csrc/gemm.cu`` on PyTorch's current stream. Raises on
+    anything the kernel does not take: operands on different devices, of
+    different dtypes or other than bf16/fp32, not contiguous, bf16 with K or
+    ``shard_width`` not a multiple of 16 or N not a multiple of 8, a bf16
+    output of fp32 operands."""
+    global launches
+    out, launched = _launch(_lib(), x, w, out_dtype, shard_width)
+    launches += launched
     return out
+
+
+def matmul_v1(x, w, out_dtype=None, shard_width: int = 0):
+    """The kernel's first design, ``csrc/gemm_v1.cu``, kept as its bit
+    oracle: for every input :func:`matmul_cuda` must return these bits.
+    Only ``chip_smoke.py`` and the gpu-marked tests call it; it counts in no
+    launch counter."""
+    return _launch(_lib_v1(), x, w, out_dtype, shard_width)[0]
 
 
 def matmul(x, w, out_dtype=None, shard_width: int = 0):

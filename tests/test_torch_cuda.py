@@ -447,6 +447,61 @@ def test_gemm_kernel_matches_plain_and_rows_are_m_invariant(dtype, tol, width):
         gemm.matmul(x.t(), w[:64].contiguous())
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", [(4, 1, 8, 8, 64, 16, 8),     # decode
+                                   (1, 16, 8, 2, 64, 16, 8),    # prefill, GQA
+                                   (2, 3, 4, 4, 128, 8, 4),
+                                   (2, 5, 4, 2, 32, 8, 6),
+                                   (1, 20, 16, 2, 64, 5, 12)])  # 3 row tiles
+def test_paged_attention_kernel_gives_its_first_designs_bits(dtype, shape):
+    """csrc/paged_attn.cu against csrc/paged_attn_v1.cu on the same
+    inputs, bit for bit: plain, window, segment ids, trailing NaN pages; the
+    first design counts in no launch counter."""
+    _card()
+    from repro_torch.kernels import decode as D
+    b, l, h, hk, d, ps, n_pg = shape
+    q, kp, vp, table, qpos = _paged_case(b, l, h, hk, d, ps, n_pg,
+                                         getattr(torch, dtype), sum(shape))
+    seg = torch.randint(0, 2, (b, l), dtype=torch.int32, device="cuda")
+    kv_seg = torch.randint(0, 2, kp.shape[:2], dtype=torch.int32,
+                           device="cuda")
+    nan_k, nan_v = kp.clone(), vp.clone()
+    used = torch.zeros(kp.shape[0], dtype=torch.bool, device="cuda")
+    used[table.long().flatten()] = True
+    nan_k[~used], nan_v[~used] = float("nan"), float("nan")
+    spare = torch.nonzero(~used).flatten().to(torch.int32)
+    longer = torch.cat([table, spare[None].expand(b, -1)], 1).contiguous()
+    for kw in ({}, {"window": 5}, {"q_segments": seg, "kv_segments": kv_seg}):
+        for pools in ((kp, vp, table), (nan_k, nan_v, longer)):
+            before = D.launches
+            v1 = D.paged_attention_v1(q, *pools, qpos, d ** -0.5, **kw)
+            assert D.launches == before
+            assert torch.equal(D.paged_attention(q, *pools, qpos, **kw), v1)
+
+
+@pytest.mark.parametrize("k,n,width", [(256, 200, 0), (352, 200, 176),
+                                       (512, 4232, 64), (2048, 8448, 0),
+                                       (1536, 64, 1536), (256, 24, 16)])
+def test_gemm_kernel_gives_its_first_designs_bits(k, n, width):
+    """csrc/gemm.cu against csrc/gemm_v1.cu on the same bf16 inputs, bit
+    for bit, at every M from 1 to 70 and with an fp32 and a bf16 output
+    (tiles BN 16/32/64; canonical shards narrower and wider than a stage,
+    ending inside one); the first design counts in no launch counter."""
+    _card()
+    from repro_torch.kernels import gemm
+    gen = torch.Generator(device="cuda").manual_seed(k + n)
+    x = torch.randn((70, k), generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((k, n), generator=gen, device="cuda") * 0.05).to(
+        torch.bfloat16)
+    for m in range(1, 71):
+        xm = x[:m].contiguous()
+        for out_dtype in (None, torch.bfloat16):
+            before = gemm.launches
+            v1 = gemm.matmul_v1(xm, w, out_dtype, width)
+            assert gemm.launches == before
+            assert torch.equal(gemm.matmul(xm, w, out_dtype, width), v1), m
+
+
 def test_row_kernels_match_plain_and_rows_are_m_invariant():
     _card()
     from repro_torch.kernels import rows

@@ -12,6 +12,7 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 from repro_torch.launch import failures
 from repro_torch.launch import train as tlaunch
@@ -98,7 +99,10 @@ BASE = ["--reduced", "--device", "cpu", "--steps", "4", "--batch", "2",
 
 
 def _launch(args):
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    # the launcher's CPU reductions split by torch's intra-op threads, so a
+    # subprocess compared with an in-process run gets this process's count
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS=str(torch.get_num_threads()))
     return subprocess.run([sys.executable, "-m", "repro_torch.launch.train"]
                           + args, capture_output=True, text=True, env=env,
                           cwd=ROOT, timeout=300)
