@@ -32,10 +32,13 @@ Phases, each reported on its own line:
                permuted page table, trailing NaN pages, rows launched alone
                and 20 repetitions bitwise equal; the GEMM (plain and
                canonical, shard widths 64 and 176, StableLM's widths) and the
-               row norm and log-softmax against theirs, each row bitwise the
-               same at M = 1, 3, 4, 32, 64; every paged and GEMM launch of
-               these checks bitwise equal to the kernel's first design
-               (``csrc/{paged_attn,gemm}_v1.cu``) on the same inputs; and a
+               row norm (d = 2048, 5120, 8192) and log-softmax (V = 100352,
+               131072, 152064, 1000, 3089; rows with ties, +-inf, -1e30 and
+               NaNs) against theirs, each row bitwise the same at M = 1, 3,
+               4, 32, 64; every paged, GEMM and row launch of these checks
+               bitwise equal to the kernel's first design
+               (``csrc/{paged_attn,gemm,rows}_v1.cu``; the rows through
+               integer views, so NaNs compare) on the same inputs; and a
                printed finding: whether
                torch.matmul, F.layer_norm and torch.log_softmax give rows the
                same bits at M = 1, 4, 32 on this card;
@@ -110,9 +113,10 @@ Phases, each reported on its own line:
                serving kernels at the serve shapes (paged attention beside
                SDPA over the gathered K/V, the GEMM beside torch.matmul, the
                norm beside F.layer_norm, the log-softmax beside
-               torch.log_softmax), the paged attention and the GEMM also
-               beside their first designs in turns (``v1_ms``), bitwise
-               equal to them at every timed shape.
+               torch.log_softmax), each serving kernel also beside its
+               first design in turns (``v1_ms``), bitwise equal to it at
+               every timed shape (the norm also at a prefill chunk's M = 32,
+               the log-softmax at M = 1).
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script exits
 non-zero and prints no result; so does a machine without CUDA.
@@ -1673,57 +1677,132 @@ def check_gemm():
     return results
 
 
+_INT_VIEWS = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+
+
+def _bits(t):
+    """An integer view of a float tensor, so that equality compares bits
+    (a NaN included); other tensors as they are."""
+    return t.view(_INT_VIEWS[t.dtype]) if t.dtype in _INT_VIEWS else t
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and torch.equal(_bits(a), _bits(b))
+
+
+# the row checks' widths: StableLM-1.6B, Mistral-NeMo-12B and Qwen1.5-110B
+# (d; V), a vocabulary narrower than the log-softmax's 1024 chains, and one
+# that is no multiple of 4 (the kernel's 4-byte copies and stores)
+ROW_NORM_WIDTHS = (2048, 5120, 8192)
+ROW_VOCABS = (100352, 131072, 152064, 1000, 3089)
+
+
+def _special_logits(v, gen):
+    """(max(M_VALUES), V) fp32 logits, the first rows special: 1 the
+    sampled path's top-k mask (all but 40 entries -1e30) with a tie at the
+    maximum; 2 a tie at the maximum (indices 11 and 7V/10); 3 +inf at one
+    index and -inf at five; 4 a NaN inside a chain; 5 a NaN at index 0,
+    the head of chain 0; 6 -inf everywhere but one entry; 7 +inf at two
+    indices."""
+    x = _rand((max(M_VALUES), v), gen, scale=4.0)
+    keep = torch.randperm(v, generator=torch.Generator().manual_seed(v))[:40]
+    masked = torch.full((v,), -1e30, device="cuda")
+    masked[keep] = x[1, keep]
+    masked[keep[3]] = masked[keep[17]] = masked.max() + 1.0
+    x[1] = masked
+    x[2, 11] = x[2, 7 * v // 10] = x[2].max() + 1.0
+    x[3, v // 3] = float("inf")
+    x[3, [5, v // 7, v // 2, v - 9, v - 1]] = float("-inf")
+    x[4, v // 5 + 3] = float("nan")
+    x[5, 0] = float("nan")
+    x[6] = float("-inf")
+    x[6, v // 4] = 2.0
+    x[7, v // 6] = x[7, v - 2] = float("inf")
+    return x
+
+
 def check_rows():
-    """The row norm (LayerNorm and RMSNorm, bf16 and fp32, d=2048) and the
-    row log-softmax (fp32, V=100352, a tie at the maximum) against their
-    plain versions; each row bitwise the same at every M of ``M_VALUES``."""
+    """The row norm (LayerNorm and RMSNorm, bf16 and fp32, d = 2048, 5120,
+    8192) and the row log-softmax (fp32, V = 100352, 131072, 152064, 1000,
+    3089;
+    rows with ties at the maximum, +-inf, the top-k mask's -1e30 and NaNs)
+    against their plain versions; each row bitwise the same at every M of
+    ``M_VALUES``; and every launch of these checks bitwise equal to the
+    first design's (``csrc/rows_v1.cu``) on the same inputs, compared
+    through integer views so that NaNs compare too."""
     results, failed = [], []
     gen = torch.Generator(device="cuda").manual_seed(22)
-    d, v = 2048, 100352
-    scale = _rand((d,), gen) + 1.0
-    bias = _rand((d,), gen)
-    for dtype in (torch.bfloat16, torch.float32):
-        x = (_rand((max(M_VALUES), d), gen) * 3 + 1).to(dtype)
-        for kind, b in (("layernorm", bias), ("rmsnorm", None)):
-            y = ROWS.norm_cuda(x, scale, b)
-            plain = ROWS.norm_plain(x, scale, b)
-            torch.cuda.synchronize()
-            err = (y.float() - plain.float()).abs().max().item()
-            close = torch.allclose(y.float(), plain.float(),
-                                   atol=OUT_TOL[dtype], rtol=OUT_TOL[dtype])
-            rows_eq = {m: torch.equal(ROWS.norm_cuda(x[:m].contiguous(),
-                                                     scale, b), y[:m])
-                       for m in M_VALUES}
-            ok = close and all(rows_eq.values())
-            results.append(dict(kernel="norm", case=kind, d=d,
-                                dtype=str(dtype).split(".")[-1],
-                                max_abs_err=err, tol=OUT_TOL[dtype],
-                                rows_bitwise_at_m={str(m): e for m, e in
-                                                   rows_eq.items()}, ok=ok))
-            if not ok:
-                failed.append(f"norm/{kind}/{dtype}")
-    logits = _rand((max(M_VALUES), v), gen, scale=4.0)
-    logits[2, 11] = logits[2, 70000] = logits[2].max() + 1.0
-    lp, arg = ROWS.log_softmax_argmax_cuda(logits)
-    plp, parg = ROWS.log_softmax_argmax_plain(logits)
-    torch.cuda.synchronize()
-    err = (lp - plp).abs().max().item()
-    rows_eq = {}
-    for m in M_VALUES:
-        sub, sub_arg = ROWS.log_softmax_argmax_cuda(logits[:m].contiguous())
-        rows_eq[m] = torch.equal(sub, lp[:m]) and torch.equal(sub_arg, arg[:m])
-    ok = (torch.allclose(lp, plp, atol=OUT_TOL[torch.float32],
-                         rtol=OUT_TOL[torch.float32])
-          and torch.equal(arg, parg) and int(arg[2]) == 11
-          and all(rows_eq.values()))
-    results.append(dict(kernel="log_softmax", v=v, dtype="float32",
-                        max_abs_err=err, tol=OUT_TOL[torch.float32],
-                        argmax_equal=torch.equal(arg, parg),
-                        tie_to_lowest_id=int(arg[2]) == 11,
-                        rows_bitwise_at_m={str(m): e for m, e in
-                                           rows_eq.items()}, ok=ok))
-    if not ok:
-        failed.append("log_softmax")
+    for d in ROW_NORM_WIDTHS:
+        scale = _rand((d,), gen) + 1.0
+        bias = _rand((d,), gen)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = (_rand((max(M_VALUES), d), gen) * 3 + 1).to(dtype)
+            for kind, b in (("layernorm", bias), ("rmsnorm", None)):
+                v1_equal = []
+
+                def kernel(xm, b=b):
+                    y = ROWS.norm_cuda(xm, scale, b)
+                    v1_equal.append(_same_bits(y, ROWS.norm_v1(xm, scale, b)))
+                    return y
+                y = kernel(x)
+                plain = ROWS.norm_plain(x, scale, b)
+                torch.cuda.synchronize()
+                err = (y.float() - plain.float()).abs().max().item()
+                close = torch.allclose(y.float(), plain.float(),
+                                       atol=OUT_TOL[dtype],
+                                       rtol=OUT_TOL[dtype])
+                rows_eq = {m: _same_bits(kernel(x[:m].contiguous()), y[:m])
+                           for m in M_VALUES}
+                v1 = all(v1_equal)
+                ok = close and all(rows_eq.values()) and v1
+                results.append(dict(kernel="norm", case=kind, d=d,
+                                    dtype=str(dtype).split(".")[-1],
+                                    max_abs_err=err, tol=OUT_TOL[dtype],
+                                    rows_bitwise_at_m={
+                                        str(m): e for m, e in rows_eq.items()},
+                                    v1_bitwise_launches=len(v1_equal),
+                                    v1_bitwise=v1, ok=ok))
+                if not ok:
+                    failed.append(f"norm/{kind}/d={d}/{dtype}")
+    for v in ROW_VOCABS:
+        logits = _special_logits(v, gen)
+        v1_equal = []
+
+        def kernel(xm):
+            lp_, arg_ = ROWS.log_softmax_argmax_cuda(xm)
+            ref, ref_arg = ROWS.log_softmax_argmax_v1(xm)
+            v1_equal.append(_same_bits(lp_, ref) and torch.equal(arg_,
+                                                                 ref_arg))
+            return lp_, arg_
+        lp, arg = kernel(logits)
+        plp, parg = ROWS.log_softmax_argmax_plain(logits)
+        torch.cuda.synchronize()
+        both = torch.isfinite(lp) & torch.isfinite(plp)
+        err = (lp - plp)[both].abs().max().item()
+        # torch.argmax takes a NaN as the maximum; the kernel's chains pass
+        # over a NaN unless it heads one: rows 4 and 5 are held to v1 only
+        no_nan = [i for i in range(logits.shape[0]) if i not in (4, 5)]
+        close = torch.allclose(lp, plp, atol=OUT_TOL[torch.float32],
+                               rtol=OUT_TOL[torch.float32], equal_nan=True)
+        arg_equal = torch.equal(arg[no_nan], parg[no_nan])
+        tie = int(arg[2]) == 11
+        rows_eq = {}
+        for m in M_VALUES:
+            sub, sub_arg = kernel(logits[:m].contiguous())
+            rows_eq[m] = (_same_bits(sub, lp[:m])
+                          and torch.equal(sub_arg, arg[:m]))
+        v1 = all(v1_equal)
+        ok = close and arg_equal and tie and all(rows_eq.values()) and v1
+        results.append(dict(kernel="log_softmax", v=v, dtype="float32",
+                            max_abs_err=err, tol=OUT_TOL[torch.float32],
+                            argmax_equal=arg_equal, tie_to_lowest_id=tie,
+                            argmax_special_rows=[int(a) for a in arg[1:8]],
+                            rows_bitwise_at_m={str(m): e for m, e in
+                                               rows_eq.items()},
+                            v1_bitwise_launches=len(v1_equal),
+                            v1_bitwise=v1, ok=ok))
+        if not ok:
+            failed.append(f"log_softmax/V={v}")
     print("[kernel-check] rows " + json.dumps(results), flush=True)
     if failed:
         raise AssertionError(f"the row kernels failed their checks in "
@@ -1902,7 +1981,9 @@ def run_serve_continuous(label="serve-continuous"):
     by_kernel = {k: sum(a.self_device_time_total for a in ops_
                         if name in a.key) / 1e3
                  for k, name in (("gemm", "gemm_bf16"),
-                                 ("paged_attention", "paged_attn"))}
+                                 ("paged_attention", "paged_attn"),
+                                 ("row_norm", "row_norm"),
+                                 ("row_log_softmax", "row_log_softmax"))}
     print(f"[{label}-profile] " + json.dumps(dict(
         step="one decode step over 4 live slots", wall_ms_traced=wall_ms,
         device_busy_ms=busy_ms, host_ms=wall_ms - busy_ms,
@@ -2068,13 +2149,14 @@ def time_serve(serve, paged_check, gemm_check, rows_check):
     serving run) and a prefill chunk; the GEMM at the decode shape (M=4)
     of the up projection, with the prefill chunk (M=32), canonical w_down
     and the LM head beside it; the row norm at M=4; the row log-softmax at
-    M=4 over the vocabulary. Each beside its plain version, its bound and
-    one PyTorch call (SDPA over the ``gather_kv`` output, the gather
-    excluded, with a length mask at decode and a causal one for the prefill
-    chunk; ``torch.matmul``; ``F.layer_norm``; ``torch.log_softmax``); the
-    paged attention and the GEMM also beside their first designs
-    (``csrc/*_v1.cu``, in turns within this call, ``v1_ms``), whose bits
-    they must give at every timed shape. The kernel's and the library
+    M=4 over the vocabulary, with the norm at the prefill chunk (M=32) and
+    the log-softmax at M=1 beside them. Each beside its plain version, its
+    bound and one PyTorch call (SDPA over the ``gather_kv`` output, the
+    gather excluded, with a length mask at decode and a causal one for the
+    prefill chunk; ``torch.matmul``; ``F.layer_norm``;
+    ``torch.log_softmax``), and beside its first design (``csrc/*_v1.cu``,
+    in turns within this call, ``v1_ms``), whose bits it must give at every
+    timed shape. The kernel's and the library
     call's ``ms`` are ``_queued_ms`` (the calls back to back on the card:
     the wrappers' host time, ~20 µs a call, exceeds these kernels);
     ``event_ms`` beside them is ``_ms``, host included. The plain versions
@@ -2199,41 +2281,79 @@ def time_serve(serve, paged_check, gemm_check, rows_check):
         raise AssertionError(f"not bitwise the first design's at the timed "
                              f"shapes: {not_v1}")
 
-    xn = (_rand((SERVE_SLOTS, 2048), gen) * 3).to(dt)
+    # the row kernels beside their first design, in turns, at the decode
+    # shape and one other: the norm at a prefill chunk's M, the
+    # log-softmax at one row (a lone request's decode step)
     sc, bi = _rand((2048,), gen) + 1, _rand((2048,), gen)
-    ms, event_ms = both(lambda: ROWS.norm_cuda(xn, sc, bi))
-    plain_ms = _ms(lambda: ROWS.norm_plain(xn, sc, bi), reps=5)
     sc16, bi16 = sc.to(dt), bi.to(dt)
-    library_ms, library_event_ms = both(lambda: F.layer_norm(
-        xn, (2048,), sc16, bi16))
+
+    def norm_times(m):
+        xn = (_rand((m, 2048), gen) * 3).to(dt)
+        if not _same_bits(ROWS.norm_cuda(xn, sc, bi),
+                          ROWS.norm_v1(xn, sc, bi)):
+            not_v1.append(f"norm M={m}")
+        kernel, v1 = _turns_ms(lambda: ROWS.norm_cuda(xn, sc, bi),
+                               lambda: ROWS.norm_v1(xn, sc, bi))
+        lib = both(lambda: F.layer_norm(xn, (2048,), sc16, bi16))
+        bound = _bound(2 * xn.numel() * 2 + 2 * 2048 * 4, 0, dt)
+        _vs_v1(f"row_norm ({m}, 2048) bf16 layernorm", kernel, v1)
+        return xn, kernel, v1, lib, bound
+    xn, ms, v1_ms, (library_ms, library_event_ms), bound = norm_times(
+        SERVE_SLOTS)
+    event_ms = _ms(lambda: ROWS.norm_cuda(xn, sc, bi), reps=50)
+    plain_ms = _ms(lambda: ROWS.norm_plain(xn, sc, bi), reps=5)
     err = max(c["max_abs_err"] for c in rows_check if c["kernel"] == "norm"
-              and c["dtype"] == "bfloat16")
+              and c["dtype"] == "bfloat16" and c["d"] == 2048)
     e = _entry("row_norm", src + "rows.cu",
                "no TPU kernel: XLA reduction (src/repro/models/layers.py:44)",
                launches["row_norm"],
                "continuous engine: ln1, ln2 a layer and ln_f a step", err,
-               ms, plain_ms,
-               _bound(2 * xn.numel() * 2 + 2 * 2048 * 4, 0, dt), library_ms)
-    e.update(event_ms=event_ms, library_event_ms=library_event_ms,
+               ms, plain_ms, bound, library_ms)
+    e.update(v1_ms=v1_ms, event_ms=event_ms,
+             library_event_ms=library_event_ms,
              library_note="F.layer_norm with bf16 weight and bias")
+    _, k_ms, k_v1, (l_ms, _), b = norm_times(SERVE_CHUNK)
+    e["prefill_chunk"] = dict(m=SERVE_CHUNK, d=2048, ms=k_ms, v1_ms=k_v1,
+                              library_ms=l_ms, bound_ms=b[0], bound_by=b[1])
+    print(f"[timing] row_norm ({SERVE_CHUNK}, 2048): kernel {k_ms:.4f} ms, "
+          f"library {l_ms:.4f} ms, bound {b[0]:.4f} ms", flush=True)
     entries.append(e)
 
-    lg = _rand((SERVE_SLOTS, 100352), gen, scale=4.0)
-    ms, event_ms = both(lambda: ROWS.log_softmax_argmax_cuda(lg))
+    def lsm_times(m):
+        lg = _rand((m, 100352), gen, scale=4.0)
+        got, ref = (ROWS.log_softmax_argmax_cuda(lg),
+                    ROWS.log_softmax_argmax_v1(lg))
+        if not (_same_bits(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+            not_v1.append(f"log_softmax M={m}")
+        kernel, v1 = _turns_ms(lambda: ROWS.log_softmax_argmax_cuda(lg),
+                               lambda: ROWS.log_softmax_argmax_v1(lg))
+        lib = both(lambda: torch.log_softmax(lg, -1))
+        bound = _bound(2 * lg.numel() * 4 + m * 8, 0, torch.float32)
+        _vs_v1(f"row_log_softmax ({m}, 100352)", kernel, v1)
+        return lg, kernel, v1, lib, bound
+    lg, ms, v1_ms, (library_ms, library_event_ms), bound = lsm_times(
+        SERVE_SLOTS)
+    event_ms = _ms(lambda: ROWS.log_softmax_argmax_cuda(lg), reps=50)
     plain_ms = _ms(lambda: ROWS.log_softmax_argmax_plain(lg), reps=5)
-    library_ms, library_event_ms = both(lambda: torch.log_softmax(lg, -1))
     err = next(c["max_abs_err"] for c in rows_check
-               if c["kernel"] == "log_softmax")
+               if c["kernel"] == "log_softmax" and c["v"] == 100352)
     e = _entry(
         "row_log_softmax", src + "rows.cu",
         "no TPU kernel: XLA log_softmax/argmax "
-        "(src/repro/serve/engine.py:114)", launches["row_log_softmax"],
+        "(src/repro/serve/engine.py:128-130)", launches["row_log_softmax"],
         "continuous engine sampler: one a decode step and a first token",
-        err, ms, plain_ms,
-        _bound(2 * lg.numel() * 4 + SERVE_SLOTS * 8, 0, torch.float32),
-        library_ms)
-    e.update(event_ms=event_ms, library_event_ms=library_event_ms)
+        err, ms, plain_ms, bound, library_ms)
+    e.update(v1_ms=v1_ms, event_ms=event_ms,
+             library_event_ms=library_event_ms)
+    _, k_ms, k_v1, (l_ms, _), b = lsm_times(1)
+    e["one_row"] = dict(m=1, v=100352, ms=k_ms, v1_ms=k_v1, library_ms=l_ms,
+                        bound_ms=b[0], bound_by=b[1])
+    print(f"[timing] row_log_softmax (1, 100352): kernel {k_ms:.4f} ms, "
+          f"library {l_ms:.4f} ms, bound {b[0]:.4f} ms", flush=True)
     entries.append(e)
+    if not_v1:
+        raise AssertionError(f"not bitwise the first design's at the timed "
+                             f"shapes: {not_v1}")
     return entries
 
 

@@ -529,6 +529,66 @@ def test_row_kernels_match_plain_and_rows_are_m_invariant():
         assert torch.equal(sub, lp[:m]) and torch.equal(sub_arg, arg[:m])
 
 
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t.view(
+        torch.int16)
+
+
+@pytest.mark.parametrize("d", [384, 8192])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_row_norm_gives_its_first_designs_bits(d, dtype):
+    """csrc/rows.cu's norm against csrc/rows_v1.cu's on the same inputs,
+    bit for bit, LayerNorm and RMSNorm at M = 1, 3, 4; only the new kernel
+    counts its launches; a row wider than 8192 is refused."""
+    _card()
+    from repro_torch.kernels import rows
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    x = (torch.randn((4, d), generator=gen, device="cuda") * 3 + 1).to(
+        getattr(torch, dtype))
+    scale = torch.randn(d, generator=gen, device="cuda") + 1
+    bias = torch.randn(d, generator=gen, device="cuda")
+    for b in (bias, None):
+        for m in (1, 3, 4):
+            xm = x[:m].contiguous()
+            before = rows.launches_norm
+            v1 = rows.norm_v1(xm, scale, b)
+            assert rows.launches_norm == before
+            y = rows.norm_cuda(xm, scale, b)
+            assert rows.launches_norm == before + 1
+            assert torch.equal(_bits(y), _bits(v1)), (m, b is None)
+    wide = torch.zeros((1, 8193), device="cuda")
+    with pytest.raises(ValueError, match="8192"):
+        rows.norm_cuda(wide, torch.ones(8193, device="cuda"))
+
+
+@pytest.mark.parametrize("v", [1000, 1024 * 3 + 17])
+def test_row_log_softmax_gives_its_first_designs_bits(v):
+    """csrc/rows.cu's cluster log-softmax against csrc/rows_v1.cu's one-CTA
+    kernel on the same logits, bit for bit through integer views (NaN
+    included), at M = 1, 3, 4: a tie at the maximum, +-inf, the top-k
+    mask's -1e30, a NaN heading chain 0 and one inside a chain; only the new
+    kernel counts its launches."""
+    _card()
+    from repro_torch.kernels import rows
+    gen = torch.Generator(device="cuda").manual_seed(v)
+    x = torch.randn((8, v), generator=gen, device="cuda") * 4
+    x[1, 11] = x[1, 600] = x[1].max() + 1
+    x[2, v // 3] = float("inf")
+    x[2, [5, v - 1]] = float("-inf")
+    x[3, :] = -1e30
+    x[3, [7, v // 2]] = 1.5
+    x[5, 0] = float("nan")
+    x[6, v - 4] = float("nan")
+    for rows_at in ([0, 1, 2, 3], [5, 6, 7], [4], [1, 2, 3, 5]):
+        xm = x[rows_at].contiguous()
+        before = rows.launches_log_softmax
+        lp1, arg1 = rows.log_softmax_argmax_v1(xm)
+        assert rows.launches_log_softmax == before
+        lp, arg = rows.log_softmax_argmax_cuda(xm)
+        assert rows.launches_log_softmax == before + 1
+        assert torch.equal(_bits(lp), _bits(lp1)) and torch.equal(arg, arg1)
+
+
 @torch.inference_mode()
 def test_reduced_continuous_engine_on_the_card():
     """The reduced StableLM through the continuous engine on the card: a

@@ -5,12 +5,14 @@ of a chunk first, then each row's running max over the chunk's pages, then
 p, each page's sum p and p·v, then the carry ``(l, acc)`` in ascending page
 order. ``csrc/gemm.cu`` computes the canonical fold's shard partials
 independently, several at once, and adds them onto the running sum in
-ascending shard order. Neither kernel runs here, so each reformulation is a
+ascending shard order. ``csrc/rows.cu`` spreads the row log-softmax's
+1024 chains over a cluster of CTAs, several threads a chain, and gathers
+the warp partials across the cluster. No kernel runs here, so each reformulation is a
 test-local model written with the same elementwise torch ops as the plain
-version it must equal bit for bit (fp32): the models show that the new order
-of the work leaves every row's arithmetic as the plain walk has it. The
-kernels themselves are held against their first designs bit for bit on the
-card (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
+version (or the first design's tree) it must equal bit for bit (fp32): the
+models show that the new order of the work leaves every row's arithmetic
+as it was. The kernels themselves are held against their first designs bit
+for bit on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
 import numpy as np
 import pytest
 import torch
@@ -231,3 +233,222 @@ def test_independent_shards_folded_ascending_equal_plain_bitwise(
         desc = desc + torch.cat([xf[i:i + 1, s:s + width] @ wf[s:s + width]
                                  for i in range(m)])
     assert not torch.equal(desc, plain)
+
+
+# ------------------------------------------- the row log-softmax's cluster
+# csrc/rows_v1.cu takes a row's log-softmax and argmax in one CTA of 1024
+# chains (chain t: i = t, t + 1024, ... ascending), a xor butterfly in each
+# warp of 32 chains, and the 32 warp partials folded from empty (sums from
+# 0) in ascending order. csrc/rows.cu spreads the chains over a cluster of C
+# CTAs with H threads a chain: a chain's argmax as H interleaved sub-chains
+# joined in order, the warp partials pushed to every CTA and the argmax's
+# fold taken as a butterfly over them (warp 0's NaN kept). The models below
+# write both with the same elementwise fp32 torch ops, vectorised over the
+# 1024 chains; the exps are one tensor both read, since the kernel's order
+# of work leaves each element's exp as it was.
+CHAINS = 1024
+MINUS_INF = float("-inf")
+
+
+def _arg_better(v, i, v2, i2):
+    """rows_v1.cu's rule: the larger value, the lower index on ties, an
+    index < 0 empty (a NaN compares false: taken only into an empty
+    pair)."""
+    take = (i2 >= 0) & ((i < 0) | (v2 > v) | ((v2 == v) & (i2 < i)))
+    return torch.where(take, v2, v), torch.where(take, i2, i)
+
+
+def _chain_grid(x):
+    """Row x (V,) as (n_max, 1024): element [k, t] = x[t + 1024 k], its
+    index, and whether it exists."""
+    v = x.numel()
+    n_max = -(-v // CHAINS)
+    grid = torch.zeros(n_max * CHAINS, dtype=F32)
+    grid[:v] = x
+    idx = torch.arange(n_max * CHAINS, dtype=torch.int64)
+    return (grid.view(n_max, CHAINS), idx.view(n_max, CHAINS),
+            (idx < v).view(n_max, CHAINS))
+
+
+def _butterfly(vals, combine):
+    """Each warp of 32 lanes' xor butterfly (16, 8, 4, 2, 1), every lane
+    reading its partner's value of the step before."""
+    lanes = torch.arange(CHAINS)
+    for o in (16, 8, 4, 2, 1):
+        partner = lanes ^ o
+        vals = combine(vals, tuple(t[partner] for t in vals))
+    return vals
+
+
+def _lane0(t):
+    return t.view(-1, 32)[:, 0]
+
+
+def _exps(grid, mx):
+    return torch.exp(grid - mx)
+
+
+def log_softmax_one_cta(x):
+    """rows_v1.cu's tree: (log-softmax (V,), argmax)."""
+    grid, idx, valid = _chain_grid(x)
+    v = torch.full((CHAINS,), MINUS_INF)
+    i = torch.full((CHAINS,), -1, dtype=torch.int64)
+    for k in range(grid.shape[0]):
+        v, i = _arg_better(v, i, grid[k], torch.where(valid[k], idx[k], -1))
+    v, i = _butterfly((v, i), lambda a, b: _arg_better(*a, *b))
+    mx, mi = torch.tensor(MINUS_INF), torch.tensor(-1)
+    for pv, pi in zip(_lane0(v), _lane0(i)):
+        mx, mi = _arg_better(mx, mi, pv, pi)
+    e = _exps(grid, mx)
+    s = torch.zeros(CHAINS, dtype=F32)
+    for k in range(grid.shape[0]):
+        s = torch.where(valid[k], s + e[k], s)
+    (s,) = _butterfly((s,), lambda a, b: (a[0] + b[0],))
+    tot = torch.zeros((), dtype=F32)
+    for p in _lane0(s):
+        tot = tot + p
+    return (x - mx) - torch.log(tot), int(mi)
+
+
+def log_softmax_cluster(x, c, h):
+    """rows.cu's order of the work, a cluster of ``c`` CTAs with ``h``
+    threads a chain: (log-softmax (V,), argmax, the max each CTA folds)."""
+    grid, idx, valid = _chain_grid(x)
+    subs = []
+    for q in range(h):
+        v = torch.full((CHAINS,), MINUS_INF)
+        i = torch.full((CHAINS,), -1, dtype=torch.int64)
+        for k in range(q, grid.shape[0], h):
+            if k == 0:              # the head, whatever it holds
+                take = valid[0]
+            else:                   # a strictly larger value
+                take = valid[k] & (grid[k] > v)
+            v, i = torch.where(take, grid[k], v), torch.where(take, idx[k], i)
+        subs.append((v, i))
+    v, i = subs[0]
+    for sv, si in subs[1:]:
+        v, i = _arg_better(v, i, sv, si)
+    v, i = _butterfly((v, i), lambda a, b: _arg_better(*a, *b))
+    # the partials pushed by CTA r's warps land in slot w of every CTA:
+    # gathered CTA by CTA, warp by warp, i.e. in ascending warp order
+    per_cta = CHAINS // c // 32
+    order = [r * per_cta + w for r in range(c) for w in range(per_cta)]
+    pv, pi = _lane0(v)[order], _lane0(i)[order]
+    # each CTA's fold: warp 0's partial if a NaN, else a butterfly over
+    # the partials with the NaNs emptied
+    nan = torch.isnan(pv)
+    tv = torch.where(nan, MINUS_INF, pv)
+    ti = torch.where(nan, -1, pi)
+    lanes = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        tv, ti = _arg_better(tv, ti, tv[lanes ^ o], ti[lanes ^ o])
+    maxes = [(pv[0], pi[0]) if nan[0] else (tv[lane], ti[lane])
+             for lane in range(32)]
+    mx, mi = maxes[0]
+    e = _exps(grid, mx)
+    s = torch.zeros(CHAINS, dtype=F32)
+    for k in range(grid.shape[0]):      # the owner's ascending adds
+        s = torch.where(valid[k], s + e[k], s)
+    (s,) = _butterfly((s,), lambda a, b: (a[0] + b[0],))
+    tot = torch.zeros((), dtype=F32)
+    for p in _lane0(s)[order]:
+        tot = tot + p
+    return (x - mx) - torch.log(tot), int(mi), maxes
+
+
+def _special_row(v, kind, rng):
+    """A row of ``v`` fp32 logits: random, or with the sampler's hard
+    cases."""
+    x = torch.from_numpy((rng.randn(v) * 4).astype(np.float32))
+    top = float(x.max()) + 1.0
+    if kind == "tie":
+        x[11] = x[7 * v // 10] = top
+    elif kind == "topk_mask":               # engine.py's -1e30 mask
+        keep = torch.from_numpy(rng.permutation(v)[:40])
+        m = torch.full((v,), -1e30)
+        m[keep] = x[keep]
+        m[keep[3]] = m[keep[17]] = top
+        x = m
+    elif kind == "inf":
+        x[v // 3] = x[v - 2] = float("inf")
+        x[[5, v // 7, v - 1]] = MINUS_INF
+    elif kind == "neg_inf":
+        x[:] = MINUS_INF
+        x[v // 4] = 2.0
+    elif kind == "nan_head":                # the head of chain 0
+        x[0] = float("nan")
+    elif kind == "nan_warp_head":           # heads warp 2's chain 64
+        x[64] = float("nan")
+    elif kind == "nan_inside":
+        x[min(v - 1, 3 * CHAINS + 5)] = float("nan")
+    elif kind == "signed_zero":             # max 0 as -0.0 and +0.0
+        x = -x.abs() - 1.0
+        x[100], x[50], x[v - 3] = -0.0, 0.0, -0.0
+    return x
+
+
+ROW_KINDS = ["random", "tie", "topk_mask", "inf", "neg_inf", "nan_head",
+             "nan_warp_head", "nan_inside", "signed_zero"]
+
+
+def _bits(t):
+    return t.view(torch.int32)
+
+
+@pytest.mark.parametrize("c", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("v", [1000, 100352, 131072, 152064])
+def test_cluster_log_softmax_equals_one_cta_tree_bitwise(v, c):
+    rng = np.random.RandomState(v + c)
+    for kind in ROW_KINDS:
+        x = _special_row(v, kind, rng)
+        want, want_arg = log_softmax_one_cta(x)
+        for h in (1, 4, 8):
+            got, got_arg, maxes = log_softmax_cluster(x, c, h)
+            assert torch.equal(_bits(got), _bits(want)), (kind, h)
+            assert got_arg == want_arg, (kind, h)
+            # every CTA (every lane of the fold) finds the same max
+            assert all(torch.equal(_bits(m[0]), _bits(maxes[0][0]))
+                       and int(m[1]) == int(maxes[0][1]) for m in maxes)
+    # and the rules are what fix the bits: emptying warp 0's NaN like the
+    # others' moves the argmax of the NaN-headed row, and the sums folded
+    # in descending warp order give another row for some random row
+    x = _special_row(v, "nan_head", rng)
+    grid, idx, valid = _chain_grid(x)
+    _, want_arg = log_softmax_one_cta(x)
+    finite = torch.where(torch.isnan(x), MINUS_INF, x)
+    assert want_arg == 0 and int(torch.argmax(finite)) != 0
+    sums = []
+    for _ in range(4):
+        grid, _, valid = _chain_grid(_special_row(v, "random", rng))
+        e = _exps(grid, grid.max())
+        s = torch.zeros(CHAINS, dtype=F32)
+        for k in range(grid.shape[0]):
+            s = torch.where(valid[k], s + e[k], s)
+        sums.append(_lane0(_butterfly((s,), lambda a, b: (a[0] + b[0],))[0]))
+    asc, desc = [], []
+    for parts in sums:
+        a_ = d_ = torch.zeros((), dtype=F32)
+        for p_ in parts:
+            a_ = a_ + p_
+        for p_ in reversed(parts):
+            d_ = d_ + p_
+        asc.append(a_)
+        desc.append(d_)
+    assert not torch.equal(torch.stack(asc), torch.stack(desc))
+
+
+@pytest.mark.parametrize("v", [1000, 100352, 131072, 152064])
+def test_cluster_log_softmax_model_matches_plain(v):
+    """The model's log-softmax against the plain version the CPU path runs
+    (itself held to ``jax.nn.log_softmax`` in test_torch_fold.py), fp32
+    2e-5; the argmax equal on rows without a NaN."""
+    from repro_torch.kernels import rows
+    rng = np.random.RandomState(v)
+    for kind in ROW_KINDS:
+        x = _special_row(v, kind, rng)
+        got, got_arg, _ = log_softmax_cluster(x, 16, 4)
+        plain, plain_arg = rows.log_softmax_argmax_plain(x[None])
+        torch.testing.assert_close(got, plain[0], atol=2e-5, rtol=2e-5,
+                                   equal_nan=True)
+        if not torch.isnan(x).any():
+            assert got_arg == int(plain_arg[0]), kind
