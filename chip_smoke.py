@@ -64,8 +64,9 @@ Phases, each reported on its own line:
                subsets and slots; prefill logits bitwise across chunks and
                within 0.1 of the plain attention's;
   5. train   — train StableLM-1.6B at full width and depth (bf16, AdamW,
-               remat, causal, B=4, S=1024, 3 steps, warmup 1) through the
-               DASH kernels, twice from seed 0 under
+               remat, causal, B=4, S=1024, 3 steps, warmup 1, ``--tune sim``,
+               which prints the tuner's pick and changes nothing else) through
+               the DASH kernels, twice from seed 0 under
                ``torch.use_deterministic_algorithms``: equal state digests
                after every step, weights that move, the launch counts remat
                predicts, step 1 against the plain attention's step, then one
@@ -105,7 +106,27 @@ Phases, each reported on its own line:
                forward, step 1 and every layer's attention grads against the
                plain masked, query-chunked attention's step, then one
                profiled step;
- 11. timing  — each kernel at its training slice's attention shape beside
+ 11. tune    — the tuner (``repro_torch.tune``) in measure mode over every
+               legal candidate (schedule family x worker-parallel or
+               serialized), the runner one synchronized ``dash_attention``
+               fwd + bwd in bf16: at the training slice's shape, the paper's
+               §4.1 shapes (16384 tokens, hidden 2048 as 32 heads of 64 or 16
+               of 128, S = 1024, 4096, 16384, full and causal) and the
+               1024-token window at S=4096; one line per candidate (modeled
+               makespan x B·H, measured host and device ms, their ratio) and
+               whether the measured winner is the modeled one. Checks: a
+               second call is a cache hit on the same candidate;
+               ``dash_attention(tune=True)`` equals the hand-picked call bit
+               for bit; ``cached_block_schedule(tune=True)`` is the picked
+               placement's schedule and the kernels run on it equal the op; a
+               fresh process with an empty cache makes this process's sim
+               picks; ``kernels/smem.py``'s footprints equal the libraries'
+               shared memory for every (head dim, dtype); every kernel of the
+               path launched. Then ``launch/train.py --arch dash-paper --tune
+               measure --batch 16 --seq 1024 --steps 3`` as the train phase
+               runs it, twice: equal digest chains and the launches one layer
+               predicts;
+ 12. timing  — each kernel at its training slice's attention shape beside
                its plain version, the PyTorch library call for the same
                function where there is one (for a mask, SDPA with the dense
                boolean mask; for the fold, ``torch.sum`` over the partials
@@ -167,6 +188,9 @@ from repro_torch.serve.engine import (ContinuousEngine, Engine,  # noqa: E402
                                       SampleConfig)
 from repro_torch.train import optimizer as O  # noqa: E402
 from repro_torch.train import step as TS  # noqa: E402
+from repro_torch import tune as TUNE  # noqa: E402
+from repro_torch.kernels import smem as SMEM  # noqa: E402
+from repro_torch.tune import measure as TUNE_MEASURE  # noqa: E402
 from repro_torch.verify import lifecycle as LC  # noqa: E402
 
 # H100 SXM, NVIDIA's data sheet (dense, at the full 700 W power limit)
@@ -227,7 +251,7 @@ SLICE_WINDOW = dict(arch="stablelm-1.6b", batch=2, prompt=2048, gen=32,
 # weights move), and for the windowed one
 TRAIN_ARGV = ["--arch", "stablelm-1.6b", "--batch", "4", "--seq", "1024",
               "--steps", "3", "--warmup-steps", "1", "--seed", "0",
-              "--log-every", "1", "--verify"]
+              "--log-every", "1", "--verify", "--tune", "sim"]
 TRAIN_WINDOW_ARGV = ["--arch", "stablelm-1.6b", "--batch", "1", "--seq",
                      "4096", "--attn-window", "1024", "--steps", "3",
                      "--warmup-steps", "1", "--seed", "0", "--log-every", "1",
@@ -278,6 +302,34 @@ PAGED_SPARE = 5
 # exact products in fp32, in another order (up to 5632 terms of |x w| of a
 # few 1e-2)
 GEMM_TOL = 1e-4
+# [tune]: the tuner's measure mode over every legal candidate, the runner
+# one synchronized fwd + bwd of dash_attention (bf16) at the candidate's
+# knobs: (label, batch, heads, seq, head_dim, causal, mask). The training
+# slice's attention shape; the paper's §4.1 shapes (16384 tokens, hidden
+# 2048: 32 heads of 64 or 16 of 128; S 1024, 4096, 16384; full and causal);
+# the windowed slice's shape under the 1024-token window
+PAPER_TOKENS, PAPER_HIDDEN = 16384, 2048
+TUNE_GEOMETRIES = [("train", 4, 32, 1024, 64, True, None)] + [
+    (f"paper_d{d}_s{s}_{'causal' if c else 'full'}", PAPER_TOKENS // s,
+     PAPER_HIDDEN // d, s, d, c, None)
+    for d in (64, 128) for s in (1024, 4096, 16384) for c in (False, True)
+] + [("window", 1, 32, 4096, 64, False, WINDOW)]
+# the sim-mode picks a fresh process makes with an empty cache
+TUNE_SUBPROCESS = r"""
+import json, sys
+from repro_torch import masks as M
+from repro_torch.tune import TuneCache, tune_attention
+picks = [tune_attention(seq=1024, head_dim=64, dtype="bfloat16", causal=True,
+                        n_heads=32, cache=TuneCache(sys.argv[1])),
+         tune_attention(seq=4096, head_dim=64, dtype="bfloat16",
+                        mask=M.SlidingWindow(1024), n_heads=32,
+                        cache=TuneCache(sys.argv[1]))]
+print(json.dumps([[p.key, p.candidate.key(), p.source] for p in picks]))
+"""
+# the launcher on the paper's config, tuned in measure mode, twice
+PAPER_ARGV = ["--arch", "dash-paper", "--tune", "measure", "--batch", "16",
+              "--seq", "1024", "--steps", "3", "--warmup-steps", "1",
+              "--seed", "0", "--log-every", "1", "--verify"]
 # the mask families of the kernel checks: the reference's
 # (tests/test_mask_kernels.py:43-48) scaled from S=256 to S=1024, and
 # causal ∧ sink, which leaves KV rows with no task
@@ -1168,6 +1220,204 @@ def run_ops():
     if any(results[k]["launches"] != w for k, w in want.items()):
         raise AssertionError(f"unexpected launches: {results}")
     return results
+
+
+def _tune_cache(tune_root, name):
+    """Point the process-wide tuner store (what ``dash_attention(tune=)``
+    and the launcher's ``--tune`` read, in this process and the launcher
+    subprocesses) at a fresh directory under this run's temporary root."""
+    root = os.path.join(tune_root, name)
+    os.environ["REPRO_TORCH_TUNE_CACHE"] = root
+    return root
+
+
+def _tune_geometry(label, b, h, s, d, causal, mask, root):
+    """One geometry of ``[tune]``: ``tune_attention(mode="measure")`` over
+    every legal candidate, the runner one synchronized fwd + bwd of
+    ``dash_attention`` at the candidate's knobs (its host time, what the
+    tuner reads, and its device time by CUDA events kept per call); each
+    candidate's modeled makespan x B·H beside its measured time; a second
+    call a cache hit; ``dash_attention(tune=True)`` equal to the hand-picked
+    call bit for bit."""
+    gen = torch.Generator(device="cuda").manual_seed(len(label))
+    q, k, v, do = (torch.randn((b, h, s, d), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    x = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    calls = {}
+
+    def runner(cand):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        start.record()
+        out = ops.dash_attention(*x, causal=causal, mask=mask,
+                                 schedule=cand.schedule, block=cand.block_q,
+                                 worker_parallel=cand.worker_parallel)
+        torch.autograd.grad(out, x, do)
+        end.record()
+        torch.cuda.synchronize()
+        calls.setdefault(cand.key(), []).append(
+            (time.perf_counter() - t0, start.elapsed_time(end)))
+
+    kw = dict(seq=s, head_dim=d, dtype=torch.bfloat16, causal=causal,
+              mask=mask, n_heads=h, n_kv_heads=h)
+    cands = TUNE.enumerate_candidates(seq_q=s, head_dim=d, causal=causal,
+                                      mask=mask)
+    ranked = TUNE.rank_candidates(cands, seq_q=s, head_dim=d, causal=causal,
+                                  mask=mask)
+    cache = TUNE.TuneCache(os.path.join(root, label))
+    t0 = time.perf_counter()
+    res = TUNE.tune_attention(mode="measure", topk=len(cands), cache=cache,
+                              runner=runner, **kw)
+    tune_s = time.perf_counter() - t0
+    again = TUNE.tune_attention(mode="measure", topk=len(cands), cache=cache,
+                                runner=runner, **kw)
+    if (again.source, again.candidate) != ("cache", res.candidate):
+        raise AssertionError(f"[tune] {label}: the second call gave "
+                             f"{again.source} {again.candidate}, not a cache "
+                             f"hit on {res.candidate}")
+    skip = TUNE_MEASURE.DEFAULT_WARMUP
+    rows = []
+    for row in ranked:
+        key = row["candidate"].key()
+        timed = calls[key][skip:]
+        modeled_ms = row["modeled_makespan_s"] * b * h * 1e3
+        measured_ms = min(t for t, _ in timed) * 1e3
+        rows.append(dict(candidate=key, modeled_ms=modeled_ms,
+                         measured_ms=measured_ms,
+                         device_ms=min(e for _, e in timed),
+                         measured_over_modeled=measured_ms / modeled_ms))
+        print(f"[tune] {label} {key} modeled_ms={modeled_ms:.6f} "
+              f"measured_ms={measured_ms:.4f} "
+              f"device_ms={rows[-1]['device_ms']:.4f} "
+              f"measured/modeled={measured_ms / modeled_ms:.1f}", flush=True)
+
+    # tuned ≡ hand-picked: the sim pick from the process-wide store
+    pick = TUNE.tune_attention(mode="sim", **kw).candidate
+
+    def run(**knobs):
+        y = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = ops.dash_attention(*y, causal=causal, mask=mask, **knobs)
+        return [out] + list(torch.autograd.grad(out, y, do))
+
+    tuned = run(tune=True)
+    hand = run(schedule=pick.schedule, block=pick.block_q,
+               worker_parallel=pick.worker_parallel)
+    if not all(torch.equal(a, b_) for a, b_ in zip(tuned, hand)):
+        raise AssertionError(f"[tune] {label}: dash_attention(tune=True) "
+                             f"differs from the hand-picked {pick.key()}")
+    by_key = {r["candidate"]: r for r in rows}
+    fa3_par = [r["measured_ms"] for k_, r in by_key.items()
+               if k_.startswith("fa3|") and "|par|" in k_]
+    line = dict(
+        geometry=label, batch=b, heads=h, seq=s, head_dim=d, causal=causal,
+        mask=mask.key() if mask is not None else None,
+        candidates=len(cands), source=res.source,
+        measured_winner=res.candidate.key(),
+        modeled_winner=ranked[0]["candidate"].key(),
+        winner_is_modeled=res.candidate.key() == ranked[0]["candidate"].key(),
+        tuner_measured_ms=res.measured_s * 1e3,
+        fa3_par_over_winner=(fa3_par[0] / by_key[res.candidate.key()][
+            "measured_ms"]) if fa3_par else None,
+        sim_pick=pick.key(), tuned_equals_handpicked=True, tune_s=tune_s)
+    print("[tune] " + json.dumps(line), flush=True)
+    return dict(line, rows=rows)
+
+
+def _tune_window_schedule():
+    """``cached_block_schedule(tune=True)`` at the windowed slice's shape:
+    the placement ``pick_placement`` chooses, on the instance a hand-picked
+    call gets; the block-sparse forward and the masked worker backward run
+    on that schedule directly, equal bit for bit to ``dash_attention`` with
+    the same placement."""
+    _, b, h, _, s, d, dtype = WINDOW_CASE
+    n = s // FF.BLOCK
+    placement = TUNE.pick_placement(WINDOW, n, n)
+    sch = M.cached_block_schedule(WINDOW, n, n, tune=True)
+    if sch is not M.cached_block_schedule(WINDOW, n, n, placement=placement):
+        raise AssertionError("cached_block_schedule(tune=True) is not the "
+                             "picked placement's schedule")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v, do = (torch.randn((b * h, s, d), generator=gen, device="cuda")
+                   .to(dtype) for _ in range(4))
+    out, lse = FF.flash_fwd(q, k, v, mask=WINDOW, n_heads=h, n_kv_heads=h)
+    grads = FB.flash_bwd(q, k, v, out, lse, do, sch, mask=WINDOW, n_heads=h,
+                         n_kv_heads=h)
+    y = [t.reshape(b, h, s, d).clone().requires_grad_(True) for t in (q, k, v)]
+    op_out = ops.dash_attention(*y, mask=WINDOW, schedule=placement)
+    op_grads = torch.autograd.grad(op_out, y, do.reshape(b, h, s, d))
+    same = torch.equal(out, op_out.reshape(b * h, s, d)) and all(
+        torch.equal(g.to(dtype), og.reshape(b * h, s, d))
+        for g, og in zip(grads, op_grads))
+    if not same:
+        raise AssertionError("the kernels on cached_block_schedule(tune="
+                             "True) differ from dash_attention's")
+    return dict(placement=placement, schedule=sch.name,
+                workers=sch.n_workers, bitwise_equal_to_op=same)
+
+
+def run_tune(tune_root, label="tune"):
+    """The tuner on the card: every geometry of ``TUNE_GEOMETRIES`` through
+    :func:`_tune_geometry`, the window's placement through
+    ``cached_block_schedule(tune=True)``, the sim picks of a fresh process
+    with an empty cache against this process's, and the host's
+    shared-memory footprints against the built libraries'. Every kernel of
+    the tune path must have launched."""
+    _free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    root = _tune_cache(tune_root, "tune-phase")
+    footprints = {}
+    for d in FF.HEAD_DIMS:
+        for dtype, nbytes in ((torch.bfloat16, 2), (torch.float32, 4)):
+            host = (SMEM.fwd_footprint(FF.BLOCK, FF.BLOCK, d, nbytes).total,
+                    SMEM.bwd_footprint(FF.BLOCK, FF.BLOCK, d, nbytes).total)
+            lib = (FF.kernel_smem_bytes(d, dtype), FB.smem_bytes(d, dtype))
+            footprints[f"d{d}_{str(dtype)[6:]}"] = dict(fwd=host[0],
+                                                        bwd=host[1])
+            if host != lib:
+                raise AssertionError(f"kernels/smem.py says {host} bytes "
+                                     f"(fwd, bwd) at d={d} {dtype}; the "
+                                     f"libraries launch with {lib}")
+    print("[tune] shared memory (fwd, bwd bytes) equal to the libraries' "
+          + json.dumps(footprints), flush=True)
+    torch.cuda.synchronize()
+    _zero_counts()
+    geometries = [_tune_geometry(*g, root=os.path.join(root, "measure"))
+                  for g in TUNE_GEOMETRIES]
+    window = _tune_window_schedule()
+    torch.cuda.synchronize()
+    launches = _counts()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    fresh = os.path.join(root, "fresh")
+    r = subprocess.run([sys.executable, "-c", TUNE_SUBPROCESS, fresh],
+                       env=env, cwd=ROOT, capture_output=True, text=True,
+                       timeout=300)
+    if r.returncode:
+        raise AssertionError(f"[tune] subprocess failed:\n{r.stderr}")
+    theirs = json.loads(r.stdout.strip().splitlines()[-1])
+    ours = [TUNE.tune_attention(seq=1024, head_dim=64, dtype="bfloat16",
+                                causal=True, n_heads=32,
+                                cache=TUNE.TuneCache(os.path.join(root, "in"))),
+            TUNE.tune_attention(seq=4096, head_dim=64, dtype="bfloat16",
+                                mask=WINDOW, n_heads=32,
+                                cache=TUNE.TuneCache(os.path.join(root, "in")))]
+    ours = [[p.key, p.candidate.key(), p.source] for p in ours]
+    result = dict(
+        seconds=time.perf_counter() - t0,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches=launches, window_schedule=window,
+        subprocess_sim_picks=theirs, subprocess_equal=theirs == ours,
+        winners_modeled=sum(g["winner_is_modeled"] for g in geometries),
+        geometries=len(geometries))
+    print(f"[{label}] " + json.dumps(result), flush=True)
+    if theirs != ours:
+        raise AssertionError(f"[tune] a fresh process picked {theirs}, this "
+                             f"one {ours}")
+    idle = [k for k, n in launches.items() if not n]
+    if idle:
+        raise AssertionError(f"[tune] the tune path never launched {idle}: "
+                             f"{launches}")
+    return dict(result, geometry_results=geometries)
 
 
 def _ms(fn, reps, rounds=5, warmup=3):
@@ -2363,6 +2613,14 @@ def main():
               file=sys.stderr)
         return 2
     t0 = time.perf_counter()
+    tune_root = tempfile.mkdtemp(prefix="repro_torch_tune_")
+    try:
+        return _main(t0, tune_root)
+    finally:
+        shutil.rmtree(tune_root, ignore_errors=True)
+
+
+def _main(t0, tune_root):
     phase_build()
     phase_device()
     fwd_check = check_forward(True, KERNEL_CASES + TRAIN_CASES[:1]
@@ -2381,12 +2639,17 @@ def main():
     run_serve_invariance(cont_eng)
     del cont_eng
     _free_device_memory()
+    _tune_cache(tune_root, "train")
     train = run_train()
     resume = run_train_resume(train["digest_chain_heads"][0])
     run_lifecycle()
     run_train_serve_parity()
     train_window = run_train(TRAIN_WINDOW_ARGV, "train-window")
     op_paths = run_ops()
+    tune = run_tune(tune_root)
+    _free_device_memory()
+    _tune_cache(tune_root, "dash-paper")
+    paper = run_train(PAPER_ARGV, "train-dash-paper")
     launches = dict(train["launches_per_step"])
     launches["fwd_full"] = op_paths["full_shift"]["launches"]["fwd_full"]
     launches["bwd_serial"] = op_paths["causal_serialized"]["launches"][
@@ -2404,8 +2667,12 @@ def main():
           f"the continuous engine served {SERVE_REQUESTS} requests with "
           f"{continuous['launches']['paged_attention']} paged attentions; "
           f"training resumed from step {resume['resumed_from']} with the "
-          f"straight run's digest chain; "
-          f"{time.perf_counter() - t0:.1f}s in all", flush=True)
+          f"straight run's digest chain; the tuner measured "
+          f"{tune['geometries']} geometries in {tune['seconds']:.1f}s "
+          f"({tune['winners_modeled']} winners the modeled ones); "
+          f"dash-paper trained {len(paper['step_ms'])} steps twice to one "
+          f"digest chain; {time.perf_counter() - t0:.1f}s in all",
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

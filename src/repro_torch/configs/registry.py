@@ -10,12 +10,14 @@ ARCHS = [
     "stablelm_1_6b",
     "qwen1_5_110b",
     "mistral_nemo_12b",
+    "dash_paper",
 ]
 
 ALIASES = {
     "stablelm-1.6b": "stablelm_1_6b",
     "qwen1.5-110b": "qwen1_5_110b",
     "mistral-nemo-12b": "mistral_nemo_12b",
+    "dash-paper": "dash_paper",
 }
 
 

@@ -1,1 +1,3 @@
-"""Framework-free core: the DASH schedules (numpy only)."""
+"""Framework-free core: the DASH schedules (numpy only), the paper's
+schedule model over them (Gantt simulator, DAG and Lemma 1, ASCII charts)
+and the pinned-order reductions."""

@@ -4,8 +4,8 @@ Port of ``repro.core.schedules``; numpy only, so the code is the reference's
 own. The integer arrays it emits (``prefetch_arrays``, ``worker_chains``) are
 held equal to the reference's by ``tests/test_torch_schedules.py``. Ragged
 (block-sparse mask) schedules come from :mod:`repro_torch.masks.schedule`
-through ``make_schedule(mask=)`` / ``cached_schedule(mask=)``; the tuner's
-placement (``tune=``) is not ported and raises.
+through ``make_schedule(mask=)`` / ``cached_schedule(mask=)``, whose
+``tune=True`` lets the tuner pick the placement.
 
 The deterministic backward pass processes tasks ``(head, kv_tile, q_tile)``. Each task
 has a compute phase (cost ``c``) producing local dK/dV contributions plus a partial
@@ -455,12 +455,16 @@ def cached_schedule(name: str, n: int, n_heads: int = 1, causal: bool = False,
     points hand out the same instance per (mask, tiling, placement).
     Reusing one instance also shares the derived kernel arrays memoized on it
     (:meth:`Schedule.worker_chains`, :meth:`Schedule.prefetch_arrays`).
-    ``tune=`` (the reference's placement tuner) is not ported and raises.
+
+    ``tune=True`` (block-sparse only) lets
+    :func:`repro_torch.tune.pick_placement` resolve the placement from the
+    modeled makespan instead of ``name`` — a pure simulator comparison, so
+    the choice is a function of the key, never of a clock.
     """
-    if tune:
-        raise NotImplementedError(
-            "cached_schedule(tune=True): the placement tuner is not ported "
-            "yet (ROADMAP A7, observability and tuner)")
+    if tune and mask is not None:
+        from repro_torch.tune import pick_placement
+        name = pick_placement(mask, n, n if n_q is None else n_q,
+                              block_q, block_k)
     # normalize to positional: lru_cache keys kwargs separately
     return _cached_schedule(name, n, n_heads, causal, n_q, mask,
                             block_q, block_k)

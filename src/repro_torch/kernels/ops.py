@@ -121,7 +121,7 @@ class _DashAttention(torch.autograd.Function):
 def dash_attention(q, k, v, causal: bool = False,
                    schedule: str = "symmetric_shift_or_shift",
                    sm_scale: Optional[float] = None, block: int = 128,
-                   worker_parallel: bool = True, mask=None):
+                   worker_parallel: bool = True, mask=None, tune=False):
     """DASH attention with the deterministic scheduled backward.
 
     Args:
@@ -139,6 +139,13 @@ def dash_attention(q, k, v, causal: bool = False,
       mask: optional :class:`repro_torch.masks.spec.MaskSpec`. ``Full()`` /
         ``Causal()`` take the flag form (bitwise the same); any other spec
         runs the block-sparse forward and the mask's compiled schedule.
+      tune: ``True``/"sim" lets :func:`repro_torch.tune.tune_attention`
+        resolve (schedule, block, worker_parallel) from the modeled makespan
+        for this (shape, dtype, mask) key; "measure" takes a decision a
+        measured run left in the tuner's cache (with none there it ranks as
+        "sim" does). Tuning only selects knobs, which override the three
+        arguments: the tuned call is bitwise identical to the hand-picked
+        call with the same resolved knobs.
     Returns: (B, H, S, D) attention output, differentiable in q, k, v.
     """
     b, h, s, d = q.shape
@@ -154,6 +161,15 @@ def dash_attention(q, k, v, causal: bool = False,
             causal, mask = True, None
         elif causal:
             raise ValueError("mask supersedes the causal flag")
+    if tune:
+        from repro_torch.tune import tune_attention
+        cand = tune_attention(seq=s, head_dim=d, dtype=q.dtype,
+                              causal=causal, mask=mask, n_heads=h,
+                              n_kv_heads=k.shape[1],
+                              mode="sim" if tune is True else tune).candidate
+        schedule = cand.schedule
+        block = cand.block_q          # candidates are square-tiled
+        worker_parallel = cand.worker_parallel
     name = resolve_schedule(schedule, causal, mask)
     return _DashAttention.apply(q.contiguous(), k.contiguous(),
                                 v.contiguous(), causal, name, sm_scale, block,

@@ -6,6 +6,8 @@
         --batch 1 --seq 4096 --attn-window 1024 --steps 3 --verify
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \
         --steps 2 --batch 2 --seq 128
+    PYTHONPATH=src python -m repro_torch.launch.train --arch dash-paper \
+        --tune measure --batch 16 --seq 1024 --steps 3 --verify
 
 Weights are random, from ``--seed``; data is the synthetic source
 (``data.pipeline.SyntheticLM``, a pure function of (seed, step)) or, with
@@ -36,11 +38,16 @@ chain is written to ``--verify-out`` (default ``<ckpt-dir>/digest_chain.json``
 with ``--ckpt-dir``) at every save and at the end, and a resumed run
 continues it from the restored step, so its head equals a straight run's.
 ``--profile-step N`` runs step N under ``torch.profiler`` and prints its busy
-time and top ops. The last line is the reference's summary JSON, plus each
-step's wall time and, on the card, each step's kernel launches. ``--tune``,
-``--track``, ``--trace-out`` and ``--chaos`` wait for ``obs``, ``tune`` and
-``faults`` (ROADMAP A6-A7); ``--heartbeat`` for ``launch/heartbeat.py``
-(A10); ``--mesh`` for the distributed slice (A9).
+time and top ops. ``--tune sim|measure`` resolves the attention's schedule
+knobs with :func:`repro_torch.tune.tune_attention` once before training and
+prints ``[tune] <candidate> source=... modeled_makespan=...
+modeled_step(attn)=...``; as in the reference, the choice is logged, not
+applied to ``cfg.dash_schedule``, and "measure" ranks as "sim" does unless
+the tuner's cache holds a measured decision for the key. The last line is
+the reference's summary JSON, plus each step's wall time and, on the card,
+each step's kernel launches. ``--track``, ``--trace-out`` and ``--chaos``
+wait for ``obs`` and ``faults`` (ROADMAP A6-A7); ``--heartbeat`` for
+``launch/heartbeat.py`` (A10); ``--mesh`` for the distributed slice (A9).
 """
 from __future__ import annotations
 
@@ -112,6 +119,12 @@ def configure(argv=None):
     ap.add_argument("--attn-window", type=int, default=None, metavar="N",
                     help="sliding-window attention over the last N tokens "
                          "(the config's attn_window; 0: full causal)")
+    ap.add_argument("--tune", default="off", choices=["off", "sim", "measure"],
+                    help="resolve the attention schedule knobs with "
+                         "repro_torch.tune before training and print the "
+                         "choice: 'sim' ranks by modeled makespan; 'measure' "
+                         "takes a measured decision from the tuner's cache "
+                         "($REPRO_TORCH_TUNE_CACHE), else ranks as 'sim'")
     args = ap.parse_args(argv)
     if args.steps < 1:
         ap.error("--steps must be >= 1")
@@ -199,6 +212,26 @@ def _join(pending, saves):
           f"waited)", flush=True)
 
 
+def _tune(args, cfg):
+    """The reference's ``--tune``: resolve the causal attention geometry
+    once and print the choice with its modeled makespan and the modeled
+    attention time of a step (the makespan, a per-bh schedule, times every
+    (layer, batch row, head)). Logged only: ``cfg.dash_schedule`` is left
+    as it is."""
+    from repro_torch.tune import tune_attention
+    tres = tune_attention(seq=args.seq, head_dim=cfg.head_dim,
+                          dtype=cfg.dtype_name, causal=True,
+                          n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                          mode=args.tune)
+    n_rep = cfg.n_layers // len(cfg.block_pattern)
+    n_attn = n_rep * sum(1 for k in cfg.block_pattern if k.startswith("attn"))
+    modeled_step_s = (tres.modeled_makespan_s * n_attn * args.batch
+                      * cfg.n_heads) or None
+    print(f"[tune] {tres.candidate.key()} source={tres.source} "
+          f"modeled_makespan={tres.modeled_makespan_s:.3e}s "
+          f"modeled_step(attn)={modeled_step_s or 0:.3e}s", flush=True)
+
+
 def main(argv=None, on_step=None):
     """Run the flags' training. ``on_step(step, state, metrics)``, if given,
     is called after each step, outside its timing. Returns the summary:
@@ -207,6 +240,8 @@ def main(argv=None, on_step=None):
     # the first product on the card, it lets the GEMMs run deterministically
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     args, cfg, tcfg, data, device = configure(argv)
+    if args.tune != "off":
+        _tune(args, cfg)
     if device.type == "cuda":
         t0 = time.perf_counter()
         build.build()

@@ -124,12 +124,17 @@ def cached_block_schedule(mask: MaskSpec, n_kv: int, n_q: int,
                           tune: bool = False) -> Schedule:
     """Memoized :func:`compile_block_schedule`. The lru key includes the mask
     spec itself (hashable by construction), so two distinct masks with equal
-    tile counts never collide. ``tune=True`` (the reference's placement
-    tuner) is not ported and raises."""
+    tile counts never collide.
+
+    ``tune=True`` asks :func:`repro_torch.tune.pick_placement` to choose the
+    placement from the modeled makespan (shift vs fa3 under the simulator) —
+    deterministic, because the comparison is a pure function of the mask's
+    block map, and sticky, because the resolved placement lands on the same
+    lru key a hand-picked call would. Hit/miss counters surface through
+    :func:`repro_torch.masks.cache_info`."""
     if tune:
-        raise NotImplementedError(
-            "cached_block_schedule(tune=True): the placement tuner is not "
-            "ported yet (ROADMAP A7, observability and tuner)")
+        from repro_torch.tune import pick_placement
+        placement = pick_placement(mask, n_kv, n_q, block_q, block_k)
     return _cached_block_schedule(mask, n_kv, n_q, block_q, block_k, placement)
 
 

@@ -298,6 +298,50 @@ def test_windowed_dash_attention_matches_the_plain_op():
         > 0.1
 
 
+@pytest.mark.parametrize("causal,mask", [(True, None), (False, None),
+                                         (False, "window")])
+def test_tuned_dash_attention_equals_handpicked(causal, mask, tmp_path,
+                                                monkeypatch):
+    """dash_attention(tune=True) on the card: outputs and q/k/v grads equal
+    to the hand-picked call with the knobs the tuner resolved, and the
+    serialized candidate of the same family equal to the worker one."""
+    _card()
+    from repro_torch.tune import tune_attention
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(tmp_path))
+    mask = MASKS[mask]() if mask else None
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, do = (torch.randn((2, 4, 512, 64), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    cand = tune_attention(seq=512, head_dim=64, dtype=q.dtype, causal=causal,
+                          mask=mask, n_heads=4, n_kv_heads=4).candidate
+
+    def run(**kw):
+        x = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = ops.dash_attention(*x, causal=causal, mask=mask, **kw)
+        return [out] + list(torch.autograd.grad(out, x, do))
+
+    hand = dict(schedule=cand.schedule, block=cand.block_q)
+    tuned = run(tune=True)
+    for got, want, ser in zip(tuned, run(worker_parallel=cand.worker_parallel,
+                                         **hand),
+                              run(worker_parallel=False, **hand)):
+        assert torch.equal(got, want) and torch.equal(got, ser)
+
+
+def test_host_shared_memory_budget_equals_the_libraries():
+    """kernels/smem.py's footprints are what the built kernels launch
+    with, for every instantiated (head_dim, dtype)."""
+    _card()
+    from repro_torch.kernels import smem
+    for d in FF.HEAD_DIMS:
+        for dtype, nbytes in ((torch.bfloat16, 2), (torch.float32, 4)):
+            assert (smem.fwd_footprint(128, 128, d, nbytes).total
+                    == FF.kernel_smem_bytes(d, dtype)), (d, dtype)
+            assert (smem.bwd_footprint(128, 128, d, nbytes).total
+                    == FB.smem_bytes(d, dtype)), (d, dtype)
+
+
 def test_forward_kernels_repeat_bitwise_and_agree_on_shared_memory():
     """20 launches of each bf16 forward mode give identical out and lse; the
     library's shared memory per head dim is the host's budget."""

@@ -11,6 +11,7 @@ import torch
 
 from repro import masks as JM
 from repro.kernels.flash_fwd import mask_grid as j_mask_grid
+from repro.tune import pick_placement as j_pick_placement
 from repro_torch import masks as TM
 from repro_torch.core import schedules as tsched
 from repro_torch.kernels import flash_fwd as tfwd
@@ -128,10 +129,16 @@ def test_schedule_entry_points_route_masks():
             fn("descending", 4, mask=mask)
     with pytest.raises(KeyError, match="placement"):
         TM.compile_block_schedule(mask, 4, 4, 64, 64, "descending")
-    with pytest.raises(NotImplementedError, match="tuner"):
-        tsched.cached_schedule("shift", 4, mask=mask, tune=True)
-    with pytest.raises(NotImplementedError, match="tuner"):
-        TM.cached_block_schedule(mask, 4, 4, tune=True)
+    # tune=True: the placement the reference's tuner picks, on the same
+    # memoized instance a hand-picked call gets
+    picked = j_pick_placement(JM.SlidingWindow(96), 4, 4, 64, 64)
+    assert tsched.cached_schedule("fa3", 4, mask=mask, block_q=64,
+                                  block_k=64, tune=True) is \
+        TM.cached_block_schedule(mask, 4, 4, 64, 64, picked)
+    assert TM.cached_block_schedule(mask, 4, 4, tune=True) is \
+        TM.cached_block_schedule(
+            mask, 4, 4, placement=j_pick_placement(JM.SlidingWindow(96), 4,
+                                                   4))
 
 
 def test_masks_that_hide_a_row_raise():

@@ -5,7 +5,9 @@ for every generator, mask, tile count n in 2..16 and head count 1..3."""
 import numpy as np
 import pytest
 
+from repro import masks as JM
 from repro.core import schedules as jsched
+from repro.tune import pick_placement as j_pick_placement
 from repro.kernels.flash_bwd import first_visit_flags as j_first_visit
 from repro_torch.core import schedules as tsched
 from repro_torch.kernels.flash_bwd import first_visit_flags as t_first_visit
@@ -58,13 +60,16 @@ def test_cached_schedule_shares_one_instance_and_refuses_masks():
     # chains (the reference's odd-head branch), the default causal backward
     desc = tsched.make_schedule("descending", 8, 1, True)
     assert a.chains == desc.chains
-    # masks are ported: a mask takes the block compiler's placements only,
-    # and the placement tuner still raises
+    # a mask takes the block compiler's placements only, and tune=True
+    # resolves the placement as the reference's tuner does
     with pytest.raises(ValueError, match="placements"):
         tsched.cached_schedule("symmetric_shift", 4, mask=SlidingWindow(96))
     with pytest.raises(ValueError, match="placements"):
         tsched.make_schedule("descending", 4, mask=SlidingWindow(96))
-    with pytest.raises(NotImplementedError, match="tuner"):
-        tsched.cached_schedule("shift", 4, mask=SlidingWindow(96), tune=True)
+    tuned = tsched.cached_schedule("fa3", 4, mask=SlidingWindow(96),
+                                   tune=True)
+    picked = j_pick_placement(JM.SlidingWindow(96), 4, 4)
+    assert tuned is tsched.cached_schedule(picked, 4, mask=SlidingWindow(96))
+    assert tuned.name == f"block_{picked}"
     with pytest.raises(ValueError, match="full-mask optimum"):
         tsched.make_schedule("shift", 4, causal=True)
