@@ -63,6 +63,25 @@ Phases, each reported on its own line:
                16/64, a tight pool (page reuse), and seeded sampling across
                subsets and slots; prefill logits bitwise across chunks and
                within 0.1 of the plain attention's;
+     serve-spec — the same traffic with speculative decoding, 4 drafts a
+               round: self-draft greedy (``launch.serve --spec-k 4``),
+               self-draft sampled (temperature 0.7, top-k 20, seed 11)
+               against a plain sampled run, and a separate full-width
+               drafter (``--draft-model stablelm-1.6b``, weights from seed
+               1, which rejects nearly every draft): tokens and logprobs
+               bitwise the plain runs', launches as the rounds, draft steps
+               and prefill chunks predict; rounds, acceptance, tokens a
+               round, host ms a round, decode tok/s;
+     serve-chaos — the same traffic under faults: ``--chaos 1`` (seeded
+               pool exhaustion, slot revocations, decode stalls), and a
+               crash at engine step 7 with a snapshot every 3 steps (on
+               tmpfs) restored through ``ContinuousEngine.from_snapshot``,
+               plain (the first 4 requests) and with ``spec_k=4`` (all 8):
+               every request bitwise the
+               fault-free run's, the engine drained, launches as predicted
+               (the recompute-restores' chunks included); the plan key,
+               faults landed, preemptions, landing digest, the snapshot's
+               bytes and its save and restore seconds;
   5. train   — train StableLM-1.6B at full width and depth (bf16, AdamW,
                remat, causal, B=4, S=1024, 3 steps, warmup 1, ``--tune sim``,
                which prints the tuner's pick and changes nothing else) through
@@ -90,6 +109,18 @@ Phases, each reported on its own line:
                train_serve_parity cell at full width cut to 2 layers for
                StableLM-1.6B, Qwen1.5-110B and Mistral-NeMo-12B: the
                canonical forward's logits digest equal to the engine's;
+     chaos-matrix — ``faults.conformance.run_matrix`` (its 11 cells:
+               unarmed, pool exhaustion, slot revocation, decode stall,
+               deadlines, load shedding, crash/restore, checkpoint IO retry,
+               speculation under revocations, two seeded mixes) at full
+               width cut to 2 layers: every cell ok, launches equal to what
+               its engines dispatched;
+     train-chaos — ``launch.train`` at the lifecycle geometry with
+               ``--chaos 3`` (seeded transient checkpoint IO failures) and a
+               checkpoint every step, against the same steps unarmed and
+               without checkpoints: equal digest chains, every planned
+               failure landed within the retry budget, 4/2/2 launches a
+               step;
   8. ops     — ``dash_attention`` forward and backward at the training
                shape, full mask (schedule ``shift``) and serialized, against
                the plain op, counting the kernels each path launches; and a
@@ -192,6 +223,9 @@ from repro_torch import tune as TUNE  # noqa: E402
 from repro_torch.kernels import smem as SMEM  # noqa: E402
 from repro_torch.tune import measure as TUNE_MEASURE  # noqa: E402
 from repro_torch.verify import lifecycle as LC  # noqa: E402
+from repro_torch.faults import (EngineCrash, Fault, FaultPlan,  # noqa: E402
+                                Injector)
+from repro_torch.faults import conformance as CF  # noqa: E402
 
 # H100 SXM, NVIDIA's data sheet (dense, at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -298,6 +332,29 @@ FIRST_DESIGN_DECODE_STEP = dict(device_busy_ms=13.24, wall_ms_traced=52.41,
                                 paged_attention_ms=1.19, step_ms=20.29)
 # unused pool pages beside the rows' pages in the paged-attention checks
 PAGED_SPARE = 5
+# [serve-spec] / [serve-chaos], on [serve-continuous]'s traffic: K drafts a
+# round; the sampled run's config; the separate drafter (full width, its
+# weights from seed 1); the seeded chaos plan; a crash at engine step 7
+# with a snapshot every 3 steps (under CKPT_ROOT)
+SPEC_K = 4
+SPEC_SAMPLED = dict(temperature=0.7, top_k=20, seed=11)
+SPEC_DRAFTER = "stablelm-1.6b"
+CHAOS_SEED = 1
+CRASH_AT, SNAPSHOT_EVERY = 7, 3
+# the plain crash serves the first 4 requests (one wave, 31 engine steps,
+# 10 snapshots of 1.6 GB); with spec_k=4 all 8 (2 waves of 7 rounds), so
+# that the engine is still busy at step 7
+CRASH_REQUESTS = {0: 4, SPEC_K: SERVE_REQUESTS}
+# [chaos-matrix]: the 11 conformance cells at full width cut to 2 layers
+CHAOS_MATRIX_OVERRIDES = (("n_layers", 2),)
+# [train-chaos]: the lifecycle geometry through the train launcher, with
+# --chaos 3 and a checkpoint every step, against the same steps unarmed
+# and without checkpoints (each save of the 2-layer state, ~6.2 GB, takes
+# ~10 s)
+TRAIN_CHAOS_SEED = 3
+TRAIN_CHAOS_ARGV = ["--arch", "stablelm-1.6b", "--layers", "2", "--batch",
+                    "2", "--seq", "1024", "--steps", "4", "--ckpt-every", "1",
+                    "--ckpt-keep", "1", "--verify", "--log-every", "1"]
 # the GEMM kernel's fp32 product vs its plain version: both sum the same
 # exact products in fp32, in another order (up to 5632 terms of |x w| of a
 # few 1e-2)
@@ -2341,6 +2398,321 @@ def run_serve_invariance(base_eng, label="serve-invariance"):
     return result
 
 
+def _serve_prompts(cfg):
+    prompts = launch_serve.continuous_prompts(cfg.vocab, SERVE_REQUESTS,
+                                              SERVE_MIN_PROMPT, SERVE_PROMPT,
+                                              SERVE_SEED)
+    return prompts, {i: len(p) for i, p in enumerate(prompts)}
+
+
+def _predicted_launches(cfg, work, dcfg=None):
+    """A run's launches from what its engines dispatched
+    (``conformance.engine_work``): each paged step of the target or the
+    drafter launches ``_step_launches``, each sampler call one row
+    log-softmax."""
+    per = _step_launches(cfg, decode=False)
+    dper = _step_launches(dcfg or cfg, decode=False)
+    want = {k: per[k] * work["paged_steps"] + dper[k] * work["draft_steps"]
+            for k in per}
+    want["row_log_softmax"] = work["sampler_calls"]
+    return want
+
+
+def _counted(fn):
+    """``fn()`` with every launch counter set to 0 just before: (its
+    result, the serve kernels' launches, the flash kernels')."""
+    torch.cuda.synchronize()
+    _zero_counts()
+    _zero_serve_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, _serve_counts(), _counts()
+
+
+def _bitwise_streams(ref, eng, ids):
+    """Requests whose tokens or logprobs differ from ``ref``'s."""
+    return [i for i in ids if i not in eng.results
+            or not np.array_equal(np.asarray(ref.results[i]),
+                                  np.asarray(eng.results[i]))
+            or not np.array_equal(ref.result_logprobs[i],
+                                  eng.result_logprobs[i])]
+
+
+def _drained(eng):
+    return (eng.cache.free_pages == eng.cache.layout.n_pages
+            and not eng._quarantine and eng.sched.idle)
+
+
+def _serve_all(params, cfg, prompts, **kw):
+    eng = _continuous_engine(params, cfg, **kw)
+    for i, p in enumerate(prompts):
+        eng.submit(p, req_id=i, max_new_tokens=SERVE_GEN)
+    eng.run()
+    return eng
+
+
+def _spec_report(name, eng, ref, lens, counts, flash, dcfg=None):
+    sp = eng.spec
+    decode_tokens = (sum(len(v) for v in eng.results.values())
+                     - len(eng.first_token_step))
+    want = _predicted_launches(eng.cfg, CF.engine_work(eng, lens), dcfg)
+    round_ms = [s * 1e3 for s in eng.decode_s]
+    ref_ms = [s * 1e3 for s in ref.decode_s]
+    return dict(
+        run=name, spec_k=sp.k, self_draft=sp.self_draft,
+        mismatched=_bitwise_streams(ref, eng, range(SERVE_REQUESTS)),
+        rounds=sp.rounds, acceptance=sp.acceptance_rate(),
+        accepted=sp.accepted, drafted=sp.drafted, truncated=sp.truncated,
+        draft_steps=sp.draft_steps,
+        tokens_per_round=decode_tokens / sp.rounds,
+        round_ms_median=statistics.median(round_ms),
+        round_ms_p90=sorted(round_ms)[int(0.9 * len(round_ms))],
+        decode_tok_per_s=decode_tokens / sum(eng.decode_s),
+        plain_decode_step_ms_median=statistics.median(ref_ms),
+        plain_decode_tok_per_s=(sum(len(v) for v in ref.results.values())
+                                - SERVE_REQUESTS) / sum(ref.decode_s),
+        run_s=eng.run_s, launches=counts, launches_expected=want,
+        flash_launches=flash)
+
+
+@torch.inference_mode()
+def run_serve_spec(base, label="serve-spec"):
+    """Speculative decoding (``--spec-k 4``) on ``[serve-continuous]``'s
+    traffic at full width: (a) self-draft, greedy, through the launcher;
+    (b) self-draft, sampled (temperature 0.7, top-k 20, seed 11), against a
+    plain sampled run of the same engine; (c) a separate full-width drafter
+    (``--draft-model stablelm-1.6b``, weights from seed 1), which rejects
+    nearly every draft. Each: tokens and logprobs bitwise the plain run's,
+    launches equal to what its rounds, draft steps and prefill chunks
+    predict."""
+    cfg, params = base.cfg, base.params
+    prompts, lens = _serve_prompts(cfg)
+    spec_argv = SERVE_ARGV + ["--spec-k", str(SPEC_K)]
+    reports = []
+    eng, counts, flash = _counted(lambda: launch_serve.main(spec_argv))
+    reports.append(_spec_report("self_greedy", eng, base, lens, counts,
+                                flash))
+    del eng
+    scfg = SampleConfig(**SPEC_SAMPLED)
+    plain = _serve_all(params, cfg, prompts, scfg=scfg)
+    eng, counts, flash = _counted(lambda: _serve_all(
+        params, cfg, prompts, scfg=scfg, spec_k=SPEC_K))
+    reports.append(_spec_report("self_sampled", eng, plain, lens, counts,
+                                flash))
+    sampled_differs = any(not np.array_equal(plain.results[i],
+                                             base.results[i])
+                          for i in range(SERVE_REQUESTS))
+    del eng, plain
+    eng, counts, flash = _counted(lambda: launch_serve.main(
+        spec_argv + ["--draft-model", SPEC_DRAFTER]))
+    reports.append(_spec_report("separate_drafter", eng, base, lens, counts,
+                                flash, eng.spec.dcfg))
+    del eng
+    _free_device_memory()
+    for r in reports:
+        print(f"[{label}] " + json.dumps(r), flush=True)
+    bad = [r["run"] for r in reports
+           if r["mismatched"] or r["launches"] != r["launches_expected"]
+           or any(r["flash_launches"].values())]
+    if bad:
+        raise AssertionError(f"speculative runs not bitwise the plain ones "
+                             f"or launching other than predicted: {bad}")
+    if not (reports[0]["acceptance"] == reports[1]["acceptance"] == 1.0
+            and reports[2]["acceptance"] < 1.0 and sampled_differs):
+        raise AssertionError("self-draft acceptance is not 1.0, the drafter "
+                             "accepted every draft, or the sampled run is "
+                             "the greedy one")
+    return reports
+
+
+def _crash_restore(base, spec_k, lens, prompts):
+    """A crash at ``CRASH_AT`` with a snapshot every ``SNAPSHOT_EVERY``
+    engine steps (under ``CKPT_ROOT``), restored through
+    ``ContinuousEngine.from_snapshot`` and run to its end, over the first
+    ``CRASH_REQUESTS[spec_k]`` requests."""
+    cfg, params = base.cfg, base.params
+    ids = range(CRASH_REQUESTS[spec_k])
+    tmp = tempfile.mkdtemp(prefix="serve_snapshot_", dir=CKPT_ROOT)
+    try:
+        inj = Injector(FaultPlan(name=f"crash@{CRASH_AT}",
+                                 faults=(Fault(CRASH_AT, "crash"),)))
+
+        def run():
+            eng1 = _continuous_engine(params, cfg, faults=inj,
+                                      snapshot_dir=tmp,
+                                      snapshot_every=SNAPSHOT_EVERY,
+                                      spec_k=spec_k)
+            for i in ids:
+                eng1.submit(prompts[i], req_id=i, max_new_tokens=SERVE_GEN)
+            try:
+                eng1.run()
+            except EngineCrash:
+                pass
+            else:
+                raise AssertionError("the planned crash did not land")
+            step = CK.latest_step(tmp)
+            nbytes = _dir_bytes(os.path.join(tmp, f"step_{step}"))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng2 = ContinuousEngine.from_snapshot(tmp, cfg, params,
+                                                  faults=inj)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            since = CF.restored_at(eng2)
+            eng2.run()
+            return eng1, eng2, since, step, nbytes, restore_s
+
+        (eng1, eng2, since, step, nbytes, restore_s), counts, flash = \
+            _counted(run)
+        fs = _filesystem(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    w1, w2 = CF.engine_work(eng1, lens), CF.engine_work(eng2, lens, since)
+    want = _predicted_launches(cfg, {k: w1[k] + w2[k] for k in w1})
+    save_s = eng1.snapshot_s + eng2.snapshot_s
+    return dict(
+        run=f"crash_restore{'_spec' if spec_k else ''}", spec_k=spec_k,
+        requests=len(ids), crash_at=CRASH_AT, snapshot_every=SNAPSHOT_EVERY,
+        restored_from_step=step, crashed=bool(inj.history)
+        and inj.history[-1]["kind"] == "crash",
+        mismatched=_bitwise_streams(base, eng2, ids),
+        drained=_drained(eng2), snapshots=len(save_s),
+        snapshot_bytes=nbytes, snapshot_save_s_median=statistics.median(
+            save_s), snapshot_save_s=save_s, restore_s=restore_s,
+        filesystem=fs, engine_steps=eng2.engine_steps,
+        launches=counts, launches_expected=want, flash_launches=flash)
+
+
+@torch.inference_mode()
+def run_serve_chaos(base, label="serve-chaos"):
+    """Faults on ``[serve-continuous]``'s traffic at full width: (a) the
+    launcher's ``--chaos 1`` (seeded pool exhaustion, slot revocations,
+    decode stalls); (b) a crash at engine step 7 with a snapshot every 3
+    steps, restored through ``ContinuousEngine.from_snapshot`` (the first
+    4 requests); (c) the same with ``spec_k=4`` (all 8). Every request
+    bitwise the fault-free run's, tokens
+    and logprobs; the engine drained (every page free, no quarantine, the
+    scheduler idle); launches as predicted, the recompute-restores'
+    prefill chunks included."""
+    cfg = base.cfg
+    prompts, lens = _serve_prompts(cfg)
+    eng, counts, flash = _counted(lambda: launch_serve.main(
+        SERVE_ARGV + ["--chaos", str(CHAOS_SEED)]))
+    inj = eng.faults
+    reports = [dict(
+        run="seeded_chaos", plan=inj.plan.key(), scheduled=len(inj.plan),
+        faults_landed=len(inj.history),
+        landed_kinds={k: sum(e["kind"] == k for e in inj.history)
+                      for k in ("pool_exhaust", "revoke_slot",
+                                "decode_stall")},
+        preemptions=eng.preemptions, history_digest=inj.history_digest(),
+        restore_positions=eng.restore_positions,
+        mismatched=_bitwise_streams(base, eng, range(SERVE_REQUESTS)),
+        drained=_drained(eng), engine_steps=eng.engine_steps,
+        decode_steps=eng.decode_steps, run_s=eng.run_s, launches=counts,
+        launches_expected=_predicted_launches(cfg, CF.engine_work(eng, lens)),
+        flash_launches=flash)]
+    del eng
+    for spec_k in (0, SPEC_K):
+        reports.append(_crash_restore(base, spec_k, lens, prompts))
+    _free_device_memory()
+    for r in reports:
+        print(f"[{label}] " + json.dumps(r), flush=True)
+    bad = [r["run"] for r in reports
+           if r["mismatched"] or not r["drained"]
+           or r["launches"] != r["launches_expected"]
+           or any(r["flash_launches"].values())]
+    if bad or not reports[0]["preemptions"] or not all(
+            r["crashed"] for r in reports[1:]):
+        raise AssertionError(f"serving under faults: not bitwise, not "
+                             f"drained, launches other than predicted, or a "
+                             f"fault that never landed: {bad}")
+    return reports
+
+
+def run_chaos_matrix(label="chaos-matrix"):
+    """``repro_torch.faults.conformance.run_matrix`` on the card at full
+    width cut to 2 layers (snapshots and checkpoints under
+    ``CKPT_ROOT``): all 11 cells ok, launches equal to what the matrix's
+    engines dispatched."""
+    t0 = time.perf_counter()
+    rep, counts, flash = _counted(lambda: CF.run_matrix(
+        device="cuda", reduced=False, overrides=CHAOS_MATRIX_OVERRIDES,
+        tmp_root=CKPT_ROOT))
+    cfg = registry.get(CF.ARCH).replace(**dict(CHAOS_MATRIX_OVERRIDES))
+    want = _predicted_launches(cfg, rep["work"])
+    line = dict(
+        ok=rep["ok"], layers=cfg.n_layers, sampled=rep["config"]["sampled"],
+        cells={c["cell"]: dict(ok=c["ok"], plan=c["plan"],
+                               faults_landed=c["faults_landed"],
+                               history_digest=(c["history_digest"] or "")[:16],
+                               preemptions=c["detail"].get("preemptions"))
+               for c in rep["cells"]},
+        work=rep["work"], launches=counts, launches_expected=want,
+        flash_launches=flash, seconds=time.perf_counter() - t0)
+    print(f"[{label}] " + json.dumps(line), flush=True)
+    _free_device_memory()
+    if not rep["ok"] or len(rep["cells"]) != 11:
+        raise AssertionError("chaos conformance cells failed: " + str(
+            [c["cell"] for c in rep["cells"] if not c["ok"]]))
+    if counts != want or any(flash.values()):
+        raise AssertionError(f"the chaos matrix launched {counts}, expected "
+                             f"{want} and no flash kernel")
+    return line
+
+
+def run_train_chaos(label="train-chaos"):
+    """The train launcher at the lifecycle geometry (full width, 2 layers,
+    B=2, S=1024, 4 steps) with ``--chaos 3`` and a checkpoint every step on
+    ``CKPT_ROOT``, against the same steps unarmed and without checkpoints:
+    equal digest chains (neither the saves nor the faults touch the state),
+    every planned IO failure landed and absorbed by the writer's retry
+    (each within its budget), every save published, 4 causal forwards, 2
+    worker backwards and 2 folds a step."""
+    want = dict(fwd_causal=4, fwd_full=0, fwd_mask=0, bwd_worker=2,
+                bwd_serial=0, fold=2)
+    runs = {}
+    t0 = time.perf_counter()
+    runs["unarmed"] = dict(launch_train.main(TRAIN_CHAOS_ARGV),
+                           seconds=time.perf_counter() - t0)
+    d = tempfile.mkdtemp(prefix="train_chaos_", dir=CKPT_ROOT)
+    try:
+        t0 = time.perf_counter()
+        summary = launch_train.main(TRAIN_CHAOS_ARGV + [
+            "--ckpt-dir", d, "--chaos", str(TRAIN_CHAOS_SEED)])
+        runs["armed"] = dict(summary, seconds=time.perf_counter() - t0)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    plan = FaultPlan.seeded_ckpt(TRAIN_CHAOS_SEED, steps=4, every=1,
+                                 rate=0.5, max_failures=CK.IO_RETRIES,
+                                 name=f"train-chaos-{TRAIN_CHAOS_SEED}")
+    a, b_ = runs["unarmed"], runs["armed"]
+    line = dict(
+        entry="repro_torch.launch.train.main " + " ".join(TRAIN_CHAOS_ARGV),
+        plan=b_["chaos_plan"], plan_expected=plan.key(),
+        planned_failures=[[f.step, f.arg] for f in plan.faults],
+        io_retries=CK.IO_RETRIES, faults_landed=b_["chaos_faults_landed"],
+        landing_digest=b_["chaos_landing_digest"],
+        heads=[a["digest_chain_head"], b_["digest_chain_head"]],
+        saves=len(b_["ckpt"]), write_s=[c["write_s"] for c in b_["ckpt"]],
+        step_ms=[a["step_ms"], b_["step_ms"]],
+        seconds=[a["seconds"], b_["seconds"]],
+        launches_per_step=a["launches"][0], launches_expected=want)
+    print(f"[{label}] " + json.dumps(line), flush=True)
+    if a["digest_chain_head"] != b_["digest_chain_head"]:
+        raise AssertionError("the chaos-armed run's digest chain differs "
+                             "from the unarmed run's")
+    if (b_["chaos_plan"] != plan.key() or not plan.faults
+            or b_["chaos_faults_landed"] != sum(f.arg for f in plan.faults)
+            or max(f.arg for f in plan.faults) > CK.IO_RETRIES
+            or line["saves"] != 4):
+        raise AssertionError(f"train chaos: {line}")
+    if any(c != want for r in (a, b_) for c in r["launches"]):
+        raise AssertionError(f"a train-chaos step launched other than "
+                             f"{want}")
+    return line
+
+
 def run_train_serve_parity(label="lifecycle"):
     """The ``train_serve_parity`` lifecycle cell at full width cut to 2
     layers, for each of the reference's parity archs (StableLM-1.6B,
@@ -2637,6 +3009,8 @@ def _main(t0, tune_root):
     serve_window = run_slice(SLICE_WINDOW, "slice-window")
     continuous, cont_eng = run_serve_continuous()
     run_serve_invariance(cont_eng)
+    spec = run_serve_spec(cont_eng)
+    chaos = run_serve_chaos(cont_eng)
     del cont_eng
     _free_device_memory()
     _tune_cache(tune_root, "train")
@@ -2644,6 +3018,8 @@ def _main(t0, tune_root):
     resume = run_train_resume(train["digest_chain_heads"][0])
     run_lifecycle()
     run_train_serve_parity()
+    matrix = run_chaos_matrix()
+    train_chaos = run_train_chaos()
     train_window = run_train(TRAIN_WINDOW_ARGV, "train-window")
     op_paths = run_ops()
     tune = run_tune(tune_root)
@@ -2671,7 +3047,14 @@ def _main(t0, tune_root):
           f"{tune['geometries']} geometries in {tune['seconds']:.1f}s "
           f"({tune['winners_modeled']} winners the modeled ones); "
           f"dash-paper trained {len(paper['step_ms'])} steps twice to one "
-          f"digest chain; {time.perf_counter() - t0:.1f}s in all",
+          f"digest chain; speculation (k={SPEC_K}) bitwise in "
+          f"{len(spec)} runs, acceptance "
+          f"{[round(r['acceptance'], 3) for r in spec]}; "
+          f"{chaos[0]['faults_landed']} faults and "
+          f"{chaos[0]['preemptions']} preemptions, two crash restores, "
+          f"{len(matrix['cells'])} chaos cells and "
+          f"{train_chaos['faults_landed']} checkpoint IO faults, all "
+          f"bitwise; {time.perf_counter() - t0:.1f}s in all",
           flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

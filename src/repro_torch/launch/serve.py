@@ -28,9 +28,22 @@ reference's numpy draws from ``--seed``, ``--gen`` greedy tokens each, over
 ``--slots`` slots, with the reference's 16-token pages and
 ``min(32, prompt_len)``-token prefill chunks. Every request's tokens are
 bitwise the same whatever the co-batch, slot count, chunk or page
-placement. The reference's
-``--tp/--mesh`` (ROADMAP A9), ``--spec-k/--chaos`` (A6) and
+placement.
+
+``--spec-k K`` drafts K tokens a round and verifies them with exact
+acceptance (:mod:`repro_torch.serve.spec`): tokens and logprobs stay bitwise
+those of ``--spec-k 0``. ``--draft-model self`` (the default) self-drafts,
+``auto`` takes the registry's pairing (``registry.drafter_for``), any other
+value names a drafter arch, whose weights are random from ``--seed + 1``.
+``--chaos SEED`` arms a seeded fault plan (pool exhaustion, slot
+revocation, decode stalls; ``FaultPlan.seeded(SEED, steps=16 * gen,
+rate=0.2)``) against the engine; completed requests stay bitwise those of
+the unarmed run. The reference's ``--tp/--mesh`` (ROADMAP A9) and
 ``--track/--trace-out`` (A7) raise until their items land.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine continuous \
+        --reduced --device cpu --requests 6 --slots 3 --prompt-len 24 \
+        --gen 8 --spec-k 2 --draft-model auto --chaos 5
 """
 from __future__ import annotations
 
@@ -42,6 +55,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import registry
+from repro_torch.faults import FaultPlan, Injector
 from repro_torch.kernels.flash_fwd import BLOCK
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import ContinuousEngine, Engine, SampleConfig
@@ -50,8 +64,6 @@ from repro_torch.serve.engine import ContinuousEngine, Engine, SampleConfig
 _UNPORTED_FLAGS = {
     "tp": "--tp (mesh-sharded serving) waits for ROADMAP A9",
     "mesh": "--mesh (mesh-sharded serving) waits for ROADMAP A9",
-    "spec_k": "--spec-k (speculative decoding) waits for ROADMAP A6",
-    "chaos": "--chaos (fault injection) waits for ROADMAP A6",
     "track": "--track (the event tracker) waits for ROADMAP A7",
     "trace_out": "--trace-out (the span trace) waits for ROADMAP A7",
 }
@@ -109,15 +121,42 @@ def continuous_prompts(vocab: int, requests: int, min_len: int,
     return prompts
 
 
+def _spec_kwargs(args, device):
+    """``--spec-k``/``--draft-model`` → the engine's speculation kwargs."""
+    if not args.spec_k:
+        return {}
+    kw = {"spec_k": args.spec_k}
+    draft = args.draft_model
+    if draft == "auto":
+        draft = registry.drafter_for(args.arch) or "self"
+    if draft != "self":
+        dcfg = registry.get(draft)
+        if args.reduced:
+            dcfg = dcfg.reduced()
+        kw["draft_cfg"] = dcfg
+        kw["draft_params"] = T.init(dcfg, seed=args.seed + 1, device=device)
+        print(f"drafter: {draft} (exact acceptance; tokens bitwise equal "
+              "to --spec-k 0)")
+    return kw
+
+
 def _continuous(cfg, params, args, device):
     """The continuous engine over ``args.requests`` seeded prompts; prints
     the run's totals and each request's first tokens, returns the engine."""
     page = 16
     max_seq = args.max_seq or -(-(args.prompt_len + args.gen) // page) * page
+    injector = None
+    if args.chaos is not None:
+        plan = FaultPlan.seeded(args.chaos, steps=16 * args.gen, rate=0.2,
+                                name=f"serve-chaos-{args.chaos}")
+        injector = Injector(plan)
+        print(f"chaos armed: {plan.key()} ({len(plan)} scheduled faults; "
+              "tokens stay bitwise identical)")
     eng = ContinuousEngine(cfg, params, n_slots=args.slots, max_seq=max_seq,
                            page_size=page,
                            prefill_chunk=min(32, args.prompt_len),
-                           scfg=SampleConfig(seed=args.seed))
+                           scfg=SampleConfig(seed=args.seed), faults=injector,
+                           **_spec_kwargs(args, device))
     lo = args.min_prompt_len or max(1, args.prompt_len // 2)
     prompts = continuous_prompts(cfg.vocab, args.requests, lo,
                                  args.prompt_len, args.seed)
@@ -131,6 +170,17 @@ def _continuous(cfg, params, args, device):
           f"{total} tokens in {dt:.2f}s ({total / max(1e-9, dt):.1f} tok/s, "
           f"{eng.decode_steps} decode steps, {eng.engine_steps} engine steps)"
           f" on {device}")
+    if eng.spec is not None:
+        sp = eng.spec
+        print(f"speculation: k={sp.k} "
+              f"{'self-draft' if sp.self_draft else 'separate drafter'}, "
+              f"{sp.rounds} rounds, acceptance {sp.acceptance_rate():.3f} "
+              f"({sp.accepted}/{sp.drafted - sp.truncated} evaluated "
+              "drafts)")
+    if injector is not None:
+        print(f"chaos: {len(injector.history)} faults landed, "
+              f"{eng.preemptions} preemptions, landing digest "
+              f"{injector.history_digest()[:16]}")
     for rid in sorted(out):
         print(f"request {rid} tokens:", out[rid][:16].tolist())
     return eng
@@ -151,8 +201,18 @@ def main(argv=None):
     ap.add_argument("--max-seq", type=int, default=None,
                     help="--engine continuous: slot capacity (default the "
                          "prompt + gen rounded up to a page)")
-    for flag, kind in (("--tp", int), ("--mesh", str), ("--spec-k", int),
-                       ("--chaos", int), ("--track", str),
+    ap.add_argument("--spec-k", type=int, default=0, metavar="K",
+                    help="--engine continuous: speculative decoding, K "
+                         "drafts a round with exact acceptance (tokens and "
+                         "logprobs bitwise those of --spec-k 0)")
+    ap.add_argument("--draft-model", default="self",
+                    help='drafter for --spec-k: "self" (default), "auto" '
+                         "(the registry's pairing) or an arch name")
+    ap.add_argument("--chaos", type=int, default=None, metavar="SEED",
+                    help="--engine continuous: arm a seeded fault plan (pool "
+                         "exhaustion, slot revocation, decode stalls); "
+                         "tokens are bitwise invariant to it")
+    for flag, kind in (("--tp", int), ("--mesh", str), ("--track", str),
                        ("--trace-out", str)):
         ap.add_argument(flag, type=kind, default=None,
                         help="not ported yet: raises NotImplementedError")
@@ -172,6 +232,12 @@ def main(argv=None):
             raise NotImplementedError(why)
     if args.gen < 1:
         ap.error("--gen must be >= 1")
+    if args.chaos is not None and args.engine != "continuous":
+        ap.error("--chaos applies to --engine continuous")
+    if args.spec_k and args.engine != "continuous":
+        ap.error("--spec-k applies to --engine continuous")
+    if args.spec_k < 0:
+        ap.error("--spec-k must be >= 0")
     if args.engine == "continuous":
         if args.requests < 1 or args.slots < 1 or args.prompt_len < 1:
             ap.error("--requests, --slots and --prompt-len must be >= 1")

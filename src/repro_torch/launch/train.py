@@ -45,9 +45,13 @@ modeled_step(attn)=...``; as in the reference, the choice is logged, not
 applied to ``cfg.dash_schedule``, and "measure" ranks as "sim" does unless
 the tuner's cache holds a measured decision for the key. The last line is
 the reference's summary JSON, plus each step's wall time and, on the card,
-each step's kernel launches. ``--track``, ``--trace-out`` and ``--chaos``
-wait for ``obs`` and ``faults`` (ROADMAP A6-A7); ``--heartbeat`` for
-``launch/heartbeat.py`` (A10); ``--mesh`` for the distributed slice (A9).
+each step's kernel launches. ``--chaos SEED`` arms
+``FaultPlan.seeded_ckpt`` against the checkpoint writes (the reference's
+transient IO faults, each absorbed by the writer's bounded retry) and adds
+``chaos_plan``, ``chaos_faults_landed`` and ``chaos_landing_digest`` to the
+summary. ``--track`` and ``--trace-out`` wait for ``obs`` (ROADMAP A7);
+``--heartbeat`` for ``launch/heartbeat.py`` (A10); ``--mesh`` for the
+distributed slice (A9).
 """
 from __future__ import annotations
 
@@ -63,6 +67,7 @@ from repro_torch import resolve_device
 from repro_torch.ckpt import checkpoint as C
 from repro_torch.configs import registry
 from repro_torch.data.pipeline import DataConfig, make_source
+from repro_torch.faults import FaultPlan, Injector, armed_checkpoint
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_fwd import BLOCK
 from repro_torch.kernels.ops import launch_counts
@@ -83,6 +88,9 @@ def configure(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="stablelm-1.6b")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None, metavar="N",
+                    help="cut the model to N layers (depth only; the widths "
+                         "stay the config's)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
@@ -125,6 +133,11 @@ def configure(argv=None):
                          "choice: 'sim' ranks by modeled makespan; 'measure' "
                          "takes a measured decision from the tuner's cache "
                          "($REPRO_TORCH_TUNE_CACHE), else ranks as 'sim'")
+    ap.add_argument("--chaos", type=int, default=None, metavar="SEED",
+                    help="arm a seeded checkpoint-IO fault plan: saves at "
+                         "random --ckpt-every multiples fail their first "
+                         "1..IO_RETRIES write attempts, absorbed by the "
+                         "writer's bounded retry (the state is unchanged)")
     args = ap.parse_args(argv)
     if args.steps < 1:
         ap.error("--steps must be >= 1")
@@ -139,6 +152,11 @@ def configure(argv=None):
     cfg = registry.get(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.layers is not None:
+        if args.layers < 1 or args.layers % len(cfg.block_pattern):
+            ap.error(f"--layers must be a positive multiple of "
+                     f"{len(cfg.block_pattern)}")
+        cfg = cfg.replace(n_layers=args.layers)
     cfg = cfg.replace(attention_impl="cuda" if device.type == "cuda"
                       else "torch")
     if args.attn_window is not None:
@@ -280,44 +298,56 @@ def main(argv=None, on_step=None):
                       f"({len(chain)} records)", flush=True)
         step_ms, saves, profile, metrics, pending = [], [], None, None, None
         launches = []       # per step, on the card: each kernel's launches
-        for step in range(start, args.steps):
-            if args.die_at_step is not None and step == args.die_at_step:
-                print(f"simulated failure at step {step}", flush=True)
-                os._exit(17)
-            batch = data.batch(step)
-            profiling = step + 1 == args.profile_step
-            # the profiler starts before and is read after the timed step
-            with (_profiler(device) if profiling
-                  else contextlib.nullcontext()) as prof:
-                _sync(device)
-                before = launch_counts()
-                t0 = time.perf_counter()
-                state, metrics = step_fn(state, batch)
-                _sync(device)
-                step_ms.append((time.perf_counter() - t0) * 1e3)
-                launches.append({k: v - before[k]
-                                 for k, v in launch_counts().items()})
-            if profiling:
-                profile = _profile_summary(prof, device)
-            if chain is not None:
-                chain.append(step + 1, state)
-            if on_step is not None:
-                on_step(step + 1, state, metrics)
-            if (step + 1) % args.log_every == 0 or step == start:
-                m = S.step_event(metrics)
-                print(f"step {step + 1} loss={m['loss']:.4f} "
-                      f"gnorm={m['grad_norm']:.3f} lr={m['lr']:.2e} "
-                      f"({step_ms[-1]:.1f} ms)", flush=True)
-            if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
-                _join(pending, saves)
-                t0 = time.perf_counter()
-                thread = C.save(args.ckpt_dir, step + 1, state, async_=True,
-                                keep_last=args.ckpt_keep)
-                pending = (thread, dict(step=step + 1,
-                                        snapshot_s=time.perf_counter() - t0))
-                if chain is not None and chain_path:
-                    _write_chain(chain_path, chain)   # survives a crash
-        _join(pending, saves)
+        injector = None
+        if args.chaos is not None:
+            plan = FaultPlan.seeded_ckpt(args.chaos, steps=args.steps,
+                                         every=args.ckpt_every, rate=0.5,
+                                         max_failures=C.IO_RETRIES,
+                                         name=f"train-chaos-{args.chaos}")
+            injector = Injector(plan)
+            print(f"[chaos] armed {plan.key()} ({len(plan)} flaky saves; all "
+                  "within the writer's retry budget)", flush=True)
+        # the hook stays armed through the last async save's join: the
+        # writer thread consults it mid-write
+        with armed_checkpoint(injector):
+            for step in range(start, args.steps):
+                if step == args.die_at_step:
+                    print(f"simulated failure at step {step}", flush=True)
+                    os._exit(17)
+                batch = data.batch(step)
+                profiling = step + 1 == args.profile_step
+                # the profiler starts before and is read after the timed step
+                with (_profiler(device) if profiling
+                      else contextlib.nullcontext()) as prof:
+                    _sync(device)
+                    before = launch_counts()
+                    t0 = time.perf_counter()
+                    state, metrics = step_fn(state, batch)
+                    _sync(device)
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                    launches.append({k: v - before[k]
+                                     for k, v in launch_counts().items()})
+                if profiling:
+                    profile = _profile_summary(prof, device)
+                if chain is not None:
+                    chain.append(step + 1, state)
+                if on_step is not None:
+                    on_step(step + 1, state, metrics)
+                if (step + 1) % args.log_every == 0 or step == start:
+                    m = S.step_event(metrics)
+                    print(f"step {step + 1} loss={m['loss']:.4f} "
+                          f"gnorm={m['grad_norm']:.3f} lr={m['lr']:.2e} "
+                          f"({step_ms[-1]:.1f} ms)", flush=True)
+                if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+                    _join(pending, saves)
+                    t0 = time.perf_counter()
+                    thread = C.save(args.ckpt_dir, step + 1, state,
+                                    async_=True, keep_last=args.ckpt_keep)
+                    pending = (thread, dict(
+                        step=step + 1, snapshot_s=time.perf_counter() - t0))
+                    if chain is not None and chain_path:
+                        _write_chain(chain_path, chain)   # survives a crash
+            _join(pending, saves)
     finally:
         torch.use_deterministic_algorithms(was_deterministic)
     if profile is not None:
@@ -331,6 +361,13 @@ def main(argv=None, on_step=None):
         summary["launches"] = launches
     if args.ckpt_dir:
         summary.update(start_step=start, restore_s=restore_s, ckpt=saves)
+    if injector is not None:
+        summary["chaos_plan"] = injector.plan.key()
+        summary["chaos_faults_landed"] = len(injector.history)
+        summary["chaos_landing_digest"] = injector.history_digest()
+        print(f"[chaos] {len(injector.history)} injected IO failures "
+              f"absorbed by retry; landing digest "
+              f"{injector.history_digest()[:16]}", flush=True)
     if chain is not None:
         if chain_path:
             _write_chain(chain_path, chain)

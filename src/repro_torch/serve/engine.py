@@ -32,15 +32,28 @@ applies temperature then an exact-k top-k and reports
 ``torch.Generator``, so they are reproducible within the port but not equal
 to ``jax.random``'s.
 
-Not ported, and raising with their ROADMAP item: speculative decoding,
-fault injection with preemption and snapshots (A6), the tracker and span
+The contract survives faults (the reference's robustness layer): with
+``faults=`` an armed :class:`repro_torch.faults.Injector`, the engine
+absorbs KV-pool exhaustion, slot revocation and decode stalls by
+deterministic preemption (the victim is the active request with the highest
+id; its pages are freed and it is later restored by a chunked-prefill
+*recompute* of its generated prefix, its sampled tokens kept, never drawn
+again); ``max_queue_depth`` sheds by (request id, queue state);
+``deadline_steps`` cancels in engine steps, never wall time; and
+``snapshot_dir``/``snapshot_every`` persist the whole engine state
+(:mod:`repro_torch.serve.snapshot`) so that a crashed engine resumes every
+stream bitwise. ``spec_k >= 1`` drafts and verifies with exact acceptance
+(:mod:`repro_torch.serve.spec`): tokens and logprobs stay bitwise those of
+``spec_k=0``.
+
+Not ported, and raising with their ROADMAP item: the tracker and span
 profiler (A7), mesh-sharded serving (A9).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -229,14 +242,6 @@ class _Active:
 
 
 _UNPORTED = {
-    "spec_k": "speculative decoding (serve/spec.py) waits for ROADMAP A6",
-    "draft_cfg": "speculative decoding (serve/spec.py) waits for ROADMAP A6",
-    "draft_params": "speculative decoding (serve/spec.py) waits for ROADMAP "
-                    "A6",
-    "faults": "fault injection and preemption (faults/*) wait for ROADMAP A6",
-    "snapshot_dir": "engine snapshots (serve/snapshot.py) wait for ROADMAP A6",
-    "snapshot_every": "engine snapshots (serve/snapshot.py) wait for ROADMAP "
-                      "A6",
     "tracker": "the tracker and span profiler (obs/*) wait for ROADMAP A7",
     "run_id": "the tracker and span profiler (obs/*) wait for ROADMAP A7",
     "mesh": "mesh-sharded serving (serve/sharded.py) waits for ROADMAP A9",
@@ -257,18 +262,39 @@ def _to_device(device, *arrays):
     return out
 
 
+def paged(params, pools, cfg, device, toks, pos, table, wp, wo):
+    """One ``transformer.paged_step`` over host int arrays (copied to
+    ``device`` in one transfer); the pools are updated in place. Returns
+    the logits."""
+    toks, pos, table, wp, wo = _to_device(device, toks, pos, table, wp, wo)
+    return T.paged_step(params, pools, toks, pos, table, wp, wo, cfg)[0]
+
+
 class ContinuousEngine:
     """Continuous-batching deterministic engine over paged KV slots.
 
     The pools live on the params' device. ``capture_prefill_logits`` keeps
     each request's per-position prefill logits in ``prefill_logits[req_id]``
     (the train≡serve parity cell); ``max_queue_depth`` bounds pending
-    requests (``submit`` beyond it raises :class:`QueueFull`). Besides the
-    reference's telemetry (``decode_steps``, ``engine_steps``), the engine
-    keeps host-clock records that end in a device sync anyway: ``run_s``
-    (the last :meth:`run`), ``decode_s`` (each decode step, sampler
-    included) and, per request, ``first_token_step`` and ``ttft_s`` (submit
-    → first token on the host)."""
+    requests (``submit`` beyond it raises :class:`QueueFull`).
+
+    Robustness knobs (all off by default, and the default path is the same
+    with or without them): ``faults``, an armed
+    :class:`repro_torch.faults.Injector` whose plan the engine consumes at
+    each engine step; ``snapshot_dir`` + ``snapshot_every``, a full engine
+    snapshot every N engine steps (:meth:`from_snapshot` resumes after a
+    crash). ``spec_k >= 1`` runs speculative rounds
+    (:class:`repro_torch.serve.spec.Speculator`); ``draft_params`` (with an
+    optional ``draft_cfg`` of the same vocabulary) selects a separate
+    drafter, else the target drafts for itself.
+
+    Besides the reference's telemetry (``decode_steps``, ``engine_steps``,
+    ``preemptions``), the engine keeps host records that end in a device
+    sync anyway: ``run_s`` (the last :meth:`run`), ``decode_s`` (each decode
+    step or speculative round, sampler included), ``snapshot_s`` (each
+    snapshot save), ``restore_positions`` (the positions each
+    recompute-restore ran through the prefill) and, per request,
+    ``first_token_step`` and ``ttft_s`` (submit → first token on the host)."""
 
     def __init__(self, cfg, params, *, n_slots: int = 4, max_seq: int = 128,
                  page_size: int = 16, n_pages: Optional[int] = None,
@@ -279,12 +305,9 @@ class ContinuousEngine:
                  snapshot_every: Optional[int] = None,
                  spec_k: int = 0, draft_cfg=None, draft_params=None,
                  run_id: Optional[str] = None):
-        asked = dict(spec_k=spec_k, draft_cfg=draft_cfg,
-                     draft_params=draft_params, faults=faults,
-                     snapshot_dir=snapshot_dir, snapshot_every=snapshot_every,
-                     tracker=tracker, run_id=run_id, mesh=mesh)
-        for name, value in asked.items():
-            if value:
+        for name, value in (("tracker", tracker), ("run_id", run_id),
+                            ("mesh", mesh)):
+            if value is not None:
                 raise NotImplementedError(f"ContinuousEngine({name}=...): "
                                           f"{_UNPORTED[name]}")
         if not T.supports_paged(cfg):
@@ -310,18 +333,36 @@ class ContinuousEngine:
         self._capture = capture_prefill_logits
         self._next_id = 0
         self.decode_steps = 0
-        self.engine_steps = 0               # the deterministic clock
+        # ----- robustness state (inert until a knob or a fault uses it)
+        self.faults = faults
         self.max_queue_depth = max_queue_depth
+        self.snapshot_dir, self.snapshot_every = snapshot_dir, snapshot_every
+        self.engine_steps = 0               # the deterministic clock
         self.preemptions = 0
         self.rejected: Dict[int, str] = {}          # req_id -> shed reason
         self.cancelled: Dict[int, np.ndarray] = {}  # req_id -> partial tokens
         self._deadline: Dict[int, int] = {}         # req_id -> absolute step
+        # req_id -> (produced, logprobs) of a preempted request awaiting its
+        # recompute-restore
+        self._resume: Dict[int, Tuple[List[int], List[float]]] = {}
+        self._stall_until = 0               # no decode before this step
+        self._quarantine: List[Tuple[int, List[int]]] = []  # (release, pages)
         # host-clock records (each ends in the step's device sync)
         self.run_s: Optional[float] = None
         self.decode_s: List[float] = []
+        self.snapshot_s: List[float] = []
+        self.restore_positions: List[int] = []
         self.first_token_step: Dict[int, int] = {}
         self.ttft_s: Dict[int, float] = {}
         self._submit_t: Dict[int, float] = {}
+
+        self.spec = None
+        if spec_k:
+            from repro_torch.serve.spec import Speculator
+            self.spec = Speculator(self, spec_k, draft_cfg=draft_cfg,
+                                   draft_params=draft_params)
+        elif draft_params is not None or draft_cfg is not None:
+            raise ValueError("draft_cfg/draft_params require spec_k >= 1")
 
     # ------------------------------------------------------------ request API
     def submit(self, tokens, *, req_id: Optional[int] = None,
@@ -370,10 +411,13 @@ class ContinuousEngine:
     def run(self) -> Dict[int, np.ndarray]:
         """Drive steps until every submitted request finished; return the
         completed requests' tokens (shed ones are in ``rejected``,
-        deadline-cancelled ones in ``cancelled``)."""
+        deadline-cancelled ones in ``cancelled``). Pages an injected
+        exhaustion still holds are released when the stream drains, so a
+        drained engine has its whole pool back."""
         t0 = time.perf_counter()
         while not self.sched.idle:
             self.step()
+        self._release_quarantine(self.engine_steps, force=True)
         self.run_s = time.perf_counter() - t0
         return {rid: np.asarray(toks, np.int32)
                 for rid, toks in self.results.items()}
@@ -396,41 +440,65 @@ class ContinuousEngine:
         return fits
 
     def _step(self, toks, pos, table, wp, wo):
-        toks, pos, table, wp, wo = _to_device(self.device, toks, pos, table,
-                                              wp, wo)
-        logits, self.cache.pools = T.paged_step(
-            self.params, self.cache.pools, toks, pos, table, wp, wo,
-            self.cfg)
-        return logits
+        return paged(self.params, self.cache.pools, self.cfg, self.device,
+                     toks, pos, table, wp, wo)
 
-    def _chunked_prefill(self, slot: int, tokens: np.ndarray,
-                         rows_out: Optional[list] = None):
-        """Run ``tokens`` through the paged step in fixed-size ``(1, chunk)``
-        steps, writing their K/V into ``slot``'s pages; returns the last
-        chunk's logits."""
+    def chunks(self, slot: int, tokens: np.ndarray):
+        """The fixed-size ``(1, chunk)`` steps that write ``tokens``' K/V
+        into ``slot``'s pages: per chunk (tokens, positions, page table,
+        write pages, write offsets) as host arrays. Fresh prefill, the
+        recompute-restore and a separate drafter's prefill all run these."""
         plen, c = len(tokens), self.prefill_chunk
         table = self.cache.page_table[[slot]]
-        logits = None
         for start in range(0, plen, c):
             pos = np.arange(start, start + c, dtype=np.int32)
             valid = pos < plen
             toks = np.where(valid, tokens[np.minimum(pos, plen - 1)], 0)
             wp, wo = self.cache.write_targets(slot, pos, valid)
-            logits = self._step(toks[None], pos[None], table, wp, wo)
+            yield toks[None], pos[None], table, wp, wo
+
+    def _chunked_prefill(self, slot: int, tokens: np.ndarray,
+                         rows_out: Optional[list] = None):
+        """Run ``tokens`` through the paged step chunk by chunk; returns the
+        last chunk's logits."""
+        plen, c = len(tokens), self.prefill_chunk
+        logits = None
+        for i, chunk in enumerate(self.chunks(slot, tokens)):
+            logits = self._step(*chunk)
             if rows_out is not None:    # valid rows only, fp32 (bitwise)
-                rows_out.append(logits[0, :min(c, plen - start)].cpu()
+                rows_out.append(logits[0, :min(c, plen - i * c)].cpu()
                                 .numpy())
         return logits
 
     def _prefill(self, slot: int, req: Request) -> None:
-        """Chunked prefill of one request; samples its first token."""
+        """Chunked prefill of one request; samples its first token.
+
+        For a preempted request (``_resume`` holds its generated prefix)
+        this is the restore: recompute K/V over ``prompt + produced[:-1]``,
+        every position the decode loop had written, and keep the tokens
+        and logprobs as they were. Nothing is sampled again, so the
+        continuation is bitwise that of a request never preempted."""
         lay = self.cache.layout
         self.cache.alloc(slot, lay.pages_for(len(req.tokens)
                                              + req.max_new_tokens))
+        resume = self._resume.pop(req.id, None)
+        if resume is not None:
+            produced, lps = resume
+            prefix = np.asarray(list(req.tokens) + list(produced[:-1]),
+                                np.int32)
+            self._chunked_prefill(slot, prefix)
+            if self.spec is not None:
+                self.spec.prefill(self, slot, prefix)
+            self.restore_positions.append(len(prefix))
+            self._slots[slot] = st = _Active(req, list(produced), list(lps))
+            self._finish_check(st)
+            return
         plen, c = len(req.tokens), self.prefill_chunk
         rows_out = [] if self._capture else None
-        logits = self._chunked_prefill(slot, np.asarray(req.tokens, np.int32),
-                                       rows_out)
+        prompt = np.asarray(req.tokens, np.int32)
+        logits = self._chunked_prefill(slot, prompt, rows_out)
+        if self.spec is not None:
+            self.spec.prefill(self, slot, prompt)
         if self._capture:
             self.prefill_logits[req.id] = np.concatenate(rows_out, axis=0)
         tok, lp = _sample_rows(logits[:, (plen - 1) % c], [req.id], [0],
@@ -448,16 +516,82 @@ class ContinuousEngine:
                 or len(st.produced) >= st.req.max_new_tokens):
             st.done = True
 
+    # ------------------------------------------------------ fault machinery
+    def _victim(self) -> Optional[int]:
+        """The preemption victim: the active slot holding the highest
+        request id (the youngest stream loses), or None."""
+        if not self._slots:
+            return None
+        return max(self._slots, key=lambda s: self._slots[s].req.id)
+
+    def _preempt(self, slot: int) -> None:
+        """Evict one active request: free its pages now, keep its generated
+        prefix, and queue it again for recompute-restore (``_prefill``)."""
+        st = self._slots.pop(slot)
+        self._resume[st.req.id] = (list(st.produced), list(st.logprobs))
+        self.cache.free_slot(slot)
+        self.sched.release(slot)
+        self.sched.submit(st.req)       # back in FCFS at its original id
+        self.preemptions += 1
+
+    def _apply_faults(self, step_idx: int) -> None:
+        """Consume this step's scheduled faults. May raise ``EngineCrash``."""
+        from repro_torch.faults import EngineCrash
+        for f in self.faults.step_faults(step_idx):
+            if f.kind == "crash":
+                if self.faults.consume_crash(f):
+                    self.faults.record(f, engine_step=step_idx)
+                    raise EngineCrash(step_idx)
+            elif f.kind == "decode_stall":
+                self._stall_until = max(self._stall_until, step_idx + f.arg)
+                self.faults.record(f, engine_step=step_idx,
+                                   stalled_until=self._stall_until)
+            elif f.kind == "revoke_slot":
+                revoked = []
+                for _ in range(max(1, f.arg)):
+                    victim = self._victim()
+                    if victim is None:
+                        break
+                    revoked.append(self._slots[victim].req.id)
+                    self._preempt(victim)
+                self.faults.record(f, engine_step=step_idx, victims=revoked)
+            elif f.kind == "pool_exhaust":
+                want = min(f.arg, self.cache.layout.n_pages)
+                evicted = []
+                while self.cache.free_pages < want:
+                    victim = self._victim()
+                    if victim is None:
+                        break
+                    evicted.append(self._slots[victim].req.id)
+                    self._preempt(victim)
+                pages = self.cache.quarantine(min(want,
+                                                  self.cache.free_pages))
+                if pages:
+                    self._quarantine.append((step_idx + f.duration, pages))
+                self.faults.record(f, engine_step=step_idx, pages=len(pages),
+                                   victims=evicted)
+
+    def _release_quarantine(self, step_idx: int, force: bool = False) -> None:
+        keep = []
+        for release, pages in self._quarantine:
+            if force or release <= step_idx:
+                self.cache.release_quarantine(pages)
+            else:
+                keep.append((release, pages))
+        self._quarantine = keep
+
     def _cancel_expired(self, step_idx: int) -> None:
         """Cancel every request whose step deadline has passed: pending ones
-        leave the queue, active ones free their slot and pages now; partial
-        tokens go to ``cancelled`` (never ``results``)."""
+        leave the queue, active ones free their slot and pages now; the
+        tokens produced so far (a preempted request's too) go to
+        ``cancelled``, never ``results``."""
         if not self._deadline:
             return
         for rid in sorted(self.sched.pending):
             if self._deadline.get(rid, step_idx + 1) <= step_idx:
                 del self.sched.pending[rid]
-                self.cancelled[rid] = np.zeros((0,), np.int32)
+                produced, _ = self._resume.pop(rid, ([], []))
+                self.cancelled[rid] = np.asarray(produced, np.int32)
                 del self._deadline[rid]
         for slot in sorted(self._slots):
             rid = self._slots[slot].req.id
@@ -468,42 +602,55 @@ class ContinuousEngine:
                 self.sched.release(slot)
                 del self._deadline[rid]
 
+    def _decode(self, live: List[int]) -> None:
+        """One batched ``(n_slots, 1)`` decode step over the live slots."""
+        lay = self.cache.layout
+        n = lay.n_slots
+        toks = np.zeros((n, 1), np.int32)
+        pos = np.zeros((n, 1), np.int32)
+        wp = np.full(n, lay.trash_page, np.int32)
+        wo = np.arange(n, dtype=np.int32) % lay.page_size
+        rids = np.zeros(n, np.int64)
+        steps = np.zeros(n, np.int64)
+        for s in live:
+            st = self._slots[s]
+            toks[s, 0] = st.produced[-1]
+            pos[s, 0] = st.next_pos
+            wp[s], wo[s] = (a[0] for a in self.cache.write_targets(
+                s, np.asarray([st.next_pos]), np.asarray([True])))
+            rids[s] = st.req.id
+            steps[s] = len(st.produced)
+        logits = self._step(toks, pos, self.cache.page_table, wp, wo)
+        self.decode_steps += 1
+        nxt, lps = _sample_rows(logits[:, 0], rids, steps, self.scfg)
+        nxt, lps = nxt.cpu().numpy(), lps.cpu().numpy()
+        for s in live:
+            st = self._slots[s]
+            st.produced.append(int(nxt[s]))
+            st.logprobs.append(float(lps[s]))
+            self._finish_check(st)
+
     def step(self) -> None:
-        """One engine step: deadline sweep → admit + prefill → one batched
-        decode step over the live slots → reap."""
+        """One engine step: faults → quarantine release → deadline sweep →
+        admit + prefill → one batched decode step (or one speculative round)
+        over the live slots → reap → snapshot. ``engine_steps`` is the
+        deterministic clock every fault, deadline and snapshot keys to."""
         step_idx = self.engine_steps
+        if self.faults is not None:
+            self._apply_faults(step_idx)            # may raise EngineCrash
+        self._release_quarantine(step_idx)
         self._cancel_expired(step_idx)
         for slot, req in self.sched.admit(self._admission_check()):
             self._prefill(slot, req)
 
-        live = [s for s, st in self._slots.items() if not st.done]
+        live = ([] if step_idx < self._stall_until
+                else [s for s, st in self._slots.items() if not st.done])
         if live:
             t0 = time.perf_counter()
-            lay = self.cache.layout
-            n = lay.n_slots
-            toks = np.zeros((n, 1), np.int32)
-            pos = np.zeros((n, 1), np.int32)
-            wp = np.full(n, lay.trash_page, np.int32)
-            wo = np.arange(n, dtype=np.int32) % lay.page_size
-            rids = np.zeros(n, np.int64)
-            steps = np.zeros(n, np.int64)
-            for s in live:
-                st = self._slots[s]
-                toks[s, 0] = st.produced[-1]
-                pos[s, 0] = st.next_pos
-                wp[s], wo[s] = (a[0] for a in self.cache.write_targets(
-                    s, np.asarray([st.next_pos]), np.asarray([True])))
-                rids[s] = st.req.id
-                steps[s] = len(st.produced)
-            logits = self._step(toks, pos, self.cache.page_table, wp, wo)
-            self.decode_steps += 1
-            nxt, lps = _sample_rows(logits[:, 0], rids, steps, self.scfg)
-            nxt, lps = nxt.cpu().numpy(), lps.cpu().numpy()
-            for s in live:
-                st = self._slots[s]
-                st.produced.append(int(nxt[s]))
-                st.logprobs.append(float(lps[s]))
-                self._finish_check(st)
+            if self.spec is not None:
+                self.spec.round(self, live)
+            else:
+                self._decode(live)
             self.decode_s.append(time.perf_counter() - t0)
 
         for s in [s for s, st in self._slots.items() if st.done]:
@@ -515,10 +662,33 @@ class ContinuousEngine:
             self.cache.free_slot(s)
             self.sched.release(s)
         self.engine_steps = step_idx + 1
+        if (self.snapshot_dir is not None and self.snapshot_every
+                and self.engine_steps % self.snapshot_every == 0):
+            self.save_snapshot()
 
+    # ------------------------------------------------------ snapshot/restore
     def save_snapshot(self, directory: Optional[str] = None) -> int:
-        raise NotImplementedError(_UNPORTED["snapshot_dir"])
+        """Persist the whole engine state (scheduler, page tables, per-slot
+        decode state, emitted tokens, KV pools) at the current engine step
+        (:mod:`repro_torch.serve.snapshot`). Returns the snapshot's step."""
+        from repro_torch.serve import snapshot as SN
+        t0 = time.perf_counter()
+        step = SN.save_engine_snapshot(self, directory or self.snapshot_dir)
+        self.snapshot_s.append(time.perf_counter() - t0)
+        return step
 
     @classmethod
-    def from_snapshot(cls, *args, **kwargs) -> "ContinuousEngine":
-        raise NotImplementedError(_UNPORTED["snapshot_dir"])
+    def from_snapshot(cls, directory: str, cfg, params, *,
+                      step: Optional[int] = None, faults=None, tracker=None,
+                      mesh=None, draft_cfg=None,
+                      draft_params=None) -> "ContinuousEngine":
+        """Rebuild an engine from a snapshot (the latest by default) on the
+        params' device, ready to :meth:`run`: every stream in flight
+        finishes bitwise as in an uncrashed run. A snapshot taken with a
+        separate drafter needs ``draft_params`` (and ``draft_cfg`` if one
+        was given): params are never stored, the drafter's pools are."""
+        from repro_torch.serve import snapshot as SN
+        return SN.restore_engine(directory, cfg, params, step=step,
+                                 faults=faults, tracker=tracker, mesh=mesh,
+                                 draft_cfg=draft_cfg,
+                                 draft_params=draft_params)

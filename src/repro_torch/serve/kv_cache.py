@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import heapq
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -52,8 +52,24 @@ class PagedLayout:
         return self.n_pages
 
     def pages_for(self, n_tokens: int) -> int:
-        """Worst-case page count for ``n_tokens`` positions."""
+        """Worst-case page count for ``n_tokens`` positions. It covers
+        speculative decoding with no extra reservation: a round clamps each
+        slot's draft to ``min(spec_k, max_new - produced - 1)``, so no draft
+        or verify step writes past ``prompt_len + max_new - 2``, and a
+        rejected draft's K/V is overwritten by the next round before any
+        query reads it (:mod:`repro_torch.serve.spec`)."""
         return -(-n_tokens // self.page_size)
+
+    def check_spec_write(self, prompt_len: int, max_new: int,
+                         position: int) -> None:
+        """A draft/verify K/V write must stay inside the slot's
+        admission-time reservation."""
+        if position > prompt_len + max_new - 2:
+            raise ValueError(
+                f"speculative write at position {position} exceeds the "
+                f"reserved worst case {prompt_len + max_new - 2} "
+                f"(prompt {prompt_len} + max_new {max_new}); the per-slot "
+                "draft clamp is broken")
 
 
 class PagedKVCache:
@@ -93,6 +109,21 @@ class PagedKVCache:
             heapq.heappush(self._free, int(self.page_table[slot, j]))
         self.page_table[slot, :] = self.layout.trash_page
         self.pages_held[slot] = 0
+
+    # ----------------------------------------------------- fault injection
+    def quarantine(self, n_pages: int) -> List[int]:
+        """Withdraw the ``n_pages`` lowest-id free pages from the pool (the
+        fault-injection form of memory pressure): admission and ``alloc``
+        see a smaller pool; no slot's pages move. Hand them back with
+        :meth:`release_quarantine`."""
+        if n_pages > self.free_pages:
+            raise PoolExhausted(-1, n_pages, self.free_pages)
+        return [heapq.heappop(self._free) for _ in range(n_pages)]
+
+    def release_quarantine(self, pages: List[int]) -> None:
+        """Return quarantined pages to the free pool."""
+        for p in pages:
+            heapq.heappush(self._free, int(p))
 
     def write_targets(self, slot: int, positions: np.ndarray,
                       valid: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:

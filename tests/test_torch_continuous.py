@@ -8,8 +8,9 @@ reference's single-device invariance suite
 (``tests/test_serve_invariance.py``): a request's tokens *and logprobs* are
 bitwise the same across co-batch, batch size and slot count, arrival order,
 prefill chunk, prompt padding, page reuse, run to run, greedy and sampled;
-plus the logprob contract, EOS, deadlines and load shedding, and the knobs
-that raise until their ROADMAP items land."""
+plus the logprob contract, EOS, deadlines and load shedding; the launcher's
+``--spec-k``, ``--draft-model`` and ``--chaos``; and the knobs that raise
+until their ROADMAP items land."""
 import jax
 import numpy as np
 import pytest
@@ -350,24 +351,20 @@ def test_engine_telemetry(setup):
 
 
 # ------------------------------------------------------------ not ported
-@pytest.mark.parametrize("knob", ["spec_k", "draft_cfg", "draft_params",
-                                  "faults", "snapshot_dir", "snapshot_every",
-                                  "tracker", "run_id", "mesh"])
+@pytest.mark.parametrize("knob", ["tracker", "run_id", "mesh"])
 def test_unported_knobs_raise(setup, knob):
     cfg, params, _ = setup
-    value = {"spec_k": 2, "snapshot_every": 4, "snapshot_dir": "x",
-             "run_id": "r"}.get(knob, object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A[679]"):
+    value = {"run_id": "r"}.get(knob, object())
+    with pytest.raises(NotImplementedError, match="ROADMAP A[79]"):
         TE.ContinuousEngine(cfg, params, **{knob: value})
 
 
-def test_snapshots_raise(setup):
+@pytest.mark.parametrize("knob", ["draft_cfg", "draft_params"])
+def test_drafter_without_spec_k_raises(setup, knob):
     cfg, params, _ = setup
-    eng = TE.ContinuousEngine(cfg, params)
-    with pytest.raises(NotImplementedError, match="A6"):
-        eng.save_snapshot("x")
-    with pytest.raises(NotImplementedError, match="A6"):
-        TE.ContinuousEngine.from_snapshot("x", cfg, params)
+    value = cfg if knob == "draft_cfg" else params
+    with pytest.raises(ValueError, match="require spec_k >= 1"):
+        TE.ContinuousEngine(cfg, params, **{knob: value})
 
 
 def test_launcher_continuous_on_cpu(capsys):
@@ -381,10 +378,76 @@ def test_launcher_continuous_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flag", [["--tp", "2"], ["--mesh", "2x2"],
-                                  ["--spec-k", "2"], ["--chaos", "3"],
                                   ["--track", "t.jsonl"],
                                   ["--trace-out", "t.json"]])
 def test_launcher_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP A[679]"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A[79]"):
         tlaunch.main(["--engine", "continuous", "--reduced", "--device",
                       "cpu"] + flag)
+
+
+LAUNCH = ["--engine", "continuous", "--reduced", "--device", "cpu",
+          "--requests", "6", "--slots", "3", "--prompt-len", "24", "--gen",
+          "8"]
+
+
+@pytest.fixture(scope="module")
+def launched_plain():
+    return tlaunch.main(LAUNCH)
+
+
+def _same_streams(a, b):
+    assert sorted(a.results) == sorted(b.results)
+    for i in a.results:
+        np.testing.assert_array_equal(a.results[i], b.results[i])
+        np.testing.assert_array_equal(a.result_logprobs[i],
+                                      b.result_logprobs[i])
+
+
+@pytest.mark.parametrize("draft", ["self", "auto"])
+def test_launcher_spec_k_self_draft(launched_plain, draft, capsys):
+    eng = tlaunch.main(LAUNCH + ["--spec-k", "2", "--draft-model", draft])
+    _same_streams(launched_plain, eng)
+    assert eng.spec.self_draft and eng.spec.acceptance_rate() == 1.0
+    assert eng.decode_steps < launched_plain.decode_steps
+    assert "speculation: k=2 self-draft" in capsys.readouterr().out
+
+
+def test_launcher_draft_model_arch(launched_plain, capsys):
+    """A separate drafter of another arch (reduced Qwen1.5-110B, vocab 512
+    like the target's), its weights from --seed + 1."""
+    eng = tlaunch.main(LAUNCH + ["--spec-k", "2", "--draft-model",
+                                 "qwen1.5-110b"])
+    _same_streams(launched_plain, eng)
+    assert not eng.spec.self_draft and eng.spec.dcfg.name == "qwen1.5-110b"
+    assert eng.spec.draft_steps > 0
+    out = capsys.readouterr().out
+    assert "drafter: qwen1.5-110b" in out and "separate drafter" in out
+
+
+def test_launcher_chaos(launched_plain, capsys):
+    from repro_torch.faults import FaultPlan
+    eng = tlaunch.main(LAUNCH + ["--chaos", "3"])
+    _same_streams(launched_plain, eng)
+    plan = FaultPlan.seeded(3, steps=16 * 8, rate=0.2, name="serve-chaos-3")
+    assert eng.faults.plan == plan and eng.faults.history
+    assert eng.cache.free_pages == eng.cache.layout.n_pages
+    out = capsys.readouterr().out
+    assert f"chaos armed: {plan.key()}" in out
+    assert f"landing digest {eng.faults.history_digest()[:16]}" in out
+
+
+def test_launcher_chaos_with_spec(launched_plain):
+    eng = tlaunch.main(LAUNCH + ["--chaos", "1", "--spec-k", "3"])
+    _same_streams(launched_plain, eng)
+
+
+@pytest.mark.parametrize("argv", [["--spec-k", "2"], ["--chaos", "1"]])
+def test_launcher_spec_and_chaos_need_the_continuous_engine(argv):
+    with pytest.raises(SystemExit):
+        tlaunch.main(["--reduced", "--device", "cpu"] + argv)
+
+
+def test_launcher_rejects_a_negative_spec_k():
+    with pytest.raises(SystemExit):
+        tlaunch.main(LAUNCH + ["--spec-k", "-1"])

@@ -665,3 +665,73 @@ def test_reduced_continuous_engine_on_the_card():
         for i in ids:
             assert np.array_equal(got[i], full[i]), (ids, kw, i)
             assert np.array_equal(got_lps[i], lps[i]), (ids, kw, i)
+
+
+def _reduced_serving(n_layers=2):
+    cfg = registry.get("stablelm-1.6b").reduced(n_layers=n_layers)
+    params = T.init(cfg, seed=0, device="cuda")
+    gen = torch.Generator().manual_seed(0)
+    prompts = {i: torch.randint(1, cfg.vocab, (n,), generator=gen).tolist()
+               for i, n in enumerate((5, 13, 32, 7, 21))}
+    return cfg, params, prompts
+
+
+@torch.inference_mode()
+def test_reduced_spec_self_draft_is_plain_decoding_on_the_card():
+    """Self-draft speculation (k=3) on the card: tokens and logprobs bitwise
+    the plain engine's, greedy and sampled; k + 1 paged attentions a layer a
+    round."""
+    _card()
+    from repro_torch.kernels import decode as D
+    from repro_torch.serve.engine import ContinuousEngine, SampleConfig
+    cfg, params, prompts = _reduced_serving()
+
+    def run(scfg, **kw):
+        eng = ContinuousEngine(cfg, params, n_slots=3, max_seq=64,
+                               page_size=8, prefill_chunk=16, scfg=scfg, **kw)
+        for i, p in prompts.items():
+            eng.submit(p, req_id=i, max_new_tokens=9)
+        return eng.run(), eng
+
+    for scfg in (SampleConfig(), SampleConfig(temperature=0.7, top_k=20,
+                                              seed=11)):
+        base, plain = run(scfg)
+        before = D.launches
+        got, eng = run(scfg, spec_k=3)
+        chunks = sum(-(-len(p) // 16) for p in prompts.values())
+        assert D.launches - before == cfg.n_layers * (
+            chunks + 4 * eng.spec.rounds)
+        assert eng.spec.acceptance_rate() == 1.0
+        for i in prompts:
+            assert np.array_equal(got[i], base[i]), (scfg, i)
+            assert np.array_equal(eng.result_logprobs[i],
+                                  plain.result_logprobs[i]), (scfg, i)
+
+
+@torch.inference_mode()
+def test_snapshot_round_trip_on_the_card(tmp_path):
+    """An engine snapshot saved mid-run on the card restores onto the card
+    digest-equal (pools and host state), and both finish bitwise alike."""
+    _card()
+    from repro_torch.serve import snapshot as SN
+    from repro_torch.serve.engine import ContinuousEngine
+    from repro_torch.verify.digest import tree_leaf_digests
+    cfg, params, prompts = _reduced_serving()
+    eng = ContinuousEngine(cfg, params, n_slots=3, max_seq=64, page_size=8,
+                           prefill_chunk=16)
+    for i, p in prompts.items():
+        eng.submit(p, req_id=i, max_new_tokens=9)
+    for _ in range(4):
+        eng.step()
+    eng.save_snapshot(str(tmp_path))
+    eng2 = ContinuousEngine.from_snapshot(str(tmp_path), cfg, params)
+    pools = eng2.cache.pools["b0_attn"]["attn"][0]
+    assert pools.is_cuda
+    assert tree_leaf_digests(SN._pool_tree(eng2.cache.pools)) == \
+        tree_leaf_digests(SN._pool_tree(eng.cache.pools))
+    assert SN._host_state(eng2) == SN._host_state(eng)
+    a, b = eng.run(), eng2.run()
+    for i in prompts:
+        assert np.array_equal(a[i], b[i])
+        assert np.array_equal(eng.result_logprobs[i],
+                              eng2.result_logprobs[i])
