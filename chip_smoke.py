@@ -41,7 +41,12 @@ Phases, each reported on its own line:
                integer views, so NaNs compare) on the same inputs; and a
                printed finding: whether
                torch.matmul, F.layer_norm and torch.log_softmax give rows the
-               same bits at M = 1, 4, 32 on this card;
+               same bits at M = 1, 4, 32 on this card; and the state
+               fingerprint (``csrc/fingerprint.cu``) equal to its plain
+               version as uint32s on leaves of every covered dtype (0-dim,
+               1, 7, 1000, 2^20+3 elements, aligned and not) and leaf by
+               leaf on the full-width train state (~16 GB), where a
+               one-bit flip and a swap must each change it, timed there;
   4. serve   — serve StableLM-1.6B at full width and depth in bf16 (random
                weights, seed 0) through the static engine: greedy, batch 4,
                prompt 512, 32 new tokens. Checks that the prefill launched the
@@ -82,14 +87,25 @@ Phases, each reported on its own line:
                (the recompute-restores' chunks included); the plan key,
                faults landed, preemptions, landing digest, the snapshot's
                bytes and its save and restore seconds;
+     serve-obs — the same traffic with ``--track`` and ``--trace-out``,
+               plain and ``--spec-k 4``: bitwise the unarmed runs, launches
+               and span counts as the engine's telemetry predicts, a valid
+               trace with modeled and achieved lanes; RunReport's TTFT and
+               per-token percentiles beside the engine's TTFT;
   5. train   — train StableLM-1.6B at full width and depth (bf16, AdamW,
                remat, causal, B=4, S=1024, 3 steps, warmup 1, ``--tune sim``,
                which prints the tuner's pick and changes nothing else) through
                the DASH kernels, twice from seed 0 under
                ``torch.use_deterministic_algorithms``: equal state digests
                after every step, weights that move, the launch counts remat
-               predicts, step 1 against the plain attention's step, then one
-               profiled step;
+               predicts (and one fingerprint a step), step 1 against the
+               plain attention's step, then one profiled step. Run 1 is
+               tracked (``--track``, ``--trace-out``), run 2 against run 1's
+               file (``--track-reference``): ``fingerprint_ok`` in both,
+               equal fingerprint streams, a clean ``diff_runs``, a valid
+               trace with a data, step and digest span a step; each step's
+               ``utilization_vs_modeled`` printed (``[obs]``). The
+               train-window and dash-paper phases run the same way;
   6. train-resume — the train phase's flags (full width and depth) as two
                launcher subprocesses with a checkpoint after every step (in
                a temporary directory on tmpfs, the newest one kept): run
@@ -168,7 +184,8 @@ Phases, each reported on its own line:
                torch.log_softmax), each serving kernel also beside its
                first design in turns (``v1_ms``), bitwise equal to it at
                every timed shape (the norm also at a prefill chunk's M = 32,
-               the log-softmax at M = 1).
+               the log-softmax at M = 1); the fingerprint's entry is timed
+               in its kernel check, at the full-width train state.
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script exits
 non-zero and prints no result; so does a machine without CUDA.
@@ -226,6 +243,10 @@ from repro_torch.verify import lifecycle as LC  # noqa: E402
 from repro_torch.faults import (EngineCrash, Fault, FaultPlan,  # noqa: E402
                                 Injector)
 from repro_torch.faults import conformance as CF  # noqa: E402
+from repro_torch.kernels import fingerprint as FPK  # noqa: E402
+from repro_torch import obs as OBS  # noqa: E402
+from repro_torch.obs import export as OBS_EX  # noqa: E402
+from repro_torch.verify import digest as DG  # noqa: E402
 
 # H100 SXM, NVIDIA's data sheet (dense, at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -355,6 +376,12 @@ TRAIN_CHAOS_SEED = 3
 TRAIN_CHAOS_ARGV = ["--arch", "stablelm-1.6b", "--layers", "2", "--batch",
                     "2", "--seq", "1024", "--steps", "4", "--ckpt-every", "1",
                     "--ckpt-keep", "1", "--verify", "--log-every", "1"]
+# [kernel-check] fingerprint: element counts of the small leaves (the 0-dim
+# leaf besides), each also as views 1 and 3 elements in (unaligned), and
+# the state the full-width train step carries (StableLM-1.6B, AdamW)
+FP_SIZES = (1, 7, 1000, (1 << 20) + 3)
+# the achieved lane of a --trace-out: attention_timeline's warm-up and reps
+TIMELINE_BWD_CALLS = 4
 # the GEMM kernel's fp32 product vs its plain version: both sum the same
 # exact products in fp32, in another order (up to 5632 terms of |x w| of a
 # few 1e-2)
@@ -586,6 +613,7 @@ _counts = ops.launch_counts
 def _zero_counts():
     FF.launches = FF.launches_full = FF.launches_mask = 0
     FB.launches_worker = FB.launches_serial = FB.launches_fold = 0
+    FPK.launches = 0
 
 
 def _bwd_operands(b, h, hk, s, d, dtype, causal, seed, mask=None):
@@ -919,7 +947,8 @@ def run_train(argv=TRAIN_ARGV, label="train"):
     args, cfg, tcfg, data, device = launch_train.configure(argv)
     fwd = "fwd_mask" if cfg.attn_window else "fwd_causal"
     want = dict(fwd_causal=0, fwd_full=0, fwd_mask=0,
-                bwd_worker=cfg.n_layers, bwd_serial=0, fold=cfg.n_layers)
+                bwd_worker=cfg.n_layers, bwd_serial=0, fold=cfg.n_layers,
+                fingerprint=int(args.verify))
     want[fwd] = 2 * cfg.n_layers
     batch0 = data.batch(0)
 
@@ -946,6 +975,11 @@ def run_train(argv=TRAIN_ARGV, label="train"):
     del ga, gp
 
     runs = []
+    track_dir = tempfile.mkdtemp(prefix="repro_torch_track_")
+    track = [os.path.join(track_dir, f"run{i}.jsonl") for i in range(2)]
+    trace = os.path.join(track_dir, "run0.json")
+    obs_flags = [["--track", track[0], "--trace-out", trace],
+                 ["--track", track[1], "--track-reference", track[0]]]
     for run in range(2):
         counts, metrics1, changed = [], {}, []
 
@@ -960,8 +994,8 @@ def run_train(argv=TRAIN_ARGV, label="train"):
                 changed.append(sum(int((x != y).sum()) for x, y in zip(
                     O.tree_leaves(state["params"]), O.tree_leaves(initial))))
 
-        run_argv = argv + (["--profile-step", str(args.steps)] if run
-                           else [])
+        run_argv = argv + obs_flags[run] + (
+            ["--profile-step", str(args.steps)] if run else [])
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _zero_counts()
@@ -970,6 +1004,8 @@ def run_train(argv=TRAIN_ARGV, label="train"):
                          peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                          params_changed=changed[0] if changed else None))
     a, b_ = runs
+    obs = _train_obs(args, track, trace, a, b_)
+    shutil.rmtree(track_dir, ignore_errors=True)
     for i, c in enumerate(a["launches"] + b_["launches"]):
         if c != want:
             raise AssertionError(f"train step {i % args.steps + 1} launched "
@@ -1001,6 +1037,7 @@ def run_train(argv=TRAIN_ARGV, label="train"):
         gnorm_rtol=GNORM_RTOL, attn_grad_rel_err=attn_err,
         attn_grad_rtol=ATTN_GRAD_RTOL)
     print(f"[{label}] " + json.dumps(result), flush=True)
+    print(f"[{label}-obs] " + json.dumps(obs), flush=True)
     print(f"[{label}-profile] " + json.dumps(dict(
         step=args.steps, wall_ms_traced=b_["step_ms"][-1],
         device_busy_ms=prof["busy_ms"],
@@ -1020,7 +1057,68 @@ def run_train(argv=TRAIN_ARGV, label="train"):
     if max(attn_err.values()) > ATTN_GRAD_RTOL:
         raise AssertionError(f"attention grads vs the plain attention: "
                              f"{attn_err} > {ATTN_GRAD_RTOL}")
-    return result
+    if obs["problems"]:
+        raise AssertionError(f"[{label}] observability: {obs['problems']}")
+    return dict(result, obs=obs)
+
+
+def _train_obs(args, track, trace, a, b_):
+    """What the two tracked train runs recorded: run 0 with ``--track`` and
+    ``--trace-out``, run 1 with ``--track`` against run 0's file. Both must
+    report ``fingerprint_ok``, record one equal fingerprint a step, diff
+    clean, and run 0's trace must validate with the modeled and achieved
+    lanes and hold a train_data / train_step / train_digest span a step.
+    Returns the record with ``problems``, empty when all holds; prints each
+    step's utilization against the tuner's modeled attention time."""
+    fps = [[(e["step"], e["fingerprint"])
+            for e in OBS.read_jsonl(t, event="fingerprint")] for t in track]
+    steps = OBS.read_jsonl(track[0], event="step")
+    diff = OBS.diff_runs(OBS.RunReport.from_jsonl(track[0]),
+                         OBS.RunReport.from_jsonl(track[1]))
+    with open(trace) as f:
+        obj = json.load(f)
+    invalid = OBS_EX.validate_trace(
+        obj, (OBS_EX.PROCESS_MODELED, OBS_EX.PROCESS_ACHIEVED))
+    lanes = {}
+    for ev in obj["traceEvents"]:
+        if ev.get("pid") == OBS_EX.PID_RUN and ev.get("ph") == "X":
+            lanes[ev["cat"]] = lanes.get(ev["cat"], 0) + 1
+    achieved = next(ev["args"]["achieved_s"] for ev in obj["traceEvents"]
+                    if ev.get("pid") == OBS_EX.PID_ACHIEVED
+                    and ev.get("ph") == "X")
+    want_lanes = {p: args.steps for p in ("train_data", "train_step")}
+    if args.verify:
+        want_lanes["train_digest"] = args.steps
+    problems = []
+    if args.verify:
+        if not (a.get("fingerprint_ok") and b_.get("fingerprint_ok")):
+            problems.append("fingerprint_ok is not true in both runs")
+        if fps[0] != fps[1] or [s for s, _ in fps[0]] != list(
+                range(1, args.steps + 1)):
+            problems.append(f"fingerprint streams {fps}")
+    if not diff.clean:
+        problems.append(f"diff_runs: {diff}")
+    if invalid:
+        problems.append(f"trace: {invalid[:3]}")
+    if lanes != want_lanes:
+        problems.append(f"span lanes {lanes}, expected {want_lanes}")
+    per_step = [dict(step=e["step"], step_ms=e["step_ms"],
+                     modeled_step_attn_s=e.get("modeled_step_s"),
+                     utilization_vs_modeled=e.get("utilization_vs_modeled"))
+                for e in steps]
+    for row in per_step:
+        if row["modeled_step_attn_s"] is not None:
+            print(f"[obs] step {row['step']}: modeled_step(attn)="
+                  f"{row['modeled_step_attn_s']:.3e}s, step "
+                  f"{row['step_ms']:.1f} ms, utilization_vs_modeled="
+                  f"{row['utilization_vs_modeled']:.3e}", flush=True)
+    return dict(fingerprints=[fp for _, fp in fps[0]],
+                fingerprints_equal=fps[0] == fps[1],
+                fingerprint_ok=[a.get("fingerprint_ok"),
+                                b_.get("fingerprint_ok")],
+                diff=str(diff), trace_events=len(obj["traceEvents"]),
+                span_lanes=lanes, timeline_achieved_s=achieved,
+                steps=per_step, problems=problems)
 
 
 def _free_device_memory():
@@ -1076,7 +1174,8 @@ def run_train_resume(straight, label="train-resume"):
     must launch what ``[train]``'s did."""
     args, cfg, *_ = launch_train.configure(TRAIN_ARGV)
     want = dict(fwd_causal=2 * cfg.n_layers, fwd_full=0, fwd_mask=0,
-                bwd_worker=cfg.n_layers, bwd_serial=0, fold=cfg.n_layers)
+                bwd_worker=cfg.n_layers, bwd_serial=0, fold=cfg.n_layers,
+                fingerprint=int(args.verify))
     reserved_gb = _free_device_memory()
     with tempfile.TemporaryDirectory(prefix="repro_torch_ckpt_",
                                      dir=CKPT_ROOT) as d:
@@ -1158,12 +1257,14 @@ def _lifecycle_launches(lc, cfg):
     plain segment-masked attention."""
     if lc.packed:
         return dict.fromkeys(("fwd_causal", "fwd_full", "fwd_mask",
-                              "bwd_worker", "bwd_serial", "fold"), 0)
+                              "bwd_worker", "bwd_serial", "fold",
+                              "fingerprint"), 0)
     per = 2 * lc.steps * lc.microbatches * cfg.n_layers
     # a GQA backward folds dK and dV over each group besides the dQ partials
     folds = 3 if cfg.n_kv_heads < cfg.n_heads else 1
     return dict(fwd_causal=per * (2 if lc.remat else 1), fwd_full=0,
-                fwd_mask=0, bwd_worker=per, bwd_serial=0, fold=folds * per)
+                fwd_mask=0, bwd_worker=per, bwd_serial=0, fold=folds * per,
+                fingerprint=0)
 
 
 def run_lifecycle(label="lifecycle"):
@@ -1267,7 +1368,7 @@ def run_ops():
         raise AssertionError("the windowed op equals the causal op beyond "
                              "the window: the window was dropped")
     none = dict(fwd_causal=0, fwd_full=0, fwd_mask=0, bwd_worker=0,
-                bwd_serial=0, fold=0)
+                bwd_serial=0, fold=0, fingerprint=0)
     want = dict(
         causal_default=dict(none, fwd_causal=1, bwd_worker=1, fold=1),
         full_shift=dict(none, fwd_full=1, bwd_worker=1, fold=1),
@@ -1470,7 +1571,7 @@ def run_tune(tune_root, label="tune"):
     if theirs != ours:
         raise AssertionError(f"[tune] a fresh process picked {theirs}, this "
                              f"one {ours}")
-    idle = [k for k, n in launches.items() if not n]
+    idle = [k for k, n in launches.items() if not n and k != "fingerprint"]
     if idle:
         raise AssertionError(f"[tune] the tune path never launched {idle}: "
                              f"{launches}")
@@ -2117,6 +2218,122 @@ def check_rows():
     return results
 
 
+def _fp_leaf(dtype, n, gen):
+    """A leaf of ``n`` elements of ``dtype`` whose every bit is data."""
+    raw = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), generator=gen,
+                        device="cuda", dtype=torch.int64)
+    if dtype == torch.bool:
+        return raw % 2 == 0
+    if dtype.is_floating_point:
+        return raw.to(torch.int32).view(torch.float32).nan_to_num().to(dtype)
+    return raw.to(dtype)
+
+
+def _fp_state():
+    """The full-width StableLM-1.6B AdamW train state (``init_state`` from
+    seed 0, ~16 GB on the card) with the moments drawn from a seed, so every
+    byte the fingerprint reads is data."""
+    cfg = registry.get("stablelm-1.6b").replace(attention_impl="cuda")
+    state = TS.init_state(cfg, TS.TrainConfig(), seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for leaf in O.tree_leaves(state["opt"]):
+        leaf.normal_(generator=gen)
+    return state
+
+
+def check_fingerprint():
+    """``csrc/fingerprint.cu`` against its plain version, exactly (uint32
+    ``==``): leaves of every covered dtype at 0-dim, 1, 7, 1000 and 2^20+3
+    elements, each also as views 1 and 3 elements in (unaligned: the
+    kernel's element-by-element path), launched as one tree; then the
+    full-width train state, leaf by leaf, where a one-bit flip and a swap of
+    two unequal elements must each change the tree's fingerprint. Times the
+    kernel there (``_queued_ms``; the wrapper's whole call beside it) and
+    its plain version, with the state's bytes over the memory rate as the
+    bound. No single PyTorch call computes this function, so it has no
+    library time."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    leaves, names = [], []
+    for dtype in FPK.KINDS:
+        for n in FP_SIZES:
+            x = _fp_leaf(dtype, n + 3, gen)
+            for off in (0, 1, 3):
+                leaves.append(x[off:off + n])
+                names.append(f"{dtype}/{n}/+{off}")
+        leaves.append(_fp_leaf(dtype, 1, gen).reshape(()))
+        names.append(f"{dtype}/0-dim")
+    got = FPK.leaf_fingerprints_cuda(leaves)
+    plain = [FPK.fingerprint_plain(x) for x in leaves]
+    small_bad = [n for n, g, w in zip(names, got, plain) if g != w]
+    unaligned = sum(1 for x in leaves if x.data_ptr() % 16)
+    del leaves
+
+    state = _fp_state()
+    named = sorted(tree_paths(state), key=lambda kv: kv[0])
+    flat = [x for _, x in named]
+    nbytes = sum(x.numel() * x.element_size() for x in flat)
+    n_elem = sum(x.numel() for x in flat)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = FPK.leaf_fingerprints_cuda(flat)
+    call_first_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    plain = [FPK.fingerprint_plain(x) for x in flat]
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    state_bad = [p for (p, _), g, w in zip(named, got, plain) if g != w]
+    base = DG.tree_fingerprint(state)
+    emb = state["params"]["embed"]["tok"].view(-1)
+    emb.view(torch.int16)[12345] ^= 1                     # one bit
+    flipped = DG.tree_fingerprint(state)
+    emb.view(torch.int16)[12345] ^= 1
+    i, j = 7, 100_000
+    m = O.tree_leaves(state["opt"])[0].view(-1)
+    if bool(m[i] == m[j]):
+        raise AssertionError("the swap's two elements are equal")
+    m[[i, j]] = m[[j, i]]
+    swapped = DG.tree_fingerprint(state)
+    m[[i, j]] = m[[j, i]]
+    restored = DG.tree_fingerprint(state)
+    # the launch alone, with the plan (pointers, tables, buffers) made once:
+    # the whole call copies the pointers in and the values out, which a
+    # queued timing cannot overlap
+    plan = FPK.plan_cuda(flat)
+    ms = _queued_ms(lambda: FPK.launch_cuda(plan), reps=10)
+    call_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        DG.tree_fingerprint(state)
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+    bound = _bound(nbytes + 4 * len(flat), 2 * n_elem, torch.float32)
+    result = dict(
+        small_leaves=len(names), small_mismatched=small_bad,
+        unaligned_views=unaligned, state_leaves=len(flat),
+        state_bytes=nbytes, state_elements=n_elem,
+        state_mismatched=state_bad, tree_fingerprint=base,
+        bit_flip_changes=flipped != base, swap_changes=swapped != base,
+        restored_equal=restored == base, ms=ms,
+        call_ms_median=statistics.median(call_ms), call_ms=call_ms,
+        call_first_ms=call_first_ms, plain_ms=plain_ms,
+        bound_ms=bound[0], bound_by=bound[1])
+    print("[kernel-check] fingerprint " + json.dumps(result), flush=True)
+    print(f"[timing] fingerprint ({len(flat)} leaves, {nbytes / 1e9:.2f} "
+          f"GB): kernel {ms:.4f} ms, whole call {result['call_ms_median']:.3f}"
+          f" ms, plain {plain_ms:.1f} ms, library - ms, bound {bound[0]:.4f}"
+          f" ms ({bound[1]}), {bound[0] / ms:.1%} of bound", flush=True)
+    del state, named, flat, emb, m, plan
+    _free_device_memory()
+    if small_bad or state_bad:
+        raise AssertionError(f"fingerprint kernel != its plain version: "
+                             f"{small_bad[:5]} {state_bad[:5]}")
+    if not (result["bit_flip_changes"] and result["swap_changes"]
+            and result["restored_equal"]):
+        raise AssertionError(f"fingerprint blind to a flip or a swap: "
+                             f"{result}")
+    return result
+
+
 def library_m_invariance():
     """A finding, not a check: whether ``torch.matmul`` (bf16, and fp32 as
     the training path's ``layers.dot`` calls it), ``F.layer_norm`` and
@@ -2525,6 +2742,89 @@ def run_serve_spec(base, label="serve-spec"):
     return reports
 
 
+@torch.inference_mode()
+def run_serve_obs(base, label="serve-obs"):
+    """``[serve-continuous]``'s traffic through the launcher again with
+    ``--track`` and ``--trace-out``, plain and with ``--spec-k 4``
+    (self-draft): tokens and logprobs bitwise the unarmed run's (``base``;
+    the unarmed ``--spec-k 4`` run of ``[serve-spec]`` is bitwise it too);
+    launches as predicted; span counts exactly as the engine's telemetry
+    predicts (a request, queue and prefill span a request, a chunk span a
+    prefill chunk, a decode span a decode step or a round span a round);
+    the trace valid with its modeled and achieved lanes, the achieved one
+    timed on the CUDA backward kernels. Prints ``RunReport``'s TTFT and
+    per-token percentiles beside the engine's own TTFT median."""
+    cfg = base.cfg
+    _, lens = _serve_prompts(cfg)
+    chunks = sum(-(-n // SERVE_CHUNK) for n in lens.values())
+    tmp = tempfile.mkdtemp(prefix="repro_torch_serve_obs_")
+    lines = []
+    try:
+        for name, extra in (("plain", []),
+                            ("spec_self", ["--spec-k", str(SPEC_K)])):
+            track = os.path.join(tmp, f"{name}.jsonl")
+            trace = os.path.join(tmp, f"{name}.json")
+            eng, counts, flash = _counted(lambda: launch_serve.main(
+                SERVE_ARGV + extra + ["--track", track, "--trace-out",
+                                      trace]))
+            events = OBS.read_jsonl(track)
+            spans = {}
+            for e in events:
+                if e["event"] == "span":
+                    spans[e["phase"]] = spans.get(e["phase"], 0) + 1
+            want_spans = dict(request=SERVE_REQUESTS, queue=SERVE_REQUESTS,
+                              prefill=SERVE_REQUESTS, prefill_chunk=chunks)
+            if eng.spec is not None:
+                want_spans["spec_round"] = eng.spec.rounds
+            else:
+                want_spans["decode"] = eng.decode_steps
+            with open(trace) as f:
+                obj = json.load(f)
+            invalid = OBS_EX.validate_trace(
+                obj, (OBS_EX.PROCESS_MODELED, OBS_EX.PROCESS_ACHIEVED))
+            rep = OBS.RunReport.from_jsonl(track)
+            want = _predicted_launches(cfg, CF.engine_work(eng, lens))
+            ttft = rep.latency.get("ttft_s", {})
+            per_token = rep.latency.get("per_token_s", {})
+            lines.append(dict(
+                run=name, mismatched=_bitwise_streams(
+                    base, eng, range(SERVE_REQUESTS)),
+                spans=spans, spans_expected=want_spans,
+                events=len(events), trace_events=len(obj["traceEvents"]),
+                trace_problems=invalid[:3], launches=counts,
+                launches_expected=want, timeline_flash_launches=flash,
+                report_ttft_ms={k: ttft[k] * 1e3 for k in ("p50", "p90",
+                                                           "p99")
+                                if k in ttft},
+                report_per_token_ms={k: per_token[k] * 1e3
+                                     for k in ("p50", "p90", "p99")
+                                     if k in per_token},
+                engine_ttft_ms_median=statistics.median(
+                    eng.ttft_s.values()) * 1e3,
+                report_decode_tokens_per_s=rep.throughput.get(
+                    "decode_tokens_per_s"),
+                run_s=eng.run_s, unarmed_run_s=base.run_s,
+                counters=rep.counters))
+            del eng
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _free_device_memory()
+    for line in lines:
+        print(f"[{label}] " + json.dumps(line), flush=True)
+    bad = [r["run"] for r in lines
+           if r["mismatched"] or r["spans"] != r["spans_expected"] or r["trace_problems"]
+            or r["launches"] != r["launches_expected"]
+            or r["timeline_flash_launches"]["fwd_causal"] != 1
+            or r["timeline_flash_launches"]["bwd_worker"]
+            + r["timeline_flash_launches"]["bwd_serial"]
+            != TIMELINE_BWD_CALLS]
+    if bad:
+        raise AssertionError(f"[{label}] tracked runs not bitwise the "
+                             f"unarmed one, spans or launches other than "
+                             f"predicted, or an invalid trace: {bad}")
+    return lines
+
+
 def _crash_restore(base, spec_k, lens, prompts):
     """A crash at ``CRASH_AT`` with a snapshot every ``SNAPSHOT_EVERY``
     engine steps (under ``CKPT_ROOT``), restored through
@@ -2667,10 +2967,12 @@ def run_train_chaos(label="train-chaos"):
     ``CKPT_ROOT``, against the same steps unarmed and without checkpoints:
     equal digest chains (neither the saves nor the faults touch the state),
     every planned IO failure landed and absorbed by the writer's retry
-    (each within its budget), every save published, 4 causal forwards, 2
-    worker backwards and 2 folds a step."""
-    want = dict(fwd_causal=4, fwd_full=0, fwd_mask=0, bwd_worker=2,
-                bwd_serial=0, fold=2)
+    (each within its budget), every save published, two causal forwards,
+    a worker backward and a fold a layer and one fingerprint (``--verify``)
+    a step."""
+    layers = int(TRAIN_CHAOS_ARGV[TRAIN_CHAOS_ARGV.index("--layers") + 1])
+    want = dict(fwd_causal=2 * layers, fwd_full=0, fwd_mask=0,
+                bwd_worker=layers, bwd_serial=0, fold=layers, fingerprint=1)
     runs = {}
     t0 = time.perf_counter()
     runs["unarmed"] = dict(launch_train.main(TRAIN_CHAOS_ARGV),
@@ -2992,9 +3294,24 @@ def main():
         shutil.rmtree(tune_root, ignore_errors=True)
 
 
+class _Laps:
+    """Prints the wall seconds since the previous call as a ``[phase-s]``
+    line: where the call's time limit goes."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def __call__(self, name):
+        now = time.perf_counter()
+        print(f"[phase-s] {name} {now - self.t:.1f}", flush=True)
+        self.t = now
+
+
 def _main(t0, tune_root):
+    lap = _Laps()
     phase_build()
     phase_device()
+    lap("build")
     fwd_check = check_forward(True, KERNEL_CASES + TRAIN_CASES[:1]
                               + FWD_EDGE_CASES)
     full_check = check_forward(False, TRAIN_CASES + FULL_EDGE_CASES)
@@ -3004,28 +3321,46 @@ def _main(t0, tune_root):
     paged_check = check_paged()
     gemm_check = check_gemm()
     rows_check = check_rows()
+    lap("kernel-check")
+    fp_check = check_fingerprint()
+    lap("kernel-check fingerprint")
     library_m_invariance()
     serve = run_slice()
     serve_window = run_slice(SLICE_WINDOW, "slice-window")
+    lap("slice")
     continuous, cont_eng = run_serve_continuous()
     run_serve_invariance(cont_eng)
+    lap("serve-continuous")
     spec = run_serve_spec(cont_eng)
+    lap("serve-spec")
     chaos = run_serve_chaos(cont_eng)
+    lap("serve-chaos")
+    serve_obs = run_serve_obs(cont_eng)
+    lap("serve-obs")
     del cont_eng
     _free_device_memory()
     _tune_cache(tune_root, "train")
     train = run_train()
+    lap("train")
     resume = run_train_resume(train["digest_chain_heads"][0])
+    lap("train-resume")
     run_lifecycle()
+    lap("lifecycle")
     run_train_serve_parity()
+    lap("train-serve-parity")
     matrix = run_chaos_matrix()
+    lap("chaos-matrix")
     train_chaos = run_train_chaos()
+    lap("train-chaos")
     train_window = run_train(TRAIN_WINDOW_ARGV, "train-window")
+    lap("train-window")
     op_paths = run_ops()
     tune = run_tune(tune_root)
+    lap("ops+tune")
     _free_device_memory()
     _tune_cache(tune_root, "dash-paper")
     paper = run_train(PAPER_ARGV, "train-dash-paper")
+    lap("train-dash-paper")
     launches = dict(train["launches_per_step"])
     launches["fwd_full"] = op_paths["full_shift"]["launches"]["fwd_full"]
     launches["bwd_serial"] = op_paths["causal_serialized"]["launches"][
@@ -3037,6 +3372,20 @@ def _main(t0, tune_root):
     kernels += time_backward(bwd_check, launches)
     kernels += time_masks(mask_check, window_launches)
     kernels += time_serve(continuous, paged_check, gemm_check, rows_check)
+    lap("timing")
+    kernels.append(dict(
+        name="fingerprint", route="cuda",
+        source="src/repro_torch/kernels/csrc/fingerprint.cu",
+        replaces="no TPU kernel: XLA verify/digest.py::tree_fingerprint "
+                 "(src/repro/verify/digest.py:175)",
+        launches=train["launches_per_step"]["fingerprint"],
+        launch_path="train step with --verify: one a step (its two passes)",
+        max_abs_err=0, ms=fp_check["ms"], plain_ms=fp_check["plain_ms"],
+        bound_ms=fp_check["bound_ms"], bound_by=fp_check["bound_by"],
+        library_ms=None,
+        library_note="no single PyTorch call computes this function",
+        call_ms=fp_check["call_ms_median"],
+        state_bytes=fp_check["state_bytes"]))
     print(f"[done] serving prefill launched the causal forward "
           f"{serve['attention_launches']} times, the windowed one the "
           f"block-sparse forward {serve_window['attention_launches']} times; "
@@ -3054,7 +3403,10 @@ def _main(t0, tune_root):
           f"{chaos[0]['preemptions']} preemptions, two crash restores, "
           f"{len(matrix['cells'])} chaos cells and "
           f"{train_chaos['faults_landed']} checkpoint IO faults, all "
-          f"bitwise; {time.perf_counter() - t0:.1f}s in all",
+          f"bitwise; the state fingerprint ({fp_check['state_bytes'] / 1e9:.1f}"
+          f" GB) in {fp_check['ms']:.3f} ms, equal in both tracked train "
+          f"runs; {len(serve_obs)} serve-obs runs bitwise; "
+          f"{time.perf_counter() - t0:.1f}s in all",
           flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -48,16 +48,13 @@ class Injector:
 
     One injector can drive a whole crash/restore cycle: crashes are one-shot
     (:meth:`consume_crash`), so a restored engine replaying the steps before
-    the crash re-applies every other fault without dying again. The
-    reference's ``tracker`` (the ``fault_injected`` event) waits for the
-    port's tracker, ROADMAP A7."""
+    the crash re-applies every other fault without dying again. With a
+    ``tracker`` every landed fault is also logged as a ``fault_injected``
+    event."""
 
     def __init__(self, plan: FaultPlan, tracker=None):
-        if tracker is not None:
-            raise NotImplementedError(
-                "Injector(tracker=...): the event tracker (obs/*) waits for "
-                "ROADMAP A7")
         self.plan = plan
+        self.tracker = tracker
         self.history: List[Dict] = []
         self._fired_crashes: set = set()
 
@@ -87,10 +84,12 @@ class Injector:
 
     # ------------------------------------------------------------- record
     def record(self, fault: Fault, **info) -> None:
-        """Log one landed fault into the history."""
-        self.history.append({"site": fault.site, "step": fault.step,
-                             "kind": fault.kind, "arg": fault.arg,
-                             "duration": fault.duration, **info})
+        """Log one landed fault into the history (and the tracker, if any)."""
+        entry = {"site": fault.site, "step": fault.step, "kind": fault.kind,
+                 "arg": fault.arg, "duration": fault.duration, **info}
+        self.history.append(entry)
+        if self.tracker is not None:
+            self.tracker.log("fault_injected", entry, step=fault.step)
 
     def history_digest(self) -> str:
         """sha256 chain over the landing record: two runs injected the same

@@ -29,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.schedules import cached_schedule
 from repro_torch.kernels import flash_bwd as FB
+from repro_torch.kernels import fingerprint as FP
 from repro_torch.kernels import flash_fwd as FF
 from repro_torch.kernels import ref as ref_mod
 from repro_torch.kernels.flash_bwd import flash_bwd
@@ -45,7 +46,8 @@ def launch_counts():
     and nothing else touches them), by kernel."""
     return dict(fwd_causal=FF.launches, fwd_full=FF.launches_full,
                 fwd_mask=FF.launches_mask, bwd_worker=FB.launches_worker,
-                bwd_serial=FB.launches_serial, fold=FB.launches_fold)
+                bwd_serial=FB.launches_serial, fold=FB.launches_fold,
+                fingerprint=FP.launches)
 
 
 def _flatten(x):  # (B, H, S, D) -> (BH, S, D)

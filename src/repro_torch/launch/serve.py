@@ -38,12 +38,20 @@ value names a drafter arch, whose weights are random from ``--seed + 1``.
 ``--chaos SEED`` arms a seeded fault plan (pool exhaustion, slot
 revocation, decode stalls; ``FaultPlan.seeded(SEED, steps=16 * gen,
 rate=0.2)``) against the engine; completed requests stay bitwise those of
-the unarmed run. The reference's ``--tp/--mesh`` (ROADMAP A9) and
-``--track/--trace-out`` (A7) raise until their items land.
+the unarmed run. ``--track FILE`` writes the engine's ``repro_torch.obs``
+event stream (``serve_*`` events and the request, queue, prefill, chunk,
+decode and speculative-round spans) and ``--trace-out FILE`` a
+Perfetto/Chrome trace of the spans beside the attention schedule's modeled
+and achieved lanes at the slot capacity (on the card the achieved lane times
+the port's CUDA backward kernel and fold); both apply to ``--engine
+continuous``, and tokens are bitwise those of an untracked run. The
+reference's ``--tp/--mesh`` (ROADMAP A9) raise until their item lands.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --engine continuous \
         --reduced --device cpu --requests 6 --slots 3 --prompt-len 24 \
         --gen 8 --spec-k 2 --draft-model auto --chaos 5
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine continuous \
+        --track S.jsonl --trace-out S.json
 """
 from __future__ import annotations
 
@@ -58,14 +66,13 @@ from repro_torch.configs import registry
 from repro_torch.faults import FaultPlan, Injector
 from repro_torch.kernels.flash_fwd import BLOCK
 from repro_torch.models import transformer as T
+from repro_torch.obs import CompositeTracker, MemoryTracker, open_tracker
 from repro_torch.serve.engine import ContinuousEngine, Engine, SampleConfig
 
 # the reference's continuous-engine flags this port does not cover yet
 _UNPORTED_FLAGS = {
     "tp": "--tp (mesh-sharded serving) waits for ROADMAP A9",
     "mesh": "--mesh (mesh-sharded serving) waits for ROADMAP A9",
-    "track": "--track (the event tracker) waits for ROADMAP A7",
-    "trace_out": "--trace-out (the span trace) waits for ROADMAP A7",
 }
 
 
@@ -143,6 +150,17 @@ def _spec_kwargs(args, device):
 def _continuous(cfg, params, args, device):
     """The continuous engine over ``args.requests`` seeded prompts; prints
     the run's totals and each request's first tokens, returns the engine."""
+    tracker = open_tracker(args.track)
+    trace_mem = None
+    if args.trace_out is not None:
+        trace_mem = MemoryTracker()
+        tracker = CompositeTracker([tracker, trace_mem])
+    with tracker:
+        return _serve(cfg, params, args, device, tracker, trace_mem)
+
+
+def _serve(cfg, params, args, device, tracker, trace_mem):
+    run_id = f"serve-{args.arch}-s{args.seed}"
     page = 16
     max_seq = args.max_seq or -(-(args.prompt_len + args.gen) // page) * page
     injector = None
@@ -156,6 +174,7 @@ def _continuous(cfg, params, args, device):
                            page_size=page,
                            prefill_chunk=min(32, args.prompt_len),
                            scfg=SampleConfig(seed=args.seed), faults=injector,
+                           tracker=tracker, run_id=run_id,
                            **_spec_kwargs(args, device))
     lo = args.min_prompt_len or max(1, args.prompt_len // 2)
     prompts = continuous_prompts(cfg.vocab, args.requests, lo,
@@ -181,6 +200,13 @@ def _continuous(cfg, params, args, device):
         print(f"chaos: {len(injector.history)} faults landed, "
               f"{eng.preemptions} preemptions, landing digest "
               f"{injector.history_digest()[:16]}")
+    if args.trace_out is not None:
+        from repro_torch.obs import export as EX
+        events = EX.spans_to_trace(trace_mem.events, process_name=run_id)
+        events += EX.attention_timeline(max_seq, cfg.head_dim, causal=True,
+                                        measure=True, device=device)
+        EX.write_trace(args.trace_out, events)
+        print(f"[trace] {len(events)} events -> {args.trace_out}", flush=True)
     for rid in sorted(out):
         print(f"request {rid} tokens:", out[rid][:16].tolist())
     return eng
@@ -212,8 +238,15 @@ def main(argv=None):
                     help="--engine continuous: arm a seeded fault plan (pool "
                          "exhaustion, slot revocation, decode stalls); "
                          "tokens are bitwise invariant to it")
-    for flag, kind in (("--tp", int), ("--mesh", str), ("--track", str),
-                       ("--trace-out", str)):
+    ap.add_argument("--track", default=None, metavar="JSONL",
+                    help="--engine continuous: write the engine's event "
+                         "stream (serve_* events and spans) here; tokens are "
+                         "bitwise those of an untracked run")
+    ap.add_argument("--trace-out", default=None, metavar="TRACE.json",
+                    help="--engine continuous: write a Perfetto/Chrome trace "
+                         "of the spans and the attention schedule's modeled "
+                         "and achieved lanes")
+    for flag, kind in (("--tp", int), ("--mesh", str)):
         ap.add_argument(flag, type=kind, default=None,
                         help="not ported yet: raises NotImplementedError")
     ap.add_argument("--prompt-len", type=int, default=512)
@@ -238,6 +271,8 @@ def main(argv=None):
         ap.error("--spec-k applies to --engine continuous")
     if args.spec_k < 0:
         ap.error("--spec-k must be >= 0")
+    if (args.track or args.trace_out) and args.engine != "continuous":
+        ap.error("--track/--trace-out apply to --engine continuous")
     if args.engine == "continuous":
         if args.requests < 1 or args.slots < 1 or args.prompt_len < 1:
             ap.error("--requests, --slots and --prompt-len must be >= 1")

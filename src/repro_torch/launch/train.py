@@ -8,6 +8,12 @@
         --steps 2 --batch 2 --seq 128
     PYTHONPATH=src python -m repro_torch.launch.train --arch dash-paper \
         --tune measure --batch 16 --seq 1024 --steps 3 --verify
+    PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \
+        --batch 4 --seq 1024 --steps 3 --verify --tune sim \
+        --track A.jsonl --trace-out A.json
+    PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \
+        --batch 4 --seq 1024 --steps 3 --verify --tune sim \
+        --track B.jsonl --track-reference A.jsonl
 
 Weights are random, from ``--seed``; data is the synthetic source
 (``data.pipeline.SyntheticLM``, a pure function of (seed, step)) or, with
@@ -33,8 +39,11 @@ the fault-tolerance protocol of ``launch/failures.py``.
 
 ``--verify`` digests the whole state (params, optimizer state, error
 feedback) after every step into a
-:class:`~repro_torch.verify.digest.DigestChain` and prints its head; the
-chain is written to ``--verify-out`` (default ``<ckpt-dir>/digest_chain.json``
+:class:`~repro_torch.verify.digest.DigestChain` and prints its head, and
+ships the live uint32 state fingerprint in each step's metrics
+(``TrainConfig.digest_metrics``; on the card one launch of
+``csrc/fingerprint.cu`` a step, inside the step's time); the chain is
+written to ``--verify-out`` (default ``<ckpt-dir>/digest_chain.json``
 with ``--ckpt-dir``) at every save and at the end, and a resumed run
 continues it from the restored step, so its head equals a straight run's.
 ``--profile-step N`` runs step N under ``torch.profiler`` and prints its busy
@@ -49,9 +58,26 @@ each step's kernel launches. ``--chaos SEED`` arms
 ``FaultPlan.seeded_ckpt`` against the checkpoint writes (the reference's
 transient IO faults, each absorbed by the writer's bounded retry) and adds
 ``chaos_plan``, ``chaos_faults_landed`` and ``chaos_landing_digest`` to the
-summary. ``--track`` and ``--trace-out`` wait for ``obs`` (ROADMAP A7);
-``--heartbeat`` for ``launch/heartbeat.py`` (A10); ``--mesh`` for the
-distributed slice (A9).
+summary.
+
+Observability (``repro_torch.obs``, the reference's wiring): ``--track
+FILE`` writes the run's JSONL event stream — ``run_config``,
+``tune_choice``/``tune_cache`` (with ``--tune``), a ``step`` event a step
+(a ``StepMeter`` payload: tokens/s, step ms and, with ``--tune``,
+``utilization_vs_modeled``, the modeled attention time of a step over the
+step's measured time), with ``--verify`` a ``fingerprint`` event a step, a
+``leaf_digests`` record a step (the same hashing pass that feeds the
+chain) and ``fingerprint_ok`` in the summary, then ``cache_info`` and
+``run_summary``; and the spans ``train_data``, ``train_step``,
+``train_digest`` and ``train_ckpt``. ``--track-reference FILE`` (with
+``--verify``) compares the live fingerprints with an earlier run's
+``--track`` file and logs ``fingerprint_divergence`` at the first step that
+differs. ``--trace-out FILE`` writes a Perfetto/Chrome trace: the spans plus
+the attention schedule's modeled and achieved lanes
+(``obs.export.attention_timeline``; on the card the achieved lane times the
+port's CUDA backward kernel and fold). ``--heartbeat`` waits for
+``launch/heartbeat.py`` (ROADMAP A10) and ``--mesh`` for the distributed
+slice (A9): both raise.
 """
 from __future__ import annotations
 
@@ -71,6 +97,9 @@ from repro_torch.faults import FaultPlan, Injector, armed_checkpoint
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_fwd import BLOCK
 from repro_torch.kernels.ops import launch_counts
+from repro_torch.obs import (CompositeTracker, DivergenceAlarm, MemoryTracker,
+                             Profiler, StepMeter, open_tracker,
+                             record_state_digests)
 from repro_torch.train import optimizer as O
 from repro_torch.train import step as S
 from repro_torch.verify.digest import DigestChain
@@ -138,7 +167,30 @@ def configure(argv=None):
                          "random --ckpt-every multiples fail their first "
                          "1..IO_RETRIES write attempts, absorbed by the "
                          "writer's bounded retry (the state is unchanged)")
+    ap.add_argument("--track", default=None, metavar="JSONL",
+                    help="write the run's repro_torch.obs event stream here: "
+                         "per-step throughput, utilization-vs-modeled, "
+                         "fingerprint and divergence events (with --verify), "
+                         "tuner decisions, spans")
+    ap.add_argument("--track-reference", default=None, metavar="JSONL",
+                    help="an earlier run's --track file; with --verify the "
+                         "live fingerprints are compared against it and the "
+                         "first mismatch logs a fingerprint_divergence event")
+    ap.add_argument("--trace-out", default=None, metavar="TRACE.json",
+                    help="write a Perfetto/Chrome trace of the run: the "
+                         "per-step spans plus the attention schedule's "
+                         "modeled and achieved lanes")
+    ap.add_argument("--heartbeat", action="store_true",
+                    help="not ported yet: raises NotImplementedError")
+    ap.add_argument("--mesh", default=None,
+                    help="not ported yet: raises NotImplementedError")
     args = ap.parse_args(argv)
+    if args.heartbeat:
+        raise NotImplementedError("--heartbeat (launch/heartbeat.py) waits "
+                                  "for ROADMAP A10")
+    if args.mesh is not None:
+        raise NotImplementedError("--mesh (the distributed train step) waits "
+                                  "for ROADMAP A9")
     if args.steps < 1:
         ap.error("--steps must be >= 1")
     if args.attn_window is not None and args.attn_window < 0:
@@ -147,6 +199,8 @@ def configure(argv=None):
         ap.error("--ckpt-every and --ckpt-keep must be >= 1")
     if args.resume and not args.ckpt_dir:
         ap.error("--resume needs --ckpt-dir")
+    if args.track_reference and not args.verify:
+        ap.error("--track-reference compares fingerprints: it needs --verify")
 
     device = resolve_device(args.device)
     cfg = registry.get(args.arch)
@@ -170,7 +224,8 @@ def configure(argv=None):
                         warmup_steps=args.warmup_steps,
                         total_steps=args.steps),
         microbatches=args.microbatches, remat=True,
-        grad_compression=args.grad_compression, seed=args.seed)
+        grad_compression=args.grad_compression, seed=args.seed,
+        digest_metrics=args.verify)
     data = make_source(DataConfig(seed=args.seed, batch=args.batch,
                                   seq=args.seq, vocab=cfg.vocab,
                                   path=args.data), device)
@@ -230,17 +285,17 @@ def _join(pending, saves):
           f"waited)", flush=True)
 
 
-def _tune(args, cfg):
+def _tune(args, cfg, tracker):
     """The reference's ``--tune``: resolve the causal attention geometry
     once and print the choice with its modeled makespan and the modeled
     attention time of a step (the makespan, a per-bh schedule, times every
-    (layer, batch row, head)). Logged only: ``cfg.dash_schedule`` is left
-    as it is."""
+    (layer, batch row, head)), which it returns for the utilization metric.
+    Logged only: ``cfg.dash_schedule`` is left as it is."""
     from repro_torch.tune import tune_attention
     tres = tune_attention(seq=args.seq, head_dim=cfg.head_dim,
                           dtype=cfg.dtype_name, causal=True,
                           n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                          mode=args.tune)
+                          mode=args.tune, tracker=tracker)
     n_rep = cfg.n_layers // len(cfg.block_pattern)
     n_attn = n_rep * sum(1 for k in cfg.block_pattern if k.startswith("attn"))
     modeled_step_s = (tres.modeled_makespan_s * n_attn * args.batch
@@ -248,6 +303,7 @@ def _tune(args, cfg):
     print(f"[tune] {tres.candidate.key()} source={tres.source} "
           f"modeled_makespan={tres.modeled_makespan_s:.3e}s "
           f"modeled_step(attn)={modeled_step_s or 0:.3e}s", flush=True)
+    return modeled_step_s
 
 
 def main(argv=None, on_step=None):
@@ -258,8 +314,27 @@ def main(argv=None, on_step=None):
     # the first product on the card, it lets the GEMMs run deterministically
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     args, cfg, tcfg, data, device = configure(argv)
+    tracker = open_tracker(args.track)
+    trace_mem = None
+    if args.trace_out is not None:
+        # --trace-out needs the span stream even without --track
+        trace_mem = MemoryTracker()
+        tracker = CompositeTracker([tracker, trace_mem])
+    with tracker:
+        return _run(args, cfg, tcfg, data, device, on_step, tracker,
+                    trace_mem)
+
+
+def _run(args, cfg, tcfg, data, device, on_step, tracker, trace_mem):
+    run_id = f"train-{args.arch}-s{args.seed}"
+    prof = Profiler(tracker, run_id=run_id)
+    tracker.log("run_config", {
+        "arch": args.arch, "steps": args.steps, "batch": args.batch,
+        "seq": args.seq, "microbatches": args.microbatches, "run_id": run_id,
+        "seed": args.seed, "tune": args.tune, "verify": bool(args.verify)})
+    modeled_step_s = None
     if args.tune != "off":
-        _tune(args, cfg)
+        modeled_step_s = _tune(args, cfg, tracker)
     if device.type == "cuda":
         t0 = time.perf_counter()
         build.build()
@@ -284,7 +359,7 @@ def main(argv=None, on_step=None):
                 print(f"resumed from step {start}", flush=True)
         step_fn = S.make_train_step(cfg, tcfg)
         chain_path = _chain_path(args)
-        chain = None
+        chain = alarm = None
         if args.verify:
             chain = DigestChain()
             if start and chain_path and os.path.exists(chain_path):
@@ -296,6 +371,10 @@ def main(argv=None, on_step=None):
                     records=[(s, d) for s, d in prior.records if s <= start])
                 print(f"[verify] resumed digest chain at step {start} "
                       f"({len(chain)} records)", flush=True)
+            alarm = (DivergenceAlarm.from_jsonl(args.track_reference,
+                                                tracker=tracker)
+                     if args.track_reference
+                     else DivergenceAlarm(tracker=tracker))
         step_ms, saves, profile, metrics, pending = [], [], None, None, None
         launches = []       # per step, on the card: each kernel's launches
         injector = None
@@ -304,9 +383,12 @@ def main(argv=None, on_step=None):
                                          every=args.ckpt_every, rate=0.5,
                                          max_failures=C.IO_RETRIES,
                                          name=f"train-chaos-{args.chaos}")
-            injector = Injector(plan)
+            injector = Injector(plan, tracker=tracker)
             print(f"[chaos] armed {plan.key()} ({len(plan)} flaky saves; all "
                   "within the writer's retry budget)", flush=True)
+        meter = StepMeter(modeled_step_s=modeled_step_s)
+        tracking = args.track is not None or args.trace_out is not None
+        tokens_per_step = args.batch * args.seq
         # the hook stays armed through the last async save's join: the
         # writer thread consults it mid-write
         with armed_checkpoint(injector):
@@ -314,23 +396,45 @@ def main(argv=None, on_step=None):
                 if step == args.die_at_step:
                     print(f"simulated failure at step {step}", flush=True)
                     os._exit(17)
-                batch = data.batch(step)
+                scope = f"step:{step + 1}"
+                with prof.span("train_data", scope=scope, lane="host",
+                               step=step + 1):
+                    batch = data.batch(step)
                 profiling = step + 1 == args.profile_step
                 # the profiler starts before and is read after the timed step
                 with (_profiler(device) if profiling
-                      else contextlib.nullcontext()) as prof:
+                      else contextlib.nullcontext()) as torch_prof:
                     _sync(device)
                     before = launch_counts()
+                    step_span = prof.begin("train_step", scope=scope,
+                                           lane="device", step=step + 1)
                     t0 = time.perf_counter()
                     state, metrics = step_fn(state, batch)
                     _sync(device)
                     step_ms.append((time.perf_counter() - t0) * 1e3)
+                    prof.end(step_span)
                     launches.append({k: v - before[k]
                                      for k, v in launch_counts().items()})
                 if profiling:
-                    profile = _profile_summary(prof, device)
+                    profile = _profile_summary(torch_prof, device)
                 if chain is not None:
-                    chain.append(step + 1, state)
+                    with prof.span("train_digest", scope=scope, lane="host",
+                                   step=step + 1):
+                        # one hashing pass feeds the chain and the
+                        # per-leaf record diff_runs triages with
+                        record_state_digests(state, step + 1, tracker=tracker,
+                                             chain=chain)
+                if tracking:
+                    # the step's own time (it ends in a sync), not the
+                    # digest's: utilization is modeled attention over it
+                    payload = meter.update(tokens_per_step,
+                                           step_ms[-1] / 1e3)
+                    payload.update(S.step_event(metrics))
+                    tracker.log("step", payload, step=step + 1)
+                if alarm is not None and alarm.observe(
+                        step + 1, metrics["state_fingerprint"]):
+                    print(f"[verify] fingerprint divergence at step "
+                          f"{step + 1} (see tracker)", flush=True)
                 if on_step is not None:
                     on_step(step + 1, state, metrics)
                 if (step + 1) % args.log_every == 0 or step == start:
@@ -339,14 +443,18 @@ def main(argv=None, on_step=None):
                           f"gnorm={m['grad_norm']:.3f} lr={m['lr']:.2e} "
                           f"({step_ms[-1]:.1f} ms)", flush=True)
                 if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
-                    _join(pending, saves)
-                    t0 = time.perf_counter()
-                    thread = C.save(args.ckpt_dir, step + 1, state,
-                                    async_=True, keep_last=args.ckpt_keep)
-                    pending = (thread, dict(
-                        step=step + 1, snapshot_s=time.perf_counter() - t0))
-                    if chain is not None and chain_path:
-                        _write_chain(chain_path, chain)   # survives a crash
+                    with prof.span("train_ckpt", scope=scope, lane="host",
+                                   step=step + 1):
+                        _join(pending, saves)
+                        t0 = time.perf_counter()
+                        thread = C.save(args.ckpt_dir, step + 1, state,
+                                        async_=True,
+                                        keep_last=args.ckpt_keep)
+                        pending = (thread, dict(
+                            step=step + 1,
+                            snapshot_s=time.perf_counter() - t0))
+                        if chain is not None and chain_path:
+                            _write_chain(chain_path, chain)  # survives a crash
             _join(pending, saves)
     finally:
         torch.use_deterministic_algorithms(was_deterministic)
@@ -375,6 +483,21 @@ def main(argv=None, on_step=None):
               f"records)" + (f" -> {chain_path}" if chain_path else ""),
               flush=True)
         summary["digest_chain_head"] = chain.head
+    if alarm is not None:
+        summary["fingerprint_ok"] = alarm.ok
+    if tracking:
+        from repro_torch.masks import cache_info
+        tracker.log("cache_info", cache_info())
+        tracker.log("run_summary", dict(
+            summary, tokens_per_s_avg=meter.event().get("tokens_per_s_avg",
+                                                        0.0)))
+    if args.trace_out is not None:
+        from repro_torch.obs import export as EX
+        events = EX.spans_to_trace(trace_mem.events, process_name=run_id)
+        events += EX.attention_timeline(args.seq, cfg.head_dim, causal=True,
+                                        measure=True, device=device)
+        EX.write_trace(args.trace_out, events)
+        print(f"[trace] {len(events)} events -> {args.trace_out}", flush=True)
     print(json.dumps(summary))
     return dict(summary, profile=profile)
 

@@ -46,8 +46,14 @@ stream bitwise. ``spec_k >= 1`` drafts and verifies with exact acceptance
 (:mod:`repro_torch.serve.spec`): tokens and logprobs stay bitwise those of
 ``spec_k=0``.
 
-Not ported, and raising with their ROADMAP item: the tracker and span
-profiler (A7), mesh-sharded serving (A9).
+Observation (the reference's ``tracker=`` and ``run_id=``): every
+``serve_*`` event and every ``request``/``queue``/``prefill``/
+``prefill_chunk``/``decode``/``spec_round`` span the reference emits, with
+the same ids and payloads (:mod:`repro_torch.obs.prof`). The tracker only
+sees host integers the step has already computed: it adds no device sync,
+and swapping it for a ``NoopTracker`` changes no token or logprob.
+
+Not ported, and raising with its ROADMAP item: mesh-sharded serving (A9).
 """
 from __future__ import annotations
 
@@ -60,6 +66,8 @@ import torch
 
 from repro_torch.kernels import rows
 from repro_torch.models import transformer as T
+from repro_torch.obs.prof import Profiler
+from repro_torch.obs.tracker import NoopTracker
 from repro_torch.serve.kv_cache import PagedKVCache, PagedLayout
 from repro_torch.serve.scheduler import FCFSScheduler, Request
 
@@ -242,8 +250,6 @@ class _Active:
 
 
 _UNPORTED = {
-    "tracker": "the tracker and span profiler (obs/*) wait for ROADMAP A7",
-    "run_id": "the tracker and span profiler (obs/*) wait for ROADMAP A7",
     "mesh": "mesh-sharded serving (serve/sharded.py) waits for ROADMAP A9",
 }
 
@@ -286,7 +292,9 @@ class ContinuousEngine:
     crash). ``spec_k >= 1`` runs speculative rounds
     (:class:`repro_torch.serve.spec.Speculator`); ``draft_params`` (with an
     optional ``draft_cfg`` of the same vocabulary) selects a separate
-    drafter, else the target drafts for itself.
+    drafter, else the target drafts for itself. ``tracker`` (any object
+    with ``log``) receives the reference's events and spans, with span ids
+    from ``run_id`` (default ``"serve"``).
 
     Besides the reference's telemetry (``decode_steps``, ``engine_steps``,
     ``preemptions``), the engine keeps host records that end in a device
@@ -305,11 +313,9 @@ class ContinuousEngine:
                  snapshot_every: Optional[int] = None,
                  spec_k: int = 0, draft_cfg=None, draft_params=None,
                  run_id: Optional[str] = None):
-        for name, value in (("tracker", tracker), ("run_id", run_id),
-                            ("mesh", mesh)):
-            if value is not None:
-                raise NotImplementedError(f"ContinuousEngine({name}=...): "
-                                          f"{_UNPORTED[name]}")
+        if mesh is not None:
+            raise NotImplementedError(f"ContinuousEngine(mesh=...): "
+                                      f"{_UNPORTED['mesh']}")
         if not T.supports_paged(cfg):
             raise NotImplementedError(
                 "paged serving covers attention-only patterns (ROADMAP A8)")
@@ -317,6 +323,15 @@ class ContinuousEngine:
             raise ValueError(f"max_seq={max_seq} must be a multiple of "
                              f"page_size={page_size}, prefill_chunk >= 1")
         self.cfg, self.params, self.scfg = cfg, params, scfg
+        # observation only: every tracker call logs host values the step
+        # already holds, so the tracker can never change a token
+        self.tracker = tracker if tracker is not None else NoopTracker()
+        # deterministic-identity spans over the same tracker; against a
+        # NoopTracker every profiler call returns before reading a clock
+        self.prof = Profiler(self.tracker, run_id=run_id or "serve")
+        self._req_spans: Dict[int, object] = {}     # req_id -> request span
+        self._queue_spans: Dict[int, object] = {}   # req_id -> queue span
+        self._submit_step: Dict[int, int] = {}      # req_id -> submit step
         self.device = params["embed"]["tok"].device
         self.prefill_chunk = prefill_chunk
         self.max_seq = max_seq
@@ -400,12 +415,29 @@ class ContinuousEngine:
                 and len(self.sched.pending) >= self.max_queue_depth):
             self.rejected[req_id] = "queue_full"
             self._next_id = max(self._next_id, req_id + 1)
+            shed = {"request_id": req_id,
+                    "queue_depth": self.max_queue_depth}
+            if self.prof.armed:
+                shed["at_s"] = round(self.prof.now(), 9)
+            self.tracker.log("serve_shed", shed)
             raise QueueFull(req_id, self.max_queue_depth)
         self.sched.submit(Request(req_id, tokens, max_new_tokens))
         if deadline_steps is not None:
             self._deadline[req_id] = self.engine_steps + deadline_steps
         self._next_id = max(self._next_id, req_id + 1)
         self._submit_t[req_id] = time.perf_counter()
+        # spans open only past validation: a shed or invalid request gets
+        # none (its serve_shed mark is the record)
+        rs = self.prof.begin("request", scope=f"req:{req_id}",
+                             lane=f"req{req_id}", prompt_len=len(tokens))
+        if rs is not None:
+            self._req_spans[req_id] = rs
+            self._queue_spans[req_id] = self.prof.begin(
+                "queue", scope=f"req:{req_id}", parent=rs, lane=f"req{req_id}")
+            self._submit_step[req_id] = self.engine_steps
+        self.tracker.log("serve_submit", {
+            "request_id": req_id, "prompt_len": len(tokens),
+            "max_new_tokens": max_new_tokens})
         return req_id
 
     def run(self) -> Dict[int, np.ndarray]:
@@ -458,16 +490,23 @@ class ContinuousEngine:
             yield toks[None], pos[None], table, wp, wo
 
     def _chunked_prefill(self, slot: int, tokens: np.ndarray,
-                         rows_out: Optional[list] = None):
+                         rows_out: Optional[list] = None,
+                         scope: Optional[str] = None):
         """Run ``tokens`` through the paged step chunk by chunk; returns the
-        last chunk's logits."""
+        last chunk's logits. ``scope`` (e.g. ``"req:3"``) keys a
+        ``prefill_chunk`` span a chunk."""
         plen, c = len(tokens), self.prefill_chunk
         logits = None
         for i, chunk in enumerate(self.chunks(slot, tokens)):
+            span = (self.prof.begin("prefill_chunk",
+                                    scope=f"{scope}/pos:{i * c}",
+                                    lane=f"slot{slot}")
+                    if scope is not None else None)
             logits = self._step(*chunk)
             if rows_out is not None:    # valid rows only, fp32 (bitwise)
                 rows_out.append(logits[0, :min(c, plen - i * c)].cpu()
                                 .numpy())
+            self.prof.end(span, n_valid=min(c, plen - i * c))
         return logits
 
     def _prefill(self, slot: int, req: Request) -> None:
@@ -481,22 +520,38 @@ class ContinuousEngine:
         lay = self.cache.layout
         self.cache.alloc(slot, lay.pages_for(len(req.tokens)
                                              + req.max_new_tokens))
+        plen, c = len(req.tokens), self.prefill_chunk
+        self.prof.end(self._queue_spans.pop(req.id, None), slot=slot,
+                      queued_steps=self.engine_steps - self._submit_step.get(
+                          req.id, self.engine_steps))
+        rspan = self._req_spans.get(req.id)
         resume = self._resume.pop(req.id, None)
         if resume is not None:
             produced, lps = resume
             prefix = np.asarray(list(req.tokens) + list(produced[:-1]),
                                 np.int32)
-            self._chunked_prefill(slot, prefix)
+            ps = self.prof.begin("prefill", scope=f"req:{req.id}/restore",
+                                 parent=rspan, lane=f"slot{slot}",
+                                 step=self.engine_steps)
+            self._chunked_prefill(slot, prefix, scope=f"req:{req.id}/restore")
             if self.spec is not None:
                 self.spec.prefill(self, slot, prefix)
             self.restore_positions.append(len(prefix))
             self._slots[slot] = st = _Active(req, list(produced), list(lps))
+            self.prof.end(ps, prompt_len=len(prefix), restored=True,
+                          tokens_kept=len(produced))
+            self.tracker.log("serve_restore", {
+                "request_id": req.id, "slot": slot,
+                "recomputed_positions": len(prefix),
+                "tokens_kept": len(produced)})
             self._finish_check(st)
             return
-        plen, c = len(req.tokens), self.prefill_chunk
+        ps = self.prof.begin("prefill", scope=f"req:{req.id}", parent=rspan,
+                             lane=f"slot{slot}", step=self.engine_steps)
         rows_out = [] if self._capture else None
         prompt = np.asarray(req.tokens, np.int32)
-        logits = self._chunked_prefill(slot, prompt, rows_out)
+        logits = self._chunked_prefill(slot, prompt, rows_out,
+                                       scope=f"req:{req.id}")
         if self.spec is not None:
             self.spec.prefill(self, slot, prompt)
         if self._capture:
@@ -508,6 +563,15 @@ class ContinuousEngine:
         self.ttft_s[req.id] = time.perf_counter() - self._submit_t.get(
             req.id, time.perf_counter())
         self._slots[slot] = st = _Active(req, [first], [first_lp])
+        if ps is not None:    # TTFT: submit (request-span begin) → first token
+            ttft = (self.prof.now() - rspan.begin_s if rspan is not None
+                    else None)
+            self.prof.end(ps, prompt_len=plen, chunks=-(-plen // c),
+                          **({"ttft_s": round(ttft, 9)}
+                             if ttft is not None else {}))
+        self.tracker.log("serve_prefill", {
+            "request_id": req.id, "slot": slot, "prompt_len": plen,
+            "chunks": -(-plen // c)})
         self._finish_check(st)
 
     def _finish_check(self, st: _Active) -> None:
@@ -524,7 +588,7 @@ class ContinuousEngine:
             return None
         return max(self._slots, key=lambda s: self._slots[s].req.id)
 
-    def _preempt(self, slot: int) -> None:
+    def _preempt(self, slot: int, reason: str) -> None:
         """Evict one active request: free its pages now, keep its generated
         prefix, and queue it again for recompute-restore (``_prefill``)."""
         st = self._slots.pop(slot)
@@ -533,6 +597,16 @@ class ContinuousEngine:
         self.sched.release(slot)
         self.sched.submit(st.req)       # back in FCFS at its original id
         self.preemptions += 1
+        data = {"request_id": st.req.id, "slot": slot, "reason": reason,
+                "tokens_kept": len(st.produced)}
+        if self.prof.armed:             # timeline instant + a fresh queue
+            data["at_s"] = round(self.prof.now(), 9)   # span for the re-wait
+            self._submit_step[st.req.id] = self.engine_steps
+            self._queue_spans[st.req.id] = self.prof.begin(
+                "queue", scope=f"req:{st.req.id}/preempt{self.preemptions}",
+                parent=self._req_spans.get(st.req.id),
+                lane=f"req{st.req.id}")
+        self.tracker.log("serve_preempt", data, step=self.engine_steps)
 
     def _apply_faults(self, step_idx: int) -> None:
         """Consume this step's scheduled faults. May raise ``EngineCrash``."""
@@ -553,7 +627,7 @@ class ContinuousEngine:
                     if victim is None:
                         break
                     revoked.append(self._slots[victim].req.id)
-                    self._preempt(victim)
+                    self._preempt(victim, reason="slot_revoked")
                 self.faults.record(f, engine_step=step_idx, victims=revoked)
             elif f.kind == "pool_exhaust":
                 want = min(f.arg, self.cache.layout.n_pages)
@@ -563,7 +637,7 @@ class ContinuousEngine:
                     if victim is None:
                         break
                     evicted.append(self._slots[victim].req.id)
-                    self._preempt(victim)
+                    self._preempt(victim, reason="pool_exhausted")
                 pages = self.cache.quarantine(min(want,
                                                   self.cache.free_pages))
                 if pages:
@@ -593,6 +667,13 @@ class ContinuousEngine:
                 produced, _ = self._resume.pop(rid, ([], []))
                 self.cancelled[rid] = np.asarray(produced, np.int32)
                 del self._deadline[rid]
+                self.prof.end(self._queue_spans.pop(rid, None),
+                              cancelled=True)
+                self.prof.end(self._req_spans.pop(rid, None),
+                              cancelled=True, n_tokens=len(produced))
+                self.tracker.log("serve_cancel", {
+                    "request_id": rid, "where": "pending",
+                    "tokens_kept": len(produced)}, step=step_idx)
         for slot in sorted(self._slots):
             rid = self._slots[slot].req.id
             if self._deadline.get(rid, step_idx + 1) <= step_idx:
@@ -601,6 +682,11 @@ class ContinuousEngine:
                 self.cache.free_slot(slot)
                 self.sched.release(slot)
                 del self._deadline[rid]
+                self.prof.end(self._req_spans.pop(rid, None),
+                              cancelled=True, n_tokens=len(st.produced))
+                self.tracker.log("serve_cancel", {
+                    "request_id": rid, "where": "active",
+                    "tokens_kept": len(st.produced)}, step=step_idx)
 
     def _decode(self, live: List[int]) -> None:
         """One batched ``(n_slots, 1)`` decode step over the live slots."""
@@ -648,9 +734,18 @@ class ContinuousEngine:
         if live:
             t0 = time.perf_counter()
             if self.spec is not None:
+                span = self.prof.begin("spec_round", scope=f"step:{step_idx}",
+                                       lane="engine", step=step_idx)
                 self.spec.round(self, live)
+                self.prof.end(span, live_slots=len(live))
             else:
+                span = self.prof.begin("decode", scope=f"step:{step_idx}",
+                                       lane="engine", step=step_idx)
                 self._decode(live)
+                self.prof.end(span, live_slots=len(live),
+                              committed=len(live))
+                self.tracker.log("serve_decode", {"live_slots": len(live)},
+                                 step=self.decode_steps)
             self.decode_s.append(time.perf_counter() - t0)
 
         for s in [s for s, st in self._slots.items() if st.done]:
@@ -661,6 +756,13 @@ class ContinuousEngine:
             self._deadline.pop(st.req.id, None)
             self.cache.free_slot(s)
             self.sched.release(s)
+            self.prof.end(self._req_spans.pop(st.req.id, None),
+                          n_tokens=len(st.produced), slot=s)
+            self._submit_step.pop(st.req.id, None)
+            self.tracker.log("serve_done", {
+                "request_id": st.req.id, "slot": s,
+                "n_tokens": len(st.produced),
+                "decode_steps": self.decode_steps})
         self.engine_steps = step_idx + 1
         if (self.snapshot_dir is not None and self.snapshot_every
                 and self.engine_steps % self.snapshot_every == 0):

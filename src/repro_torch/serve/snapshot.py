@@ -129,6 +129,8 @@ def save_engine_snapshot(eng, directory: str) -> int:
         tree["draft_pools"] = _pool_tree(eng.spec.pools)
     step = eng.engine_steps
     C.save(directory, step, tree, keep_last=3)
+    eng.tracker.log("serve_snapshot", {"engine_step": step,
+                                       "directory": directory}, step=step)
     return step
 
 
@@ -273,4 +275,6 @@ def restore_engine(directory: str, cfg, params, *, step: Optional[int] = None,
     eng.preemptions = state["preemptions"]
     eng._next_id = state["next_id"]
     eng._stall_until = state["stall_until"]
+    eng.tracker.log("serve_snapshot_restore", {
+        "engine_step": eng.engine_steps, "directory": directory})
     return eng

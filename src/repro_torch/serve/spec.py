@@ -35,6 +35,12 @@ reads it. The per-slot clamp ``k_s = min(k, max_new - produced - 1)`` keeps
 every real write at or below ``prompt_len + max_new - 2``, inside the
 admission's reservation; steps past ``k_s`` re-read position ``p0 + k_s``
 and write to the trash page at distinct offsets.
+
+Observation, as in the reference: a separate drafter's round emits a
+``spec_draft`` and a ``spec_verify`` span (host time: their steps are
+queued on the device, and the round waits for it once, at its end), and
+every round a ``serve_spec_round`` event with its committed, accepted and
+evaluated counts; the engine wraps the round in its ``spec_round`` span.
 """
 from __future__ import annotations
 
@@ -136,24 +142,29 @@ class Speculator:
                                     [tok0_d], dev, rids, steps0)
             drafts = toks[:, :k]
         else:
-            dtoks, _ = self._steps(eng, self.dparams, self.pools, self.dcfg,
-                                   [tok0_d], dev, rids, steps0)
+            with eng.prof.span("spec_draft", scope=f"step:{eng.engine_steps}",
+                               lane="engine", k=k):
+                dtoks, _ = self._steps(eng, self.dparams, self.pools,
+                                       self.dcfg, [tok0_d], dev, rids, steps0)
             self.draft_steps += S
             feed = [tok0_d] + [dtoks[:, l:l + 1] for l in range(k)]
-            toks, lps = self._steps(eng, eng.params, eng.cache.pools, eng.cfg,
-                                    feed, dev, rids, steps0)
+            with eng.prof.span("spec_verify", scope=f"step:{eng.engine_steps}",
+                               lane="engine", k=k):
+                toks, lps = self._steps(eng, eng.params, eng.cache.pools,
+                                        eng.cfg, feed, dev, rids, steps0)
             drafts = dtoks[:, :k]
         toks, lps, drafts = (t.cpu().numpy() for t in (toks, lps, drafts))
         eng.decode_steps += 1           # one verify dispatch a round
 
         # exact acceptance: commit while the draft is the plain-path sample
-        matched = evaluated = 0
+        committed = matched = evaluated = 0
         for s in live:
             st = eng._slots[s]
             ks = k_s[s]
             for l in range(ks + 1):
                 st.produced.append(int(toks[s, l]))
                 st.logprobs.append(float(lps[s, l]))
+                committed += 1
                 eng._finish_check(st)
                 if st.done:
                     break
@@ -166,6 +177,10 @@ class Speculator:
         self.rounds += 1
         self.accepted += matched
         self.truncated += sum(k_s.values()) - evaluated
+        eng.tracker.log("serve_spec_round", {
+            "live_slots": len(live), "k": k, "committed": committed,
+            "accepted": matched, "evaluated": evaluated},
+            step=eng.engine_steps)
 
     def _steps(self, eng, params, pools, cfg, feed, dev, rids, steps0):
         """``k + 1`` paged ``(n_slots, 1)`` steps, each sampled with the

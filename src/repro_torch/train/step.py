@@ -9,7 +9,10 @@ of (state, batch): microbatch accumulation is a fixed-order fp32 sum then a
 divide, remat and its policy come from ``tcfg``, int8 error-feedback
 compression (``grad_compression="int8"``, residuals in ``state["ef"]``)
 follows the microbatch sum, and clipping precedes the update. A packed batch
-carries ``segment_ids`` and ``positions`` through ``loss_fn``. Mesh
+carries ``segment_ids`` and ``positions`` through ``loss_fn``. With
+``digest_metrics`` a step's metrics carry ``state_fingerprint``, the uint32
+:func:`repro_torch.verify.digest.tree_fingerprint` of the new state (on the
+card one launch of the fingerprint kernel). Mesh
 shardings (``state_pspecs``, ``batch_pspecs``) wait for the distributed
 slice (ROADMAP A9).
 """
@@ -24,6 +27,7 @@ from repro_torch.dist import compression
 from repro_torch.models import transformer as T
 from repro_torch.models.module import set_path, tree_paths
 from repro_torch.train import optimizer as O
+from repro_torch.verify import digest as V
 
 F32 = torch.float32
 
@@ -36,6 +40,9 @@ class TrainConfig:
     remat_policy: str = "none"    # none (recompute all) | dots | names
     grad_compression: Optional[str] = None    # None | "int8"
     seed: int = 0
+    digest_metrics: bool = False  # ship the uint32 state fingerprint in the
+                                  # metrics (verify.digest.tree_fingerprint):
+                                  # the live divergence alarm
 
 
 def _check(tcfg: TrainConfig):
@@ -73,8 +80,8 @@ def _tree(paths, leaves):
 
 def make_train_step(cfg, tcfg: TrainConfig):
     """Returns step(state, batch) → (new state, metrics). The input state is
-    not modified. ``metrics``: loss, ce, aux, grad_norm (0-dim tensors) and
-    lr (a float)."""
+    not modified. ``metrics``: loss, ce, aux, grad_norm (0-dim tensors), lr
+    (a float) and, with ``digest_metrics``, state_fingerprint (an int)."""
     _check(tcfg)
 
     def grads_of(params, batch):
@@ -121,6 +128,8 @@ def make_train_step(cfg, tcfg: TrainConfig):
         new_state.update(params=new_p, opt=new_opt, step=state["step"] + 1)
         metrics = dict(metrics, loss=loss, grad_norm=gnorm,
                        lr=O.lr_at(tcfg.opt, step_i))
+        if tcfg.digest_metrics:
+            metrics["state_fingerprint"] = V.tree_fingerprint(new_state)
         return new_state, metrics
 
     return step
@@ -131,5 +140,7 @@ def step_event(metrics: Dict[str, Any],
                ) -> Dict[str, float]:
     """One step's training metrics as plain floats (a tracker payload).
     ``float()`` of a device value is the one sync, made after the caller
-    decided this step gets logged."""
+    decided this step gets logged. The uint32 ``state_fingerprint`` is left
+    out: it flows through :meth:`repro_torch.obs.DivergenceAlarm.observe`,
+    which owns the ``fingerprint`` event and the divergence latch."""
     return {k: float(metrics[k]) for k in keys if k in metrics}

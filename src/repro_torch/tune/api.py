@@ -105,8 +105,22 @@ def tune_attention(*, seq: int, seq_kv: Optional[int] = None, head_dim: int,
     seq_kv = seq if seq_kv is None else seq_kv
     n_kv_heads = n_heads if n_kv_heads is None else n_kv_heads
     cache = cache if cache is not None else default_cache()
-    if cache.tracker is None and tracker is not None:
+    # the call's tracker hears this call's hit/miss events only: the
+    # process-wide store outlives the run (and the file) it was handed with
+    lend = cache.tracker is None and tracker is not None
+    if lend:
         cache.tracker = tracker
+    try:
+        return _tune(seq, seq_kv, head_dim, dtype, causal, mask, n_heads,
+                     n_kv_heads, backend, mode, cache, tracker, topk, runner,
+                     smem_budget)
+    finally:
+        if lend:
+            cache.tracker = None
+
+
+def _tune(seq, seq_kv, head_dim, dtype, causal, mask, n_heads, n_kv_heads,
+          backend, mode, cache, tracker, topk, runner, smem_budget):
     mask_key = mask.key() if mask is not None else (
         "causal" if causal else "full")
     key = make_key(mask_key=mask_key, seq_q=seq, seq_kv=seq_kv,

@@ -1,7 +1,6 @@
 """Canonical bitwise tree digests + per-step digest chains.
 
-Port of ``repro.verify.digest`` (without the in-graph fingerprint). The
-digest of a leaf is sha256 over ``dtype|shape|raw bytes`` of the
+Port of ``repro.verify.digest``. The digest of a leaf is sha256 over ``dtype|shape|raw bytes`` of the
 C-contiguous host copy, with numpy's dtype names and shape tuples and bf16
 hashed through its 2-byte bit pattern, so equal values digest equally in
 both packages: ``tree_digest`` of a bridged parameter tree equals the
@@ -11,6 +10,12 @@ are the keys joined by ``/``.
 A :class:`DigestChain` folds one digest per step into a running sha256 —
 two training runs are bitwise-conformant iff their chain heads match, and
 the first diverging step is recoverable from the per-step record.
+
+:func:`tree_fingerprint` is the live companion: a uint32 fold over the bit
+patterns of every leaf, cheap enough to ship in each step's metrics
+(``TrainConfig.digest_metrics``) as a divergence alarm. It equals the
+reference's ``tree_fingerprint`` for equal values; on the card its per-leaf
+reduction is ``kernels/csrc/fingerprint.cu``.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels import fingerprint as FP
 from repro_torch.models.module import tree_paths
 
 _DIGEST_THREADS = min(8, os.cpu_count() or 1)
@@ -149,3 +155,33 @@ class DigestChain:
                              f"recomputed head {chain.head} != recorded "
                              f"{obj['head']}")
         return chain
+
+
+# ------------------------------------------------------------- fingerprint
+_FNV_OFFSET = 2166136261
+_FNV_PRIME = 16777619
+
+
+def tree_fingerprint(tree) -> int:
+    """uint32 fingerprint of a nested dict of tensors, as a Python int — the
+    cheap live alarm.
+
+    The reference's fold: leaves in the order of their **whole** path
+    strings (not the level-by-level key order of :func:`tree_paths`, which
+    differs when a key holds a character below ``/``), ``acc = 2166136261``,
+    then per leaf ``acc = (acc ^ (leaf_fp + salt)) * 16777619 mod 2**32``
+    with ``salt`` the first 8 hex digits of ``sha256(path)``. The per-leaf
+    values come from :func:`repro_torch.kernels.fingerprint.leaf_fingerprints`
+    (one kernel launch for the leaves on the card). Not a cryptographic
+    digest: use it to *detect* divergence live, then localize with
+    :func:`tree_digest` chains.
+    """
+    named = sorted(tree_paths(tree), key=lambda kv: kv[0])
+    leaves = [x if isinstance(x, torch.Tensor)
+              else torch.from_numpy(np.ascontiguousarray(np.asarray(x)))
+              for _, x in named]
+    acc = _FNV_OFFSET
+    for (path, _), fp in zip(named, FP.leaf_fingerprints(leaves)):
+        salt = int(hashlib.sha256(path.encode()).hexdigest()[:8], 16)
+        acc = ((acc ^ ((fp + salt) & FP.MASK32)) * _FNV_PRIME) & FP.MASK32
+    return acc

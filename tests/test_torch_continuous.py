@@ -10,7 +10,8 @@ bitwise the same across co-batch, batch size and slot count, arrival order,
 prefill chunk, prompt padding, page reuse, run to run, greedy and sampled;
 plus the logprob contract, EOS, deadlines and load shedding; the launcher's
 ``--spec-k``, ``--draft-model`` and ``--chaos``; and the knobs that raise
-until their ROADMAP items land."""
+until their ROADMAP items land (the tracker's are in
+``tests/test_torch_obs_engine.py``)."""
 import jax
 import numpy as np
 import pytest
@@ -351,11 +352,11 @@ def test_engine_telemetry(setup):
 
 
 # ------------------------------------------------------------ not ported
-@pytest.mark.parametrize("knob", ["tracker", "run_id", "mesh"])
+@pytest.mark.parametrize("knob", ["mesh"])
 def test_unported_knobs_raise(setup, knob):
     cfg, params, _ = setup
-    value = {"run_id": "r"}.get(knob, object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A[79]"):
+    value = object()
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         TE.ContinuousEngine(cfg, params, **{knob: value})
 
 
@@ -377,11 +378,9 @@ def test_launcher_continuous_on_cpu(capsys):
     assert "request 0 tokens:" in text and "continuous: 4 requests" in text
 
 
-@pytest.mark.parametrize("flag", [["--tp", "2"], ["--mesh", "2x2"],
-                                  ["--track", "t.jsonl"],
-                                  ["--trace-out", "t.json"]])
+@pytest.mark.parametrize("flag", [["--tp", "2"], ["--mesh", "2x2"]])
 def test_launcher_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP A[79]"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         tlaunch.main(["--engine", "continuous", "--reduced", "--device",
                       "cpu"] + flag)
 

@@ -735,3 +735,37 @@ def test_snapshot_round_trip_on_the_card(tmp_path):
         assert np.array_equal(a[i], b[i])
         assert np.array_equal(eng.result_logprobs[i],
                               eng2.result_logprobs[i])
+
+
+# ------------------------------------------------------ state fingerprint
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32, torch.int32, torch.int8,
+                                   torch.uint8, torch.bool])
+def test_fingerprint_kernel_equals_its_plain_version(dtype):
+    _card()
+    from repro_torch.kernels import fingerprint as FP
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    raw = torch.randint(-2 ** 31, 2 ** 31 - 1, ((1 << 18) + 9,),
+                        generator=gen, device="cuda", dtype=torch.int64)
+    x = (raw % 2 == 0 if dtype == torch.bool
+         else raw.to(torch.int32).view(torch.float32).nan_to_num().to(dtype)
+         if dtype.is_floating_point else raw.to(dtype))
+    leaves = [x, x[1:], x[5:1000], x[:7].reshape(7, 1).expand(7, 3),
+              x[0].clone(), x[:0]]
+    before = FP.launches
+    got = FP.leaf_fingerprints(leaves)
+    assert FP.launches == before + 1
+    assert got == [FP.fingerprint_plain(t.cpu()) for t in leaves]
+
+
+def test_fingerprint_state_on_the_card_equals_the_cpu():
+    _card()
+    from repro_torch.verify.digest import tree_fingerprint
+    cfg = registry.get("stablelm-1.6b").reduced(attention_impl="cuda")
+    tcfg = S.TrainConfig(digest_metrics=True)
+    state = S.init_state(cfg, tcfg, seed=0, device="cuda")
+    fp = tree_fingerprint(state)
+    assert fp == tree_fingerprint(O.tree_map(lambda t: t.cpu(), state))
+    with pytest.raises(TypeError, match="covers"):
+        tree_fingerprint({"x": torch.zeros(3, device="cuda",
+                                           dtype=torch.int64)})

@@ -191,9 +191,22 @@ def test_history_digest_matches_reference():
         assert port.history_digest() == ref.history_digest()
 
 
-def test_injector_tracker_waits_for_a7():
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        Injector(FaultPlan(), tracker=object())
+def test_injector_tracker_logs_fault_injected():
+    """Every landed fault reaches the tracker as the reference's
+    ``fault_injected`` event, its step the fault's."""
+    from repro.obs import MemoryTracker as JMemory
+    from repro_torch.obs import MemoryTracker
+    port, ref = MemoryTracker(), JMemory()
+    pi, ri = Injector(FaultPlan(), tracker=port), JInjector(JPlan(),
+                                                           tracker=ref)
+    for inj, fault in ((pi, Fault), (ri, JFault)):
+        inj.record(fault(4, "pool_exhaust", 3, 2), engine_step=4, pages=3,
+                   victims=[1])
+        inj.record(fault(9, "ckpt_io", 2), attempt=1)
+    assert port.events == ref.events
+    assert [e["event"] for e in port.events] == ["fault_injected"] * 2
+    assert [e["step"] for e in port.events] == [4, 9]
+    assert pi.history_digest() == ri.history_digest()
 
 
 def test_armed_checkpoint_none_is_noop():
