@@ -47,6 +47,15 @@ Phases, each reported on its own line:
                1, 7, 1000, 2^20+3 elements, aligned and not) and leaf by
                leaf on the full-width train state (~16 GB), where a
                one-bit flip and a swap must each change it, timed there;
+               and the GQA groups of this slice's models (``[kernel-check]
+               gqa``: 40/8 and 48/8 at D=128, S=1024): the causal forward,
+               the worker backward with its dQ and dK/dV group folds (each
+               fold bitwise its plain version, ``flash_bwd`` twice
+               bitwise), and the paged attention at 48/8 (decode and a
+               prefill chunk) against plain, first design, rows alone and
+               20 repetitions; the GEMM and row checks include
+               Nemotron-4-15B's widths (LM head N=256000, w_down as 48
+               shards of 512, d=6144, V=256000);
   4. serve   — serve StableLM-1.6B at full width and depth in bf16 (random
                weights, seed 0) through the static engine: greedy, batch 4,
                prompt 512, 32 new tokens. Checks that the prefill launched the
@@ -92,6 +101,19 @@ Phases, each reported on its own line:
                and span counts as the engine's telemetry predicts, a valid
                trace with modeled and achieved lanes; RunReport's TTFT and
                per-token percentiles beside the engine's TTFT;
+     serve-moe — the static engine as in phase 4 at full width for
+               Phi-3.5-MoE (4 of 32 layers) and Llama-4-Scout (1 of 48),
+               batch 4, prompt 512, 32 greedy tokens: bitwise across two
+               runs, one causal forward a layer, prefill logits against
+               the plain attention's with the router's choices pinned to
+               the kernel run's (each row's relative error); ``launch.serve --engine continuous``
+               with Phi-3.5-MoE must raise the paged engine's refusal;
+     serve-nemotron — Nemotron-4-15B at full width (2 of 32 layers;
+               squared ReLU, LayerNorm, half rotary, 48/8 heads, vocab
+               256000) through the continuous engine over the
+               serve-continuous traffic at 4 and at 2 slots: tokens and
+               logprobs bitwise equal, launches as the engine's work
+               predicts; decode step ms and tok/s;
   5. train   — train StableLM-1.6B at full width and depth (bf16, AdamW,
                remat, causal, B=4, S=1024, 3 steps, warmup 1, ``--tune sim``,
                which prints the tuner's pick and changes nothing else) through
@@ -107,21 +129,24 @@ Phases, each reported on its own line:
                ``utilization_vs_modeled`` printed (``[obs]``). The
                train-window and dash-paper phases run the same way;
   6. train-resume — the train phase's flags (full width and depth) as two
-               launcher subprocesses with a checkpoint after every step (in
-               a temporary directory on tmpfs, the newest one kept): run
-               B killed with ``os._exit(17)`` at the top of step 2 (step 2's
-               async save possibly in flight), run C ``--resume``d from the
-               latest durable checkpoint; run C's digest chain head must
+               launcher subprocesses: run B with a checkpoint after every
+               step (in a temporary directory on tmpfs, the newest one
+               kept), killed with ``os._exit(17)`` at the top of step 2
+               (step 2's async save possibly in flight), run C
+               ``--resume``d from the latest durable checkpoint, saving
+               none of its own; run C's digest chain head must
                equal the train phase's first run's, it must resume from step
                1 or 2, and each of its steps must launch 48 causal forwards,
                24 worker backwards and 24 folds. Prints the checkpoint's
                bytes, save and restore seconds, the directory's filesystem
                and free bytes;
   7. lifecycle — every cell of ``verify.lifecycle`` (base, mb4, int8, remat
-               "dots", gqa, bf16opt, plus adafactor and packed documents) at
-               full width cut to 2 layers, B=2 (mb4: 4), S=1024, 4 steps,
-               crash at 2, on the DASH kernels: straight ≡ crash/resume bit
-               for bit, with the launches each cell predicts; then the
+               "dots", gqa, moe, bf16opt, plus adafactor and packed
+               documents) at full width cut to 2 layers (moe: Phi-3.5-MoE at
+               the reference's reduced widths), B=2 (mb4: 4), S=1024, 4
+               steps, crash at 2, on the DASH kernels: straight ≡
+               crash/resume bit for bit, with the launches each cell
+               predicts (3 folds a layer under GQA); then the
                train_serve_parity cell at full width cut to 2 layers for
                StableLM-1.6B, Qwen1.5-110B and Mistral-NeMo-12B: the
                canonical forward's logits digest equal to the engine's;
@@ -153,6 +178,17 @@ Phases, each reported on its own line:
                forward, step 1 and every layer's attention grads against the
                plain masked, query-chunked attention's step, then one
                profiled step;
+     train-moe — the train phase for Phi-3.5-MoE at full width cut to 2 of
+               its 32 layers (16 experts top-2, einsum dispatch; B=4,
+               S=1024, 3 steps, ``--verify``), twice: equal digest chains
+               and fingerprints, per layer 2 causal forwards, 1 worker
+               backward and 3 folds a step, step 1 against the plain
+               attention's (the router's choices pinned to the kernel
+               run's), ce and aux; then one full-width expert layer's
+               gather dispatch against the einsum one on a (4, 1024)
+               batch at capacity factors 1.25 and 0.5: in fp32 within
+               tests/test_moe.py's tolerance, in bf16 within 3 bf16 ulps
+               of the largest expert output; in bf16 each twice bitwise;
  11. tune    — the tuner (``repro_torch.tune``) in measure mode over every
                legal candidate (schedule family x worker-parallel or
                serialized), the runner one synchronized ``dash_attention``
@@ -193,9 +229,11 @@ Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -227,11 +265,13 @@ from repro_torch.kernels import rows as ROWS  # noqa: E402
 from repro_torch.kernels import flash_bwd as FB  # noqa: E402
 from repro_torch.kernels import flash_fwd as FF  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch import masks as M  # noqa: E402
-from repro_torch.models.module import count_params, set_path, tree_paths  # noqa: E402,E501
+from repro_torch.models.module import (count_params, init_tree,  # noqa: E402
+                                       set_path, tree_paths)
 from repro_torch.serve.engine import (ContinuousEngine, Engine,  # noqa: E402
                                       SampleConfig)
 from repro_torch.train import optimizer as O  # noqa: E402
@@ -259,6 +299,16 @@ LSE_RTOL = 1e-3                                         # |Δlse| / max(|lse|, 1
 # the two round the attention output to bf16 from differently ordered fp32
 # sums, and one-ulp differences grow through 24 layers
 LOGITS_ATOL = 0.1
+# over an MoE model (the router's choices pinned, _PinnedRouting) each
+# prompt row's logits are held by their relative error norm
+# |cuda - plain| / |plain| instead: the absolute difference grows with
+# depth whatever the FFN (scripts/moe_logits_noise.py over all 2048 rows of
+# B=4 x S=512 on an H100 80GB HBM3 at 700 W: Mistral-NeMo's dense layers
+# read max 0.084 at 2 layers and 0.134 at 4; Phi-3.5-MoE 0.063 / 0.124 /
+# 0.218 at 1 / 2 / 4 layers), while the relative norm stays small
+# (Phi-3.5-MoE at 4 layers: at most 0.036; Llama-4-Scout at 1: 0.0075) and
+# reads ~1 for a wrong attention or a flipped route
+MOE_LOGITS_REL = 5e-2
 
 # the reference's grad tolerances (tests/test_kernels.py:59)
 GRAD_TOL = {torch.bfloat16: dict(atol=0.1, rtol=5e-2),
@@ -275,8 +325,7 @@ GRAD_TOL = {torch.bfloat16: dict(atol=0.1, rtol=5e-2),
 LOSS_RTOL = 2e-4
 GNORM_RTOL = 3e-3
 ATTN_GRAD_RTOL = 5e-2
-ATTN_LEAVES = tuple(f"blocks/b0_attn/attn/{w}" for w in ("wq", "wk", "wv",
-                                                         "wo"))
+ATTN_WEIGHTS = ("wq", "wk", "wv", "wo")
 
 # (name, batch, heads, kv heads, seq, head_dim, dtype)
 KERNEL_CASES = [
@@ -311,6 +360,35 @@ TRAIN_WINDOW_ARGV = ["--arch", "stablelm-1.6b", "--batch", "1", "--seq",
                      "4096", "--attn-window", "1024", "--steps", "3",
                      "--warmup-steps", "1", "--seed", "0", "--log-every", "1",
                      "--verify"]
+# [train-moe]: Phi-3.5-MoE at its published widths (16 experts top-2,
+# 32 heads over 8 KV heads), cut to 2 of its 32 layers so that its state
+# (bf16 params, fp32 AdamW moments) fits the card, through the launcher as
+# [train] runs it; then one full-width expert layer's gather dispatch
+# against the einsum dispatch on a (B, S) batch of normal inputs at the
+# capacity factors given (the config's, and one that drops tokens): in fp32
+# within tests/test_moe.py's tolerance (dot association), in bf16 within
+# MOE_BF16_ULPS
+TRAIN_MOE_ARGV = ["--arch", "phi3.5-moe-42b-a6.6b", "--layers", "2",
+                  "--batch", "4", "--seq", "1024", "--steps", "3",
+                  "--warmup-steps", "1", "--seed", "0", "--log-every", "1",
+                  "--verify"]
+MOE_GATHER_SHAPE = (4, 1024)
+MOE_GATHER_CAPACITY = (1.25, 0.5)
+MOE_IMPL_TOL = dict(atol=2e-3, rtol=2e-2)
+# the bf16 gather-vs-einsum limit, in bf16 ulps of the largest expert output
+# (moe_bf16_gap says why)
+MOE_BF16_ULPS = 3
+# [serve-moe]: the static engine at full width with the [slice] traffic,
+# Phi-3.5-MoE cut to 4 layers (~10.9 GB of bf16 weights) and Llama-4-Scout
+# to 1 (~8.6 GB: its vocab-202752 embedding and head are half of it)
+SERVE_MOE = [dict(SLICE, arch="phi3.5-moe-42b-a6.6b", layers=4),
+             dict(SLICE, arch="llama4-scout-17b-a16e", layers=1)]
+# [serve-nemotron]: Nemotron-4-15B at full width, cut to 2 layers (its
+# vocab-256000 embedding and head are 3.15 B of its 3.9 B parameters),
+# through the continuous engine over [serve-continuous]'s traffic, at these
+# slot counts
+NEMOTRON_LAYERS = 2
+NEMOTRON_SLOTS = (4, 2)
 # [train-resume]: TRAIN_ARGV killed with os._exit(17) at the top of step 2
 # (from 0) after a checkpoint at every step (the newest kept), then resumed;
 # each run a subprocess of the launcher with up to this many seconds
@@ -326,6 +404,10 @@ CKPT_ROOT = "/dev/shm"
 LIFECYCLE = dict(reduced=False, steps=4, batch=2, seq=1024)
 LIFECYCLE_OVERRIDES = (("n_layers", 2), ("attention_impl", "cuda"))
 LIFECYCLE_CRASH_AT = 2
+# cells run at the reference's own reduced widths (their LifecycleConfig
+# default): a full-width expert layer's state is ~16-20 GB a checkpoint, and
+# [train-moe]'s two equal chains carry the full-width MoE contract
+LIFECYCLE_REDUCED = ("moe",)
 # the windowed training slice's attention shape (B, H, Hk, S, D, dtype) and
 # mask
 WINDOW_CASE = ("train_window", 1, 32, 32, 4096, 64, torch.bfloat16)
@@ -418,6 +500,12 @@ PAPER_ARGV = ["--arch", "dash-paper", "--tune", "measure", "--batch", "16",
 # (tests/test_mask_kernels.py:43-48) scaled from S=256 to S=1024, and
 # causal ∧ sink, which leaves KV rows with no task
 MASK_S = 1024
+# [kernel-check] gqa: the GQA groups of Llama-4-Scout (40/8) and
+# Nemotron-4-15B (48/8) at their head dim 128, S=1024 (name, B, H, Hk, S, D,
+# dtype); Nemotron's paged attention (H, Hk, D)
+GQA_CASES = [("llama4_40_8", 1, 40, 8, 1024, 128, torch.bfloat16),
+             ("nemotron_48_8", 1, 48, 8, 1024, 128, torch.bfloat16)]
+GQA_PAGED = (48, 8, 128)
 MASK_CASES = [
     ("window", M.SlidingWindow(384)),
     ("prefix", M.PrefixLM(320)),
@@ -848,6 +936,53 @@ def check_masks():
     return results
 
 
+class _PinnedRouting:
+    """The router's top-k choices (``models/moe.py::route``) recorded in one
+    run and replayed, call by call, in another: the replaying run takes the
+    recorded experts with its own probabilities for them (renormalised as
+    its config says). A kernel run and the plain attention's over an MoE
+    model are compared so: a bf16 difference in a hidden state flips
+    near-tied router choices (Phi-3.5-MoE, 4 layers, B=4, S=512: 21 of 2048
+    tokens in layer 1, 601 by layer 4; ``scripts/moe_logits_noise.py``),
+    and a flip moves its token by O(1)
+    and, through the queues, other tokens' capacity drops. ``flips`` counts
+    the replayed calls' own choices that differ from the recorded ones, of
+    ``choices``. A model without experts records nothing."""
+
+    def __init__(self):
+        self.calls, self.flips, self.choices = [], 0, 0
+
+    @contextlib.contextmanager
+    def _routed(self, route):
+        orig = MOE.route
+        MOE.route = lambda p, x, cfg: route(orig, p, x, cfg)
+        try:
+            yield self
+        finally:
+            MOE.route = orig
+
+    def record(self):
+        def route(orig, p, x, cfg):
+            out = orig(p, x, cfg)
+            self.calls.append(out[2])
+            return out
+        return self._routed(route)
+
+    def replay(self):
+        queue = list(self.calls)
+
+        def route(orig, p, x, cfg):
+            probs, _, own = orig(p, x, cfg)
+            idx = queue.pop(0)
+            self.flips += int((own != idx).any(-1).sum())
+            self.choices += own[..., 0].numel()
+            vals = probs.gather(-1, idx)
+            if cfg.renorm_topk:
+                vals = vals / vals.sum(-1, keepdim=True)
+            return probs, vals, idx
+        return self._routed(route)
+
+
 def _timed(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -858,12 +993,16 @@ def _timed(fn):
 
 @torch.inference_mode()
 def run_slice(slice_=SLICE, label="slice"):
-    """The static engine at full width and depth: greedy, twice (bitwise
-    equal tokens), the prefill's attention launches (the causal forward, or
-    the block-sparse one under a window, once per layer), prefill logits vs
-    the plain attention's, prefill ms and decode tok/s."""
+    """The static engine at full width and depth (or the slice's
+    ``layers``): greedy, twice (bitwise equal tokens), the prefill's
+    attention launches (the causal forward, or the block-sparse one under a
+    window, once per layer), prefill logits vs the plain attention's (over
+    an MoE model with the router's choices pinned to the kernel run's:
+    :class:`_PinnedRouting`), prefill ms and decode tok/s."""
     cfg = registry.get(slice_["arch"]).replace(attention_impl="cuda",
                                                attn_window=slice_["window"])
+    if "layers" in slice_:
+        cfg = cfg.replace(n_layers=slice_["layers"])
     b, s, n = slice_["batch"], slice_["prompt"], slice_["gen"]
     params = T.init(cfg, seed=0, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -890,8 +1029,10 @@ def run_slice(slice_=SLICE, label="slice"):
         raise AssertionError("two greedy runs gave different tokens")
 
     # prefill and decode times, outside the counted run
-    (logits, caches), t_prefill = _timed(
-        lambda: T.prefill_step(params, batch, cfg, max_seq=s + n))
+    pin = _PinnedRouting()
+    with pin.record():
+        (logits, caches), t_prefill = _timed(
+            lambda: T.prefill_step(params, batch, cfg, max_seq=s + n))
 
     def decode_all():
         tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
@@ -902,23 +1043,54 @@ def run_slice(slice_=SLICE, label="slice"):
     _, t_decode = _timed(decode_all)
 
     plain_cfg = cfg.replace(attention_impl="torch")
-    plain_logits, _ = T.prefill_step(params, batch, plain_cfg, max_seq=s)
+    with pin.replay():
+        plain_logits, _ = T.prefill_step(params, batch, plain_cfg, max_seq=s)
     err = (logits - plain_logits).abs().max().item()
     finite = bool(torch.isfinite(logits).all())
+    rel = (torch.linalg.vector_norm(logits - plain_logits, dim=-1)
+           / torch.linalg.vector_norm(plain_logits, dim=-1)).max().item()
+    close = rel <= MOE_LOGITS_REL if cfg.n_experts else err <= LOGITS_ATOL
     same_argmax = (logits.argmax(-1) == plain_logits.argmax(-1)).float().mean()
     result = dict(
-        arch=cfg.name, params=count_params(params), batch=b, prompt=s,
+        arch=cfg.name, layers=cfg.n_layers, params=count_params(params),
+        batch=b, prompt=s,
         new_tokens=n, attn_window=cfg.attn_window, attention_launches=launches,
         run_s=t_run, prefill_ms=t_prefill * 1e3,
         decode_tok_per_s=b * (n - 1) / t_decode, peak_mem_gb=peak_gb,
         tokens_bitwise_equal=True, logits_max_abs_err_vs_plain=err,
-        logits_atol=LOGITS_ATOL, max_abs_logit=plain_logits.abs().max().item(),
-        argmax_agreement=same_argmax.item(), tokens_row0=tokens[0, :8].tolist())
+        logits_row_rel_err_vs_plain=rel,
+        logits_bound=(f"row rel. err <= {MOE_LOGITS_REL}" if cfg.n_experts
+                      else f"max abs err <= {LOGITS_ATOL}"),
+        max_abs_logit=plain_logits.abs().max().item(),
+        argmax_agreement=same_argmax.item(),
+        router_choices_flipped_unpinned=[pin.flips, pin.choices],
+        tokens_row0=tokens[0, :8].tolist())
     print(f"[{label}] " + json.dumps(result), flush=True)
-    if not finite or err > LOGITS_ATOL:
+    if not (finite and close):
         raise AssertionError(f"prefill logits: finite={finite}, max |cuda - "
-                             f"plain| = {err} > {LOGITS_ATOL}")
+                             f"plain| = {err}, row rel. err {rel}: beyond "
+                             f"{result['logits_bound']}")
     return result
+
+
+def _attn_leaves(params):
+    """The stacked attention projections of the first block (``b0_attn`` or
+    ``b0_attn_moe``): wq, wk, wv, wo."""
+    key = min(params["blocks"], key=lambda k: int(k.split("_")[0][1:]))
+    return tuple(f"blocks/{key}/attn/{w}" for w in ATTN_WEIGHTS)
+
+
+def _train_launches(cfg, verify):
+    """What one remat'd train step launches: the forward twice a layer
+    (block-sparse under a window, else causal), the worker backward once,
+    and its folds (the dQ partials, and under GQA dK and dV over each
+    group); one fingerprint under ``--verify``."""
+    folds = 3 if cfg.n_kv_heads < cfg.n_heads else 1
+    want = dict(fwd_causal=0, fwd_full=0, fwd_mask=0,
+                bwd_worker=cfg.n_layers, bwd_serial=0,
+                fold=folds * cfg.n_layers, fingerprint=int(verify))
+    want["fwd_mask" if cfg.attn_window else "fwd_causal"] = 2 * cfg.n_layers
+    return want
 
 
 def _attn_grads(cfg, params, batch):
@@ -926,7 +1098,8 @@ def _attn_grads(cfg, params, batch):
     stacked wq, wk, wv, wo), as the train step takes them: remat on. dQ
     reaches wq, dK wk, dV wv; wo sees the attention output."""
     paths = [p for p, _ in tree_paths(params)]
-    leaves = [x.detach().requires_grad_(p in ATTN_LEAVES)
+    wanted_paths = _attn_leaves(params)
+    leaves = [x.detach().requires_grad_(p in wanted_paths)
               for p, x in zip(paths, O.tree_leaves(params))]
     tree = {}
     for path, leaf in zip(paths, leaves):
@@ -945,29 +1118,38 @@ def run_train(argv=TRAIN_ARGV, label="train"):
     plain masked, query-chunked attention); step 3 of the second run under
     the profiler."""
     args, cfg, tcfg, data, device = launch_train.configure(argv)
-    fwd = "fwd_mask" if cfg.attn_window else "fwd_causal"
-    want = dict(fwd_causal=0, fwd_full=0, fwd_mask=0,
-                bwd_worker=cfg.n_layers, bwd_serial=0, fold=cfg.n_layers,
-                fingerprint=int(args.verify))
-    want[fwd] = 2 * cfg.n_layers
+    want = _train_launches(cfg, args.verify)
     batch0 = data.batch(0)
 
-    # step 1 on the plain attention, and the attention grads both ways
+    # step 1 on the plain attention, and the attention grads both ways; over
+    # an MoE model the plain runs take the kernel runs' router choices
+    # (_PinnedRouting), the kernel's step 1 then run here too, and it must be
+    # the launcher's step 1 bit for bit
     torch.use_deterministic_algorithms(True)
+    pins = [_PinnedRouting(), _PinnedRouting()]
+    kernel_m = None
     try:
         state = TS.init_state(cfg, tcfg, seed=args.seed, device=device)
         plain_cfg = cfg.replace(attention_impl="torch")
-        plain_m = TS.make_train_step(plain_cfg, tcfg)(state, batch0)[1]
+        if cfg.n_experts:
+            with pins[0].record():
+                kernel_m = TS.make_train_step(cfg, tcfg)(state, batch0)[1]
+            kernel_m = {k: float(kernel_m[k]) for k in ("loss", "grad_norm")}
+        with pins[0].replay():
+            plain_m = TS.make_train_step(plain_cfg, tcfg)(state, batch0)[1]
         plain_m = {k: float(plain_m[k]) for k in ("loss", "grad_norm")}
-        ga = _attn_grads(cfg, state["params"], batch0)
-        gp = _attn_grads(plain_cfg, state["params"], batch0)
+        with pins[1].record():
+            ga = _attn_grads(cfg, state["params"], batch0)
+        with pins[1].replay():
+            gp = _attn_grads(plain_cfg, state["params"], batch0)
+        attn_leaves = _attn_leaves(state["params"])
         torch.cuda.synchronize()
         del state
     finally:
         torch.use_deterministic_algorithms(False)
     # per leaf, the largest over layers of |g_cuda - g_plain| / |g_plain|
     attn_err = {}
-    for path in ATTN_LEAVES:
+    for path in attn_leaves:
         a, p = ga[path].float(), gp[path].float()
         attn_err[path.split("/")[-1]] = max(
             (torch.linalg.vector_norm(x - y) / torch.linalg.vector_norm(y))
@@ -987,8 +1169,8 @@ def run_train(argv=TRAIN_ARGV, label="train"):
             counts.append(_counts())
             _zero_counts()
             if step == 1:
-                metrics1.update(loss=float(metrics["loss"]),
-                                grad_norm=float(metrics["grad_norm"]))
+                metrics1.update({k: float(metrics[k]) for k in (
+                    "loss", "grad_norm", "ce", "aux")})
             if step == args.steps and run == 0:   # against the seed's init
                 initial = T.init(cfg, seed=args.seed, device=device)
                 changed.append(sum(int((x != y).sum()) for x, y in zip(
@@ -1020,9 +1202,10 @@ def run_train(argv=TRAIN_ARGV, label="train"):
     rel_gn = abs(first["grad_norm"] - first["plain_grad_norm"]) / abs(
         first["plain_grad_norm"])
     result = dict(
-        arch=cfg.name, batch=args.batch, seq=args.seq, steps=args.steps,
-        attn_window=cfg.attn_window,
+        arch=cfg.name, layers=cfg.n_layers, batch=args.batch, seq=args.seq,
+        steps=args.steps, attn_window=cfg.attn_window,
         entry="repro_torch.launch.train.main " + " ".join(argv),
+
         # a hash chain over every step's state digest: equal heads mean
         # equal params and moments after every step
         digest_chain_heads=[a["digest_chain_head"], b_["digest_chain_head"]],
@@ -1035,7 +1218,8 @@ def run_train(argv=TRAIN_ARGV, label="train"):
         peak_mem_gb=a["peak_gb"], step1_vs_plain=first,
         loss_rel_diff=rel_loss, loss_rtol=LOSS_RTOL, gnorm_rel_diff=rel_gn,
         gnorm_rtol=GNORM_RTOL, attn_grad_rel_err=attn_err,
-        attn_grad_rtol=ATTN_GRAD_RTOL)
+        attn_grad_rtol=ATTN_GRAD_RTOL,
+        router_choices_flipped_unpinned=[[p.flips, p.choices] for p in pins])
     print(f"[{label}] " + json.dumps(result), flush=True)
     print(f"[{label}-obs] " + json.dumps(obs), flush=True)
     print(f"[{label}-profile] " + json.dumps(dict(
@@ -1050,6 +1234,10 @@ def run_train(argv=TRAIN_ARGV, label="train"):
         raise AssertionError("three training steps changed no parameter")
     if not all(x == x and abs(x) < 1e4 for x in result["final_losses"]):
         raise AssertionError(f"non-finite losses {result['final_losses']}")
+    if kernel_m is not None and kernel_m != {k: a["step1"][k] for k in
+                                             kernel_m}:
+        raise AssertionError(f"the pinned kernel step 1 {kernel_m} is not "
+                             f"the launcher's {a['step1']}")
     if rel_loss > LOSS_RTOL or rel_gn > GNORM_RTOL:
         raise AssertionError(f"train step 1 vs the plain attention: loss "
                              f"rel. diff {rel_loss} (tol {LOSS_RTOL}), grad "
@@ -1121,6 +1309,132 @@ def _train_obs(args, track, trace, a, b_):
                 steps=per_step, problems=problems)
 
 
+def bf16_ulp(v):
+    """The spacing of bf16 values at magnitude ``v`` > 0."""
+    return 2.0 ** (math.floor(math.log2(v)) - 7)
+
+
+@contextlib.contextmanager
+def expert_out_max(into):
+    """Appends max |expert output| of every ``models/moe.py::_experts`` call
+    made inside to ``into`` (a 0-dim tensor each; the outputs unchanged)."""
+    orig = MOE._experts
+
+    def experts(p, xin, cfg):
+        out = orig(p, xin, cfg)
+        into.append(out.float().abs().max())
+        return out
+    MOE._experts = experts
+    try:
+        yield into
+    finally:
+        MOE._experts = orig
+
+
+def moe_bf16_gap(p, x, cfg, gather_x=None, gather_cfg=None):
+    """``apply_moe(p, x, cfg)`` against ``apply_moe_gather`` (on
+    ``gather_x``/``gather_cfg`` where given, else the same): the largest
+    |difference|, the gather run's max |expert output| m, and the limit
+    ``MOE_BF16_ULPS`` bf16 ulps of m. The gather path rounds each gated
+    slot output (|gate·out| <= m) to bf16 before the sum over k, half an
+    ulp of m each, and the two paths' last roundings of |y| <= 2m take at
+    most an ulp of m each. Returns (that dict, y_einsum, aux_einsum,
+    y_gather, aux_gather)."""
+    seen = []
+    ye, ae = MOE.apply_moe(p, x, cfg)
+    with expert_out_max(seen):
+        yg, ag = MOE.apply_moe_gather(p, x if gather_x is None else gather_x,
+                                      gather_cfg or cfg)
+    m = seen[0].item()
+    gap = (ye.float() - yg.float()).abs().max().item()
+    limit = MOE_BF16_ULPS * bf16_ulp(m)
+    return (dict(max_abs_err=gap, max_abs_expert_out=m,
+                 max_abs_y=ye.float().abs().max().item(), limit=limit,
+                 ulps_of_m=gap / bf16_ulp(m), ok=gap <= limit),
+            ye, ae, yg, ag)
+
+
+def check_moe_gather(label="train-moe-gather"):
+    """One full-width expert layer of ``TRAIN_MOE_ARGV``'s arch (weights from
+    seed 0, normal inputs of ``MOE_GATHER_SHAPE``) under deterministic
+    algorithms, the gather dispatch against the einsum dispatch at each
+    capacity factor of ``MOE_GATHER_CAPACITY`` (the tighter one drops
+    tokens): in fp32 within ``MOE_IMPL_TOL``, aux within 1e-5; in bf16, the
+    model's dtype, within :func:`moe_bf16_gap`'s limit (the gather path
+    rounds each gated slot output to bf16 before the sum over k, the einsum
+    path once after it, so they differ by bf16 ulps of the slot outputs,
+    more than ``MOE_IMPL_TOL`` allows at |y| ~ 0), aux within 1e-5; at the
+    model's own capacity factor each twice bitwise, both ms reported."""
+    base = registry.get(TRAIN_MOE_ARGV[1])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p16 = init_tree(MOE.moe_defs(base), gen, base.dtype, "cuda")
+    b, s = MOE_GATHER_SHAPE
+    x16 = torch.randn((b, s, base.d_model), generator=gen,
+                      device="cuda").to(base.dtype)
+    fp32, bf16, ok = [], [], True
+    torch.use_deterministic_algorithms(True)
+    try:
+        with torch.inference_mode():
+            for cf in MOE_GATHER_CAPACITY:
+                cfg = base.replace(dtype_name="float32", capacity_factor=cf)
+                p32 = {k: v.float() for k, v in p16.items()}
+                x = x16.float()
+                ye, ae = MOE.apply_moe(p32, x, cfg)
+                yg, ag = MOE.apply_moe_gather(p32, x, cfg)
+                _, _, idx = MOE.route(p32, x, cfg)
+                _, pos = MOE.queue_positions(idx, cfg.n_experts)
+                aux_rel = abs(ae.item() - ag.item()) / abs(ae.item())
+                close = torch.allclose(ye, yg, **MOE_IMPL_TOL)
+                ok &= close and aux_rel <= 1e-5 and bool(
+                    torch.isfinite(ye).all())
+                fp32.append(dict(
+                    capacity_factor=cf, capacity=MOE.capacity(s, cfg),
+                    kept_share=(pos < MOE.capacity(s, cfg)).float().mean()
+                    .item(), max_abs_err=(ye - yg).abs().max().item(),
+                    aux_rel_diff=aux_rel, ok=close))
+                del p32
+                cfg = base.replace(capacity_factor=cf)
+                gap, ye, ae, yg, ag = moe_bf16_gap(p16, x16, cfg)
+                aux_rel = abs(ae.item() - ag.item()) / abs(ae.item())
+                gap.update(capacity_factor=cf, aux_rel_diff=aux_rel)
+                ok &= gap["ok"] and aux_rel <= 1e-5 and bool(
+                    torch.isfinite(ye).all() & torch.isfinite(yg).all())
+                bf16.append(gap)
+            cfg = base
+            ye, ae = MOE.apply_moe(p16, x16, cfg)
+            yg, ag = MOE.apply_moe_gather(p16, x16, cfg)
+            (ye2, ae2), t_e = _timed(lambda: MOE.apply_moe(p16, x16, cfg))
+            (yg2, ag2), t_g = _timed(lambda: MOE.apply_moe_gather(p16, x16,
+                                                                 cfg))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    bitwise = (torch.equal(ye, ye2) and torch.equal(ae, ae2)
+               and torch.equal(yg, yg2) and torch.equal(ag, ag2))
+    ok &= bitwise
+    result = dict(arch=base.name, d_model=base.d_model, d_ff=base.d_ff,
+                  experts=base.n_experts, top_k=base.top_k, shape=[b, s],
+                  tol=MOE_IMPL_TOL, fp32=fp32, bf16_ulps=MOE_BF16_ULPS,
+                  bf16=bf16, bf16_twice_bitwise=bitwise,
+                  einsum_ms=t_e * 1e3, gather_ms=t_g * 1e3)
+    print(f"[{label}] " + json.dumps(result), flush=True)
+    if not ok:
+        raise AssertionError(f"gather vs einsum dispatch: {result}")
+    return result
+
+
+def run_train_moe(label="train-moe"):
+    """Phi-3.5-MoE at full width, 2 layers, through the train launcher as
+    :func:`run_train` drives it (``TRAIN_MOE_ARGV``, einsum dispatch): two
+    runs with equal digest chains and fingerprints, step 1 within
+    ``LOSS_RTOL``/``GNORM_RTOL`` of the plain attention's, the launches a
+    step (per layer 2 causal forwards, 1 worker backward, 3 folds); then
+    :func:`check_moe_gather`."""
+    _free_device_memory()
+    train = run_train(TRAIN_MOE_ARGV, label)
+    _free_device_memory()
+    return dict(train, gather=check_moe_gather())
+
+
 def _free_device_memory():
     """Drop this process's cached device memory before a subprocess takes
     the card."""
@@ -1169,23 +1483,22 @@ def run_train_resume(straight, label="train-resume"):
     two launcher subprocesses: run B saves a checkpoint after every step and
     is killed with ``os._exit(17)`` at the top of step ``RESUME_DIE_AT``
     (step 2's async save possibly in flight); run C resumes from the latest
-    durable checkpoint. Run C's digest chain head must equal ``straight``'s
-    (the first run of ``[train]``, in this process), and each of its steps
-    must launch what ``[train]``'s did."""
+    durable checkpoint and saves none of its own (nothing would read them).
+    Run C's digest chain head must equal ``straight``'s (the first run of
+    ``[train]``, in this process), and each of its steps must launch what
+    ``[train]``'s did."""
     args, cfg, *_ = launch_train.configure(TRAIN_ARGV)
-    want = dict(fwd_causal=2 * cfg.n_layers, fwd_full=0, fwd_mask=0,
-                bwd_worker=cfg.n_layers, bwd_serial=0, fold=cfg.n_layers,
-                fingerprint=int(args.verify))
+    want = _train_launches(cfg, args.verify)
     reserved_gb = _free_device_memory()
     with tempfile.TemporaryDirectory(prefix="repro_torch_ckpt_",
                                      dir=CKPT_ROOT) as d:
         mount, fstype = _filesystem(d)
         free_before = shutil.disk_usage(d).free
         host_gb = _mem_available_gb()
-        flags = TRAIN_ARGV + ["--ckpt-dir", d, "--ckpt-every", "1",
-                              "--ckpt-keep", "1",
-                              "--verify-out", os.path.join(d, "chain.json")]
-        b, b_s = _launcher(flags + ["--die-at-step", str(RESUME_DIE_AT)])
+        chain = ["--verify-out", os.path.join(d, "chain.json")]
+        b, b_s = _launcher(TRAIN_ARGV + ["--ckpt-dir", d, "--ckpt-every", "1",
+                                         "--ckpt-keep", "1"] + chain
+                           + ["--die-at-step", str(RESUME_DIE_AT)])
         if b.returncode != 17:
             raise AssertionError(f"run B exited {b.returncode}, not 17:\n"
                                  f"{b.stdout[-4000:]}\n{b.stderr[-4000:]}")
@@ -1198,7 +1511,8 @@ def run_train_resume(straight, label="train-resume"):
                    for m in re.finditer(r"\[ckpt\] step (\d+): snapshot "
                                         r"([\d.]+)s, written in ([\d.]+)s "
                                         r"\(([\d.]+)s waited\)", b.stdout)]
-        c, c_s = _launcher(flags + ["--resume"])
+        c, c_s = _launcher(TRAIN_ARGV + ["--ckpt-dir", d] + chain
+                           + ["--resume"])
         if c.returncode != 0:
             raise AssertionError(f"run C exited {c.returncode}:\n"
                                  f"{c.stdout[-4000:]}\n{c.stderr[-4000:]}")
@@ -1209,8 +1523,8 @@ def run_train_resume(straight, label="train-resume"):
         arch=cfg.name, batch=args.batch, seq=args.seq, steps=args.steps,
         entry="python -m repro_torch.launch.train " + " ".join(TRAIN_ARGV)
         + " --ckpt-dir D --ckpt-every 1 --ckpt-keep 1 --verify-out "
-        "D/chain.json, "
-        f"--die-at-step {RESUME_DIE_AT}, then --resume",
+        f"D/chain.json --die-at-step {RESUME_DIE_AT}, then without "
+        "--ckpt-every/--ckpt-keep and --resume",
         ckpt_dir_filesystem=dict(mount=mount, type=fstype),
         free_bytes_before=free_before, host_mem_available_gb=host_gb,
         parent_reserved_gb=reserved_gb,
@@ -1242,8 +1556,13 @@ def run_train_resume(straight, label="train-resume"):
 
 
 def _lifecycle_config(name):
-    """The cell's config at full width, 2 layers, on the DASH kernels."""
+    """The cell's config at full width, 2 layers, on the DASH kernels (a
+    cell of ``LIFECYCLE_REDUCED`` at its reduced widths)."""
     base = LC.cell_config(name)
+    if name in LIFECYCLE_REDUCED:
+        return dataclasses.replace(
+            base, **dict(LIFECYCLE, reduced=True),
+            overrides=base.overrides + (("attention_impl", "cuda"),))
     kw = dict(LIFECYCLE, overrides=base.overrides + LIFECYCLE_OVERRIDES)
     if base.microbatches > LIFECYCLE["batch"]:
         kw["batch"] = base.microbatches
@@ -1267,11 +1586,12 @@ def _lifecycle_launches(lc, cfg):
                 fingerprint=0)
 
 
-def run_lifecycle(label="lifecycle"):
+def run_lifecycle(label="lifecycle", names=None):
     """Every lifecycle cell (the reference's matrix, plus Adafactor and
-    packed documents) through straight ≡ crash/resume on the card."""
+    packed documents), or those of ``names``, through straight ≡
+    crash/resume on the card."""
     reports = []
-    for name in list(LC.MATRIX) + list(LC.EXTRA):
+    for name in names or list(LC.MATRIX) + list(LC.EXTRA):
         lc = _lifecycle_config(name)
         cfg = lc.model_config()
         torch.cuda.synchronize()
@@ -2019,10 +2339,21 @@ def check_paged():
 
 
 # (name, K, N, shard width) at StableLM-1.6B's widths: the up projection,
-# wo and w_down in canonical form, the LM head
+# wo and w_down in canonical form, the LM head, wq/wk/wv; then
+# Nemotron-4-15B's ([serve-nemotron]): its up projection, w_down as 48
+# shards of 512, its LM head over vocab 256000, wq, wk/wv (8 KV heads) and
+# wo in canonical form. Between them every bf16 tile the serve paths launch
+# (BN 64/32/16, plain and canonical) is held here at a width they use.
 GEMM_CASES = [("w_up", 2048, 5632, 0), ("wo_canonical", 2048, 2048, 64),
               ("w_down_canonical", 5632, 2048, 176),
-              ("lm_head", 2048, 100352, 0)]
+              ("lm_head", 2048, 100352, 0),
+              ("wqkv", 2048, 2048, 0),
+              ("nemotron_w_up", 6144, 24576, 0),
+              ("nemotron_w_down_canonical", 24576, 6144, 512),
+              ("nemotron_lm_head", 6144, 256000, 0),
+              ("nemotron_wq", 6144, 6144, 0),
+              ("nemotron_wkv", 6144, 1024, 0),
+              ("nemotron_wo_canonical", 6144, 6144, 128)]
 M_VALUES = (1, 3, 4, 32, 64)
 
 
@@ -2098,11 +2429,12 @@ def _same_bits(a, b):
     return a.shape == b.shape and torch.equal(_bits(a), _bits(b))
 
 
-# the row checks' widths: StableLM-1.6B, Mistral-NeMo-12B and Qwen1.5-110B
-# (d; V), a vocabulary narrower than the log-softmax's 1024 chains, and one
-# that is no multiple of 4 (the kernel's 4-byte copies and stores)
-ROW_NORM_WIDTHS = (2048, 5120, 8192)
-ROW_VOCABS = (100352, 131072, 152064, 1000, 3089)
+# the row checks' widths: StableLM-1.6B, Mistral-NeMo-12B, Qwen1.5-110B and
+# Nemotron-4-15B (d; V), a vocabulary narrower than the log-softmax's 1024
+# chains, and one that is no multiple of 4 (the kernel's 4-byte copies and
+# stores)
+ROW_NORM_WIDTHS = (2048, 5120, 8192, 6144)
+ROW_VOCABS = (100352, 131072, 152064, 256000, 1000, 3089)
 
 
 def _special_logits(v, gen):
@@ -2215,6 +2547,110 @@ def check_rows():
     if failed:
         raise AssertionError(f"the row kernels failed their checks in "
                              f"{failed}")
+    return results
+
+
+def check_gqa():
+    """The GQA groups this slice's models bring, at D=128, S=1024, bf16:
+    Llama-4-Scout's 40/8 (a group of 5) and Nemotron-4's 48/8 (a group of
+    6). Per case: the causal forward against its plain version; the worker
+    backward, the dQ fold and the dK/dV group folds as ``flash_bwd`` runs
+    them for the train step, against the plain worker backward and plain
+    folds at the reference's grad tolerances, each fold bitwise its plain
+    version on the same partials, and a second call bitwise the first. Then
+    the paged attention at Nemotron's group (decode (4, 1) and a (1, 32)
+    prefill chunk) against its plain version, bitwise its first design, row
+    by row and over 20 repetitions."""
+    results, failed = [], []
+    for name, b, h, hk, s, d, dtype in GQA_CASES:
+        g, n = h // hk, s // FB.BLOCK
+        q, k, v, do, out, lse, delta = _bwd_operands(b, h, hk, s, d, dtype,
+                                                     True, seed=h)
+        scale = d ** -0.5
+        ref_out, ref_lse = FF.flash_fwd_plain(q, k, v, scale, h, hk, True)
+        fwd_err = (out.float() - ref_out.float()).abs().max().item()
+        lse_err = ((lse - ref_lse).abs()
+                   / ref_lse.abs().clamp_min(1.0)).max().item()
+        tol = OUT_TOL[dtype]
+        fwd_ok = (torch.allclose(out.float(), ref_out.float(), atol=tol,
+                                 rtol=tol) and lse_err <= LSE_RTOL)
+        sched = cached_schedule("symmetric_shift", n, n_heads=1, causal=True)
+        wc = sched.worker_chains()
+        visited = torch.from_numpy(wc["visited"]).cuda()
+        ones = torch.ones((g, n), dtype=torch.int32, device="cuda")
+        part, dk_h, dv_h = FB.worker_bwd_cuda(q, k, v, do, lse, delta, sched,
+                                              scale, True, h, hk)
+        dq = FB.fold_cuda(part, visited, FB.BLOCK)
+        dk = FB.fold_cuda(dk_h.reshape(b * hk, g, s, d), ones, FB.BLOCK)
+        dv = FB.fold_cuda(dv_h.reshape(b * hk, g, s, d), ones, FB.BLOCK)
+        folds_bitwise = (
+            torch.equal(dq, FB.fold_plain(part, visited, FB.BLOCK))
+            and torch.equal(dk, FB.fold_plain(dk_h.reshape(b * hk, g, s, d),
+                                              ones, FB.BLOCK))
+            and torch.equal(dv, FB.fold_plain(dv_h.reshape(b * hk, g, s, d),
+                                              ones, FB.BLOCK)))
+        path = FB.flash_bwd(q, k, v, out, lse, do, sched, causal=True,
+                            sm_scale=scale, n_heads=h, n_kv_heads=hk)
+        again = FB.flash_bwd(q, k, v, out, lse, do, sched, causal=True,
+                             sm_scale=scale, n_heads=h, n_kv_heads=hk)
+        path_bitwise = all(torch.equal(x, y) for x, y in zip(path,
+                                                             (dq, dk, dv)))
+        reps_bitwise = all(torch.equal(x, y) for x, y in zip(again, path))
+        ppart, pdk, pdv = FB.worker_bwd_plain(q, k, v, do, lse, delta, wc,
+                                              scale, True, FB.BLOCK, FB.BLOCK,
+                                              h, hk)
+        plain = (FB.fold_plain(ppart, visited, FB.BLOCK),
+                 FB.fold_plain(pdk.reshape(b * hk, g, s, d), ones, FB.BLOCK),
+                 FB.fold_plain(pdv.reshape(b * hk, g, s, d), ones, FB.BLOCK))
+        torch.cuda.synchronize()
+        err = {k_: (x - y).abs().max().item()
+               for k_, x, y in zip(("dq", "dk", "dv"), (dq, dk, dv), plain)}
+        close = all(torch.allclose(x, y, **GRAD_TOL[dtype])
+                    for x, y in zip((dq, dk, dv), plain))
+        finite = all(bool(torch.isfinite(x).all()) for x in (out, dq, dk, dv))
+        ok = (fwd_ok and close and folds_bitwise and path_bitwise
+              and reps_bitwise and finite)
+        results.append(dict(kernel="causal_fwd+worker_bwd+fold", case=name,
+                            shape=[b, h, hk, s, d], group=g,
+                            dtype=str(dtype).split(".")[-1],
+                            fwd_max_abs_err=fwd_err, lse_max_rel_err=lse_err,
+                            fwd_tol=tol, bwd_max_abs_err=err,
+                            bwd_tol=GRAD_TOL[dtype],
+                            folds_bitwise_eq_plain=folds_bitwise,
+                            flash_bwd_bitwise_eq_kernels=path_bitwise,
+                            flash_bwd_twice_bitwise=reps_bitwise, ok=ok))
+        if not ok:
+            failed.append(name)
+    h, hk, d = GQA_PAGED
+    for name, b, l in (("decode", 4, 1), ("prefill_chunk", 1, SERVE_CHUNK)):
+        dtype = torch.bfloat16
+        q, kp, vp, table, qpos, _ = _paged_inputs(b, l, h, hk, d, dtype,
+                                                  seed=h + l)
+        out = DEC.paged_attention_cuda(q, kp, vp, table, qpos, d ** -0.5)
+        plain = DEC.paged_attention_plain(q, kp, vp, table, qpos, d ** -0.5)
+        v1 = torch.equal(out, DEC.paged_attention_v1(q, kp, vp, table, qpos,
+                                                     d ** -0.5))
+        single = all(torch.equal(DEC.paged_attention_cuda(
+            q[i:i + 1].contiguous(), kp, vp, table[i:i + 1].contiguous(),
+            qpos[i:i + 1].contiguous(), d ** -0.5), out[i:i + 1])
+            for i in range(b))
+        reps = all(torch.equal(DEC.paged_attention_cuda(
+            q, kp, vp, table, qpos, d ** -0.5), out) for _ in range(20))
+        torch.cuda.synchronize()
+        err = (out.float() - plain.float()).abs().max().item()
+        tol = OUT_TOL[dtype]
+        ok = (torch.allclose(out.float(), plain.float(), atol=tol, rtol=tol)
+              and v1 and single and reps and bool(torch.isfinite(out).all()))
+        results.append(dict(kernel="paged_attention", case=name,
+                            shape=[b, l, h, hk, d, SERVE_PAGE], group=h // hk,
+                            dtype="bfloat16", max_abs_err=err, tol=tol,
+                            v1_bitwise=v1, rows_alone_bitwise=single,
+                            reps20_bitwise=reps, ok=ok))
+        if not ok:
+            failed.append(f"paged/{name}")
+    print("[kernel-check] gqa " + json.dumps(results), flush=True)
+    if failed:
+        raise AssertionError(f"GQA kernel checks failed in {failed}")
     return results
 
 
@@ -2378,12 +2814,14 @@ def _zero_serve_counts():
 
 def _step_launches(cfg, decode=True):
     """Launches of one paged step, from the code (``models/layers.py``): per
-    layer the ln1 and ln2 norms, q/k/v/wo/gate/up/down GEMMs (wo and w_down
-    in canonical form) and one paged attention; then ln_f and the LM head.
-    A decode step's sampler adds one row log-softmax."""
+    layer the ln1 and ln2 norms, q/k/v/wo/up/down GEMMs (wo and w_down in
+    canonical form), gate too for a gated MLP, and one paged attention; then
+    ln_f and the LM head. A decode step's sampler adds one row
+    log-softmax."""
     n = cfg.n_layers
-    return dict(paged_attention=n, gemm=7 * n + 1, row_norm=2 * n + 1,
-                row_log_softmax=int(decode))
+    mlp = 3 if cfg.activation in ("silu", "geglu") else 2
+    return dict(paged_attention=n, gemm=(4 + mlp) * n + 1,
+                row_norm=2 * n + 1, row_log_softmax=int(decode))
 
 
 def _continuous_engine(params, cfg, **kw):
@@ -2527,6 +2965,96 @@ def run_serve_continuous(label="serve-continuous"):
         raise AssertionError("continuous serving gave tokens out of range or "
                              "non-finite logprobs")
     return result, eng
+
+
+def run_serve_moe(label="serve-moe"):
+    """Each config of ``SERVE_MOE`` through the static engine as
+    :func:`run_slice` drives StableLM (twice, bitwise; the prefill's causal
+    forward once a layer; prefill logits against the plain attention's);
+    then ``launch.serve --engine continuous`` with the first MoE arch
+    (``--reduced``) must raise the paged engine's refusal."""
+    out = []
+    for slice_ in SERVE_MOE:
+        _free_device_memory()
+        out.append(run_slice(slice_, label))
+    _free_device_memory()
+    argv = ["--engine", "continuous", "--arch", SERVE_MOE[0]["arch"],
+            "--reduced"]
+    try:
+        launch_serve.main(argv)
+    except NotImplementedError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError(f"launch.serve {' '.join(argv)} served an MoE "
+                             f"arch on the paged engine")
+    print(f"[{label}-refusal] " + json.dumps(dict(
+        entry="repro_torch.launch.serve.main " + " ".join(argv),
+        refusal=refusal)), flush=True)
+    if "MoE capacity routing is batch-coupled" not in refusal:
+        raise AssertionError(f"the paged engine refused with {refusal!r}")
+    return out
+
+
+@torch.inference_mode()
+def run_serve_nemotron(label="serve-nemotron"):
+    """Nemotron-4-15B at full width (squared ReLU, LayerNorm, half rotary,
+    48 heads over 8 KV heads, vocab 256000), ``NEMOTRON_LAYERS`` layers,
+    through the continuous engine over ``[serve-continuous]``'s traffic at
+    each slot count of ``NEMOTRON_SLOTS``: every request's tokens and
+    logprobs bitwise the first run's, tokens in range, logprobs finite and
+    <= 0, the launches the engine's work predicts (6 GEMMs a layer: no gate);
+    decode step ms, tok/s, TTFT and peak memory."""
+    cfg = registry.get("nemotron-4-15b").replace(n_layers=NEMOTRON_LAYERS)
+    params = T.init(cfg, seed=0, device="cuda")
+    prompts, lens = _serve_prompts(cfg)
+    runs, ref = [], None
+    for slots in NEMOTRON_SLOTS:
+        torch.cuda.reset_peak_memory_stats()
+        eng, counts, flash = _counted(
+            lambda: _serve_all(params, cfg, prompts, n_slots=slots))
+        want = _predicted_launches(cfg, CF.engine_work(eng, lens))
+        if ref is None:
+            ref = eng
+        decode_ms = [t * 1e3 for t in eng.decode_s]
+        decode_tokens = (sum(len(v) for v in eng.results.values())
+                         - SERVE_REQUESTS)
+        ok_values = all(
+            len(eng.results[i]) == SERVE_GEN
+            and all(0 <= t < cfg.padded_vocab for t in eng.results[i])
+            and np.isfinite(eng.result_logprobs[i]).all()
+            and (eng.result_logprobs[i] <= 0).all()
+            for i in range(SERVE_REQUESTS))
+        runs.append(dict(
+            slots=slots, run_s=eng.run_s, engine_steps=eng.engine_steps,
+            decode_steps=eng.decode_steps,
+            decode_step_ms_median=statistics.median(decode_ms),
+            decode_tok_per_s=decode_tokens / sum(eng.decode_s),
+            ttft_ms_median=statistics.median(
+                [eng.ttft_s[i] * 1e3 for i in range(SERVE_REQUESTS)]),
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            launches=counts, launches_expected=want, flash_launches=flash,
+            mismatched=_bitwise_streams(ref, eng, range(SERVE_REQUESTS)),
+            values_ok=ok_values,
+            tokens_req0=[int(t) for t in eng.results[0][:8]]))
+    result = dict(arch=cfg.name, layers=cfg.n_layers,
+                  params=count_params(params), activation=cfg.activation,
+                  heads=[cfg.n_heads, cfg.n_kv_heads], vocab=cfg.vocab,
+                  requests=SERVE_REQUESTS, prompt_lens=list(lens.values()),
+                  new_tokens=SERVE_GEN, runs=runs)
+    print(f"[{label}] " + json.dumps(result), flush=True)
+    for r in runs:
+        if r["launches"] != r["launches_expected"] or any(
+                r["flash_launches"].values()):
+            raise AssertionError(f"{label} at {r['slots']} slots launched "
+                                 f"{r['launches']} (flash "
+                                 f"{r['flash_launches']}), expected "
+                                 f"{r['launches_expected']}")
+        if r["mismatched"] or not r["values_ok"]:
+            raise AssertionError(f"{label} at {r['slots']} slots: requests "
+                                 f"{r['mismatched']} differ from "
+                                 f"{NEMOTRON_SLOTS[0]} slots', values ok: "
+                                 f"{r['values_ok']}")
+    return result
 
 
 def _served(eng, ids):
@@ -3322,6 +3850,8 @@ def _main(t0, tune_root):
     gemm_check = check_gemm()
     rows_check = check_rows()
     lap("kernel-check")
+    check_gqa()
+    lap("kernel-check gqa")
     fp_check = check_fingerprint()
     lap("kernel-check fingerprint")
     library_m_invariance()
@@ -3338,6 +3868,11 @@ def _main(t0, tune_root):
     serve_obs = run_serve_obs(cont_eng)
     lap("serve-obs")
     del cont_eng
+    serve_moe = run_serve_moe()
+    lap("serve-moe")
+    _free_device_memory()
+    nemotron = run_serve_nemotron()
+    lap("serve-nemotron")
     _free_device_memory()
     _tune_cache(tune_root, "train")
     train = run_train()
@@ -3354,6 +3889,8 @@ def _main(t0, tune_root):
     lap("train-chaos")
     train_window = run_train(TRAIN_WINDOW_ARGV, "train-window")
     lap("train-window")
+    train_moe = run_train_moe()
+    lap("train-moe")
     op_paths = run_ops()
     tune = run_tune(tune_root)
     lap("ops+tune")
@@ -3406,6 +3943,12 @@ def _main(t0, tune_root):
           f"bitwise; the state fingerprint ({fp_check['state_bytes'] / 1e9:.1f}"
           f" GB) in {fp_check['ms']:.3f} ms, equal in both tracked train "
           f"runs; {len(serve_obs)} serve-obs runs bitwise; "
+          f"{train_moe['arch']} trained {train_moe['layers']} layers twice "
+          f"to one digest chain at {train_moe['steady_step_ms']:.1f} ms a "
+          f"step, gather == einsum dispatch; "
+          f"{', '.join(r['arch'] for r in serve_moe)} served bitwise on the "
+          f"static engine; {nemotron['arch']} on the continuous engine "
+          f"bitwise at {len(nemotron['runs'])} slot counts; "
           f"{time.perf_counter() - t0:.1f}s in all",
           flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -1,12 +1,12 @@
 """Config dataclass: model architecture + runtime knobs.
 
 The port's counterpart of ``repro.configs.base.ModelConfig``, holding the
-fields of the features the port implements so far (decoder-only attention
-stacks); fields for other families arrive with them. Two changes from the
-reference: ``dtype`` is a torch dtype, and ``attention_impl`` names the port's
-implementations — ``"torch"`` (plain PyTorch attention, counterpart of
-``"xla"``) and ``"cuda"`` (the hand-written DASH kernels, counterpart of
-``"pallas"``).
+fields of the features the port implements so far (decoder-only stacks of
+attention and mixture-of-experts blocks); fields for other families arrive
+with them. Two changes from the reference: ``dtype`` is a torch dtype, and
+``attention_impl`` names the port's implementations — ``"torch"`` (plain
+PyTorch attention, counterpart of ``"xla"``) and ``"cuda"`` (the
+hand-written DASH kernels, counterpart of ``"pallas"``).
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense (the only family ported so far)
+    family: str                    # dense | moe (the families ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -42,13 +42,22 @@ class ModelConfig:
                                    # the deterministic sequence packer
                                    # (data.pipeline.pack_documents): attention
                                    # is segment-masked, RoPE restarts per doc
+    # moe
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    renorm_topk: bool = True
+    n_shared_experts: int = 0
+    moe_aux_weight: float = 0.01   # weight of the aux loss in loss_fn
+    moe_impl: str = "einsum"       # einsum (one-hot dispatch) | gather
+    moe_groups: int = 1            # >1: split seq into token-parallel
+                                   # dispatch groups (when they divide it)
     # structure
     block_pattern: Tuple[str, ...] = ("attn",)
     # numerics
     dtype_name: str = "bfloat16"
     vocab_pad: int = 2048                   # pad vocab to multiple of tp*128
     det_embed_grad: bool = True    # embedding bwd as pinned one-hot matmul
-    moe_aux_weight: float = 0.01   # weight of the (MoE) aux loss in loss_fn
     canonical_reductions: int = 0  # 0 = the training forward's products.
                                    # N>0 = serve-canonical mode: forward()
                                    # runs under dist.fold's canonical fold
@@ -80,6 +89,8 @@ class ModelConfig:
             n_layers=len(self.block_pattern),
             d_model=128, n_heads=4, n_kv_heads=max(1, 4 // kvr), head_dim_=32,
             d_ff=256 if self.d_ff else 0, vocab=512, vocab_pad=128,
+            n_experts=4 if self.n_experts else 0,
+            top_k=min(self.top_k, 2) if self.top_k else 0,
         )
         small.update(kw)
         return self.replace(**small)

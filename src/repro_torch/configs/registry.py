@@ -10,14 +10,20 @@ import importlib
 ARCHS = [
     "stablelm_1_6b",
     "qwen1_5_110b",
+    "nemotron_4_15b",
     "mistral_nemo_12b",
+    "phi3_5_moe",
+    "llama4_scout",
     "dash_paper",
 ]
 
 ALIASES = {
     "stablelm-1.6b": "stablelm_1_6b",
     "qwen1.5-110b": "qwen1_5_110b",
+    "nemotron-4-15b": "nemotron_4_15b",
     "mistral-nemo-12b": "mistral_nemo_12b",
+    "phi3.5-moe-42b-a6.6b": "phi3_5_moe",
+    "llama4-scout-17b-a16e": "llama4_scout",
     "dash-paper": "dash_paper",
 }
 
@@ -28,6 +34,7 @@ ALIASES = {
 DRAFTERS = {
     "stablelm_1_6b": None,
     "qwen1_5_110b": "stablelm_1_6b",
+    "nemotron_4_15b": "stablelm_1_6b",
     "mistral_nemo_12b": "stablelm_1_6b",
 }
 

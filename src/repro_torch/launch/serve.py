@@ -9,6 +9,18 @@ KV, on the card.
         --requests 8 --slots 4 --prompt-len 512 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --engine continuous \
         --reduced --device cpu --requests 8 --slots 4 --prompt-len 64 --gen 8
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch phi3.5-moe-42b-a6.6b --reduced --device cpu --prompt-len 128 \
+        --gen 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine continuous \
+        --arch nemotron-4-15b --reduced --device cpu --requests 8 --slots 4 \
+        --prompt-len 64 --gen 8
+
+``--arch`` takes every ported arch (``configs/registry.py``). The
+mixture-of-experts archs (``phi3.5-moe-42b-a6.6b``,
+``llama4-scout-17b-a16e``) serve on the static engine only: with
+``--engine continuous`` they raise the paged engine's refusal, as in the
+reference (capacity routing couples the rows of a batch).
 
 Weights are random, from ``--seed``. On the card the prefill attention is
 the causal DASH forward kernel (``attention_impl="cuda"``), or with
@@ -278,10 +290,12 @@ def main(argv=None):
             ap.error("--requests, --slots and --prompt-len must be >= 1")
         if args.profile or args.attn_window is not None:
             ap.error("--profile and --attn-window apply to the static engine")
-        device = resolve_device(args.device)
         cfg = registry.get(args.arch)
         if args.reduced:
             cfg = cfg.reduced()
+        if not T.supports_paged(cfg):      # before the weights are made
+            raise NotImplementedError(T.paged_refusal(cfg))
+        device = resolve_device(args.device)
         params = T.init(cfg, seed=args.seed, device=device)
         return _continuous(cfg, params, args, device)
     if args.prompt_len <= 0 or args.prompt_len % BLOCK:

@@ -14,6 +14,17 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \
         --batch 4 --seq 1024 --steps 3 --verify --tune sim \
         --track B.jsonl --track-reference A.jsonl
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch phi3.5-moe-42b-a6.6b --layers 2 --batch 4 --seq 1024 \
+        --steps 3 --warmup-steps 1 --log-every 1 --verify
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch llama4-scout-17b-a16e --reduced --device cpu --steps 2 \
+        --batch 2 --seq 128 --verify
+
+``--arch`` takes every ported arch (``configs/registry.py``), the
+mixture-of-experts ones too (their aux loss enters the objective, weighted
+by ``moe_aux_weight``, and is logged as ``aux``); ``--layers`` cuts the
+depth and keeps the widths.
 
 Weights are random, from ``--seed``; data is the synthetic source
 (``data.pipeline.SyntheticLM``, a pure function of (seed, step)) or, with

@@ -1,5 +1,6 @@
-"""Transformer building blocks for decoder-only attention models: norms, RoPE,
-GQA attention (train/prefill + cached decode), MLP, embeddings.
+"""Transformer building blocks for decoder-only models: norms, RoPE, GQA
+attention (train/prefill + cached decode), MLP (SiLU, GeGLU, GELU, squared
+ReLU), embeddings.
 
 Counterpart of ``repro.models.layers`` over plain parameter dicts in the same
 layout. Matrix products compute in fp32 (:func:`dot`, like the reference's
@@ -12,8 +13,8 @@ and the canonical forward) every reduction takes a form whose bits a row
 cannot see the batch through: :func:`dot` runs the M-invariant GEMM kernel,
 :func:`apply_norm` the row-norm kernel, ``wo`` and ``w_down`` the canonical
 virtual-shard fold, attention the paged walk of ``kernels/decode.py``, and
-SiLU is written ``x · sigmoid(x)`` (``F.silu`` on the CPU picks its formula by
-the element's place in the tensor).
+SiLU and GELU are written out elementwise (``F.silu`` on the CPU picks its
+formula by the element's place in the tensor).
 """
 from __future__ import annotations
 
@@ -262,28 +263,54 @@ def attention_block(p, x, cfg, *, positions=None, cache=None, cache_pos=None,
 # ----------------------------------------------------------------- MLP
 def mlp_defs(cfg):
     d, f = cfg.d_model, cfg.d_ff
-    return {"w_up": PD((d, f)), "w_down": PD((f, d), "scaled"),
-            "w_gate": PD((d, f))}
+    p = {"w_up": PD((d, f)), "w_down": PD((f, d), "scaled")}
+    if cfg.activation in ("silu", "geglu"):
+        p["w_gate"] = PD((d, f))
+    return p
+
+
+def _silu(x):
+    """SiLU; under the canonical scope written ``x · sigmoid(x)``, whose bits
+    do not depend on the element's place in the tensor."""
+    return x * torch.sigmoid(x) if fold.active() else F.silu(x)
+
+
+def _gelu(x):
+    """``jax.nn.gelu``'s default, the tanh approximation; under the
+    canonical scope written out elementwise, as :func:`_silu` is."""
+    if not fold.active():
+        return F.gelu(x, approximate="tanh")
+    c = math.sqrt(2.0 / math.pi)
+    return 0.5 * x * (1.0 + torch.tanh(c * (x + 0.044715 * (x * x * x))))
+
+
+def activate(h_gate, h_up, activation: str):
+    """The MLP's hidden activation (the reference's ``apply_mlp`` and
+    ``moe._act``): gated for silu/geglu, on ``h_up`` alone otherwise."""
+    if activation == "silu":
+        return _silu(h_gate) * h_up
+    if activation == "geglu":
+        return _gelu(h_gate) * h_up
+    if activation == "gelu":
+        return _gelu(h_up)
+    if activation == "relu2":           # Nemotron-4's squared ReLU
+        return torch.relu(h_up).square()
+    raise ValueError(activation)
 
 
 def apply_mlp(p, x, cfg):
-    """Gated SiLU MLP; the other activations come with their model families."""
-    if cfg.activation != "silu":
-        raise NotImplementedError(
-            f"activation {cfg.activation!r} is not ported yet (ROADMAP A8, "
-            f"'Other model families')")
+    """The MLP: SiLU / GeGLU gated, GELU or squared ReLU (``relu2``)."""
+    up = dot(x, p["w_up"])
+    gate = dot(x, p["w_gate"]) if "w_gate" in p else None
+    h = activate(gate, up, cfg.activation).to(x.dtype)
     if not fold.active():
-        h = F.silu(dot(x, p["w_gate"])) * dot(x, p["w_up"])
-        return dot(h.to(x.dtype), p["w_down"], out_dtype=x.dtype)
-    gate = dot(x, p["w_gate"])
-    h = (gate * torch.sigmoid(gate)) * dot(x, p["w_up"])
+        return dot(h, p["w_down"], out_dtype=x.dtype)
     # canonical grid for the down-projection: V = n_heads virtual shards
     width, rem = divmod(cfg.d_ff, cfg.n_heads)
     if rem:
         raise ValueError(f"canonical reductions need n_heads | d_ff; got "
                          f"d_ff={cfg.d_ff}, n_heads={cfg.n_heads}")
-    return fold.canonical_row_dot(h.to(x.dtype), p["w_down"], width,
-                                  out_dtype=x.dtype)
+    return fold.canonical_row_dot(h, p["w_down"], width, out_dtype=x.dtype)
 
 
 # ----------------------------------------------------------------- embeddings

@@ -1,8 +1,13 @@
-"""Model assembly for decoder-only LMs with ``("attn",)`` block patterns.
+"""Model assembly for decoder-only LMs of ``attn`` and ``attn_moe`` blocks.
 
 Counterpart of ``repro.models.transformer``. Parameters keep the reference's
 tree: per pattern position ``b{i}_{kind}`` a stack of ``(n_repeats, ...)``
 leaves, walked here by a Python loop over the repeats (the reference scans).
+An ``attn`` block is attention then an MLP; an ``attn_moe`` block has the
+mixture-of-experts FFN (``models/moe.py``, ``cfg.moe_impl``) in place of the
+MLP, plus a shared MLP on the same normed input when
+``cfg.n_shared_experts`` (Llama-4). The blocks' aux losses are summed in fp32
+in pattern-then-repeat order, as the reference's scan carry sums them.
 
 Entry modes:
   forward:      full-sequence logits (train/prefill), each layer optionally
@@ -14,8 +19,11 @@ Entry modes:
   decode_step:  one-token step over the caches (updated in place);
   paged_step:   the continuous engine's step over paged KV pools (a prefill
                 chunk or a batched one-token decode), always under the
-                canonical reduction scope (``dist/fold.py``).
-Other block patterns (MoE, SSM, xLSTM) raise ``NotImplementedError``.
+                canonical reduction scope (``dist/fold.py``); attention-only
+                patterns, as in the reference (MoE capacity routing couples
+                the rows of a batch).
+Other block kinds (SSM, xLSTM, cross-attention) raise
+``NotImplementedError``.
 
 ``cfg.canonical_reductions = N`` runs ``forward`` in serve-canonical mode:
 the paged attention walk over N-token pages and the canonical folds, so its
@@ -46,22 +54,33 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch import resolve_device
 from repro_torch.dist import fold
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models.module import init_tree, stacked, tree_paths
 
 F32 = torch.float32
 
 
+BLOCK_KINDS = ("attn", "attn_moe")
+
+
 def check_supported(cfg) -> None:
     """Raise for a block pattern this port does not cover yet."""
-    if any(k != "attn" for k in cfg.block_pattern):
+    if any(k not in BLOCK_KINDS for k in cfg.block_pattern):
         raise NotImplementedError(
             f"{cfg.name}: block pattern {cfg.block_pattern} is not ported yet "
             f"(ROADMAP A8, 'Other model families')")
 
 
-def _block_defs(cfg):
-    return {"ln1": L.norm_defs(cfg), "attn": L.attn_defs(cfg),
-            "ln2": L.norm_defs(cfg), "mlp": L.mlp_defs(cfg)}
+def _block_defs(cfg, kind: str):
+    d = {"ln1": L.norm_defs(cfg), "attn": L.attn_defs(cfg),
+         "ln2": L.norm_defs(cfg)}
+    if kind == "attn_moe":
+        d["moe"] = MOE.moe_defs(cfg)
+        if cfg.n_shared_experts:
+            d["shared_mlp"] = L.mlp_defs(cfg)
+    else:
+        d["mlp"] = L.mlp_defs(cfg)
+    return d
 
 
 def param_defs(cfg):
@@ -73,7 +92,7 @@ def param_defs(cfg):
     return {
         "embed": L.embed_defs(cfg),
         "ln_f": L.norm_defs(cfg),
-        "blocks": {f"b{i}_{kind}": stacked(_block_defs(cfg), n_rep)
+        "blocks": {f"b{i}_{kind}": stacked(_block_defs(cfg, kind), n_rep)
                    for i, kind in enumerate(cfg.block_pattern)},
         "lm_head": L.lm_head_defs(cfg),
     }
@@ -88,7 +107,7 @@ def init(cfg, seed: int = 0, device=None):
 
 
 def _blocks(params):
-    """(key, stacked params) in pattern order."""
+    """(key ``b{i}_{kind}``, stacked params) in pattern order."""
     blocks = params["blocks"]
     return [(k, blocks[k])
             for k in sorted(blocks, key=lambda s: int(s.split("_")[0][1:]))]
@@ -156,18 +175,25 @@ def _identity_name(x, tag):
 
 def _apply_block(p, x, cfg, *, positions, cache=None, cache_pos=None,
                  segment_ids=None, name=_identity_name, paged=None):
+    """One ``attn`` or ``attn_moe`` block (told apart by its parameters).
+    Returns (x, aux): the MoE's aux loss, or None for an MLP block."""
     h, _ = L.attention_block(p["attn"], L.apply_norm(p["ln1"], x, cfg), cfg,
                              positions=positions, cache=cache,
                              cache_pos=cache_pos, segment_ids=segment_ids,
                              paged=paged)
     x = name(x + h, "attn_out")
     y_in = name(L.apply_norm(p["ln2"], x, cfg), "ffn_in")
-    return x + L.apply_mlp(p["mlp"], y_in, cfg)
+    if "moe" not in p:
+        return x + L.apply_mlp(p["mlp"], y_in, cfg), None
+    y, aux = MOE.apply(p["moe"], y_in, cfg)
+    if "shared_mlp" in p:
+        y = y + L.apply_mlp(p["shared_mlp"], y_in, cfg)
+    return x + y, aux
 
 
 def _remat_layer(p, x, cfg, *, positions, segment_ids, remat_policy):
     """One layer under ``torch.utils.checkpoint`` (non-reentrant) with the
-    policy ``remat_policy``."""
+    policy ``remat_policy``; returns what :func:`_apply_block` returns."""
     policy = _Policy(remat_policy)
     selective = {} if remat_policy == "none" else dict(
         context_fn=policy.contexts)
@@ -180,24 +206,30 @@ def _remat_layer(p, x, cfg, *, positions, segment_ids, remat_policy):
 def _apply_stack(params, x, cfg, *, positions, caches=None, cache_pos=None,
                  remat=False, remat_policy="none", segment_ids=None,
                  paged=None):
+    """The blocks in pattern order, each stack's repeats in order. Returns
+    (x, aux): the fp32 sum of the blocks' aux losses in that order (None
+    without an MoE block)."""
+    aux_total = None
     for key, stacked_p in _blocks(params):
         n_rep = stacked_p["ln1"]["scale"].shape[0]
         layers = _unstack(stacked_p)
         for i in range(n_rep):
             p = _layer(layers, i)
             if remat:
-                x = _remat_layer(p, x, cfg, positions=positions,
-                                 segment_ids=segment_ids,
-                                 remat_policy=remat_policy)
-                continue
-            cache = None
-            if caches is not None:
-                k_all, v_all = caches[key]["attn"]
-                cache = (k_all[i], v_all[i])
-            x = _apply_block(p, x, cfg, positions=positions, cache=cache,
-                             cache_pos=cache_pos, segment_ids=segment_ids,
-                             paged=paged)
-    return x
+                x, aux = _remat_layer(p, x, cfg, positions=positions,
+                                      segment_ids=segment_ids,
+                                      remat_policy=remat_policy)
+            else:
+                cache = None
+                if caches is not None:
+                    k_all, v_all = caches[key]["attn"]
+                    cache = (k_all[i], v_all[i])
+                x, aux = _apply_block(p, x, cfg, positions=positions,
+                                      cache=cache, cache_pos=cache_pos,
+                                      segment_ids=segment_ids, paged=paged)
+            if aux is not None:
+                aux_total = aux if aux_total is None else aux_total + aux
+    return x, aux_total
 
 
 def forward(params, batch, cfg, *, remat=False, remat_policy="none"):
@@ -240,12 +272,14 @@ def _forward_body(params, batch, cfg, *, remat, remat_policy):
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x = _apply_stack(params, x, cfg, positions=positions, remat=remat,
-                     remat_policy=remat_policy,
-                     segment_ids=batch.get("segment_ids"))
+    x, aux = _apply_stack(params, x, cfg, positions=positions, remat=remat,
+                          remat_policy=remat_policy,
+                          segment_ids=batch.get("segment_ids"))
     x = L.apply_norm(params["ln_f"], x, cfg)
     logits = L.apply_lm_head(params["lm_head"], x, cfg)
-    return logits, torch.zeros((), dtype=F32, device=x.device)
+    if aux is None:
+        aux = torch.zeros((), dtype=F32, device=x.device)
+    return logits, aux
 
 
 def loss_fn(params, batch, cfg, *, remat=False, remat_policy="none"):
@@ -270,8 +304,8 @@ def loss_fn(params, batch, cfg, *, remat=False, remat_policy="none"):
 
 
 def init_cache(cfg, batch_size: int, max_seq: int, device):
-    """KV caches per pattern position: {"attn": (k, v)}, each
-    (n_repeats, B, max_seq, Hk, D) in cfg.dtype."""
+    """KV caches per pattern position (every ``attn*`` block has one):
+    {"attn": (k, v)}, each (n_repeats, B, max_seq, Hk, D) in cfg.dtype."""
     check_supported(cfg)
     n_rep = cfg.n_layers // len(cfg.block_pattern)
     shape = (n_rep, batch_size, max_seq, cfg.n_kv_heads, cfg.head_dim)
@@ -290,8 +324,8 @@ def prefill_step(params, batch, cfg, *, max_seq=None):
     b, s = tokens.shape
     caches = init_cache(cfg, b, max_seq or s, x.device)
     positions = torch.arange(s, device=x.device)[None, :]
-    x = _apply_stack(params, x, cfg, positions=positions, caches=caches,
-                     cache_pos=0)
+    x, _ = _apply_stack(params, x, cfg, positions=positions, caches=caches,
+                        cache_pos=0)
     x = L.apply_norm(params["ln_f"], x[:, -1:], cfg)
     return L.apply_lm_head(params["lm_head"], x, cfg), caches
 
@@ -302,15 +336,25 @@ def supports_paged(cfg) -> bool:
     return all(k == "attn" for k in cfg.block_pattern)
 
 
+def paged_refusal(cfg) -> str:
+    """Why the paged path refuses ``cfg`` (the reference's reason)."""
+    bad = [k for k in cfg.block_pattern if k != "attn"]
+    return (f"paged serving supports attention-only patterns; got {bad} "
+            f"(SSM states are unpaged; MoE capacity routing is "
+            f"batch-coupled)")
+
+
 def init_paged_cache(cfg, n_pages: int, page_size: int, device):
     """Paged KV pools per pattern position: ``{"attn": (k_pages, v_pages)}``,
     each (n_repeats, n_pages, page_size, Hk, D) in cfg.dtype from
     ``torch.zeros`` (never ``torch.empty``: under deterministic algorithms
-    that fills NaN, and a stale page must hold finite values)."""
+    that fills NaN, and a stale page must hold finite values).
+
+    Serving over pages is attention-only: MoE capacity routing is
+    batch-dependent by construction (token dropping couples rows), which
+    would break the batch-invariance contract."""
     if not supports_paged(cfg):
-        raise NotImplementedError(
-            f"paged serving supports attention-only patterns; got "
-            f"{cfg.block_pattern} (ROADMAP A8)")
+        raise NotImplementedError(paged_refusal(cfg))
     n_rep = cfg.n_layers // len(cfg.block_pattern)
     shape = (n_rep, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
     return {f"b{i}_attn": {"attn": (
@@ -338,8 +382,8 @@ def paged_step(params, caches, tokens, positions, page_table, write_pages,
         x = L.apply_embed(params["embed"], tokens, cfg)
         paged = dict(page_table=page_table, write_pages=write_pages,
                      write_offsets=write_offsets)
-        x = _apply_stack(params, x, cfg, positions=positions, caches=caches,
-                         cache_pos=0, paged=paged)
+        x, _ = _apply_stack(params, x, cfg, positions=positions,
+                            caches=caches, cache_pos=0, paged=paged)
         x = L.apply_norm(params["ln_f"], x, cfg)
         return L.apply_lm_head(params["lm_head"], x, cfg), caches
 
@@ -350,7 +394,7 @@ def decode_step(params, caches, tokens, cache_pos: int, cfg):
     x = L.apply_embed(params["embed"], tokens, cfg)
     positions = torch.full((tokens.shape[0], 1), cache_pos, dtype=torch.int64,
                            device=x.device)
-    x = _apply_stack(params, x, cfg, positions=positions, caches=caches,
-                     cache_pos=cache_pos)
+    x, _ = _apply_stack(params, x, cfg, positions=positions, caches=caches,
+                        cache_pos=cache_pos)
     x = L.apply_norm(params["ln_f"], x, cfg)
     return L.apply_lm_head(params["lm_head"], x, cfg), caches

@@ -317,8 +317,7 @@ class ContinuousEngine:
             raise NotImplementedError(f"ContinuousEngine(mesh=...): "
                                       f"{_UNPORTED['mesh']}")
         if not T.supports_paged(cfg):
-            raise NotImplementedError(
-                "paged serving covers attention-only patterns (ROADMAP A8)")
+            raise NotImplementedError(T.paged_refusal(cfg))
         if max_seq % page_size or prefill_chunk < 1:
             raise ValueError(f"max_seq={max_seq} must be a multiple of "
                              f"page_size={page_size}, prefill_chunk >= 1")

@@ -86,6 +86,35 @@ def clip_by_global_norm(grads, max_norm: float):
     return tree_map(lambda g: (g.to(F32) * scale).to(g.dtype), grads), gnorm
 
 
+# a leaf of more than UPDATE_WHOLE elements is updated over slices of
+# UPDATE_SLICE, so that its fp32 temporaries stay ~0.5 GB each however large
+# the leaf (an expert stack of Phi-3.5-MoE holds 2^29.6 elements a layer
+# pair); a smaller leaf in one call, with no copy of the slices into the
+# result (every leaf of StableLM-1.6B: its MLP stacks hold 2^28.04 elements)
+UPDATE_SLICE = 1 << 27
+UPDATE_WHOLE = 1 << 29
+
+
+def _sliced(fn, *leaves):
+    """``fn(*leaves)`` — an elementwise function returning a tuple of
+    tensors of the leaves' shape — computed slice by slice over the flat
+    leaves. Every element sees the same operations as in one call, so the
+    bits are one call's."""
+    n = leaves[0].numel()
+    if n <= UPDATE_WHOLE:
+        return fn(*leaves)
+    flat = [x.reshape(-1) for x in leaves]
+    outs = None
+    for lo in range(0, n, UPDATE_SLICE):
+        part = fn(*(x[lo:lo + UPDATE_SLICE] for x in flat))
+        if outs is None:
+            outs = [torch.empty(n, dtype=o.dtype, device=o.device)
+                    for o in part]
+        for o, q in zip(outs, part):
+            o[lo:lo + UPDATE_SLICE] = q
+    return tuple(o.reshape(leaves[0].shape) for o in outs)
+
+
 # --------------------------------------------------------------------- AdamW
 def adamw_init(cfg: OptConfig, params):
     dt = _state_dtype(cfg)
@@ -108,7 +137,8 @@ def adamw_update(cfg: OptConfig, grads, state, params, step: int):
         delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p.to(F32)
         return (p.to(F32) - lr * delta).to(p.dtype), m_new.to(dt), v_new.to(dt)
 
-    out = tree_map(upd, grads, state["m"], state["v"], params)
+    out = tree_map(lambda *leaves: _sliced(upd, *leaves), grads, state["m"],
+                   state["v"], params)
     pick = lambda i: tree_map(lambda o: o[i], out)
     return pick(0), {"m": pick(1), "v": pick(2)}
 

@@ -11,19 +11,22 @@ completed optimizer step:
 
 The contract: both chains are bitwise identical, per ``MATRIX`` cell
 (microbatching, int8 grad compression with error feedback in the state,
-remat policy ``dots``, GQA, bf16 optimizer state). ``EXTRA`` holds two cells
-the reference's matrix lacks: Adafactor, and packed documents
-(:class:`~repro_torch.data.pipeline.PackedDocs`, segment-masked attention on
-the plain path).
+remat policy ``dots``, GQA, mixture-of-experts (Phi-3.5-MoE: fp32 router,
+capacity drops, the aux loss in the objective), bf16 optimizer state).
+``EXTRA`` holds two cells the reference's matrix lacks: Adafactor, and
+packed documents (:class:`~repro_torch.data.pipeline.PackedDocs`,
+segment-masked attention on the plain path).
 
 The ``train_serve_parity`` cell (:func:`run_train_serve_parity`) is not a
 chain: per arch of ``PARITY_ARCHS`` it digests the canonical training
 forward's logits and the continuous engine's captured prefill logits over the
 same prompts; it is conformant iff the two digests are equal for every arch.
 
-Not ported: the ``moe`` cell (waits for ``models/moe.py``, ROADMAP A8) and
-the ``elastic`` scenario (re-sharding onto another mesh,
-``dist/sharding.py``, ROADMAP A9); each raises ``NotImplementedError``.
+Not ported: the ``elastic`` scenario (re-sharding onto another mesh,
+``dist/sharding.py``, ROADMAP A9) raises ``NotImplementedError``; so do
+arches whose model families wait for ROADMAP A8 (``registry.get``). The
+parity cell over an MoE arch raises the paged engine's refusal, as the
+reference's does.
 
 Every driver takes ``device=`` (the card by default; ``"cpu"`` runs the
 plain path). Runnable as a module:
@@ -184,15 +187,13 @@ MATRIX: Dict[str, LifecycleConfig] = {
     "int8":    LifecycleConfig(grad_compression="int8"),
     "remat":   LifecycleConfig(remat=True, remat_policy="dots"),
     "gqa":     LifecycleConfig(overrides=(("n_kv_heads", 2),)),
+    "moe":     LifecycleConfig(arch="phi3.5-moe-42b-a6.6b"),
     "bf16opt": LifecycleConfig(opt_state_dtype="bfloat16"),
 }
 # cells the reference's matrix lacks, run by the same drivers
 EXTRA: Dict[str, LifecycleConfig] = {
     "adafactor": LifecycleConfig(opt="adafactor"),
     "packed":    LifecycleConfig(packed=True, seq=64),   # min_doc 16 <= seq/2
-}
-_UNPORTED = {
-    "moe": "the moe cell waits for models/moe.py (ROADMAP A8)",
 }
 SCENARIOS = ("straight", "resume")
 
@@ -271,8 +272,6 @@ def cell_config(name: str) -> LifecycleConfig:
     if name == "train_serve_parity":
         raise ValueError("train_serve_parity is not a chain cell: run it with "
                          "run_train_serve_parity (or run_cell)")
-    if name in _UNPORTED:
-        raise NotImplementedError(_UNPORTED[name])
     if name in MATRIX:
         return MATRIX[name]
     if name in EXTRA:

@@ -3,7 +3,8 @@ reference's ``tests/test_fault_tolerance.py`` that need no mesh and all of
 ``tests/test_ckpt_retry.py``, run on the port; plus the cross-package
 format: the port's manifest for a state bridged from the reference has the
 reference's leaf keys, leaf digests and tree digest, and a checkpoint
-written by either package restores in the other bit for bit."""
+written by either package restores in the other bit for bit (a reduced
+mixture-of-experts state too: fp32 router, expert stacks)."""
 import os
 import threading
 
@@ -335,3 +336,28 @@ def test_port_checkpoint_restores_in_the_reference(bridged, tmp_path):
         np.testing.assert_array_equal(
             np.atleast_1d(np.asarray(a)).view(np.uint8),
             np.atleast_1d(np.asarray(b)).view(np.uint8))
+
+
+def test_reference_moe_checkpoint_restores_in_the_port(tmp_path):
+    """A reduced Phi-3.5-MoE train state written by the reference restores
+    into the port's state tree with the reference's leaf digests."""
+    jcfg = jregistry.get("phi3.5-moe-42b-a6.6b").reduced(n_layers=2)
+    tcfg = registry.get("phi3.5-moe-42b-a6.6b").reduced(n_layers=2)
+    opt = dict(total_steps=10)
+    jstate = JS.init_state(jcfg, JS.TrainConfig(opt=JO.OptConfig(**opt)),
+                           jax.random.PRNGKey(1))
+    tstate = S.state_from_params(
+        from_jax_params(jax.tree.map(np.asarray, jstate["params"]), tcfg,
+                        device="cpu"), S.TrainConfig(opt=O.OptConfig(**opt)))
+    JC.save(str(tmp_path), 3, jstate)
+    target = O.tree_map(torch.zeros_like, tstate)
+    restored = C.restore(str(tmp_path), 3, target)
+    manifest = JC.read_manifest(str(tmp_path), 3)
+    leaves = dict(zip(sorted(manifest["arrays"]), O.tree_leaves(restored)))
+    assert any(k.endswith("moe/router") for k in leaves)
+    for key, leaf in leaves.items():
+        assert D.leaf_digest(leaf) == manifest["arrays"][key]["digest"], key
+    assert D.tree_digest(restored) == D.tree_digest(
+        jax.tree.map(np.asarray, jstate))
+    router = restored["params"]["blocks"]["b0_attn_moe"]["moe"]["router"]
+    assert router.dtype == torch.float32 and router.shape == (2, 128, 4)

@@ -12,6 +12,7 @@ from repro_torch.kernels import flash_fwd as FF
 from repro_torch.kernels import ops
 from repro_torch import masks as M
 from repro_torch.models import transformer as T
+from repro_torch.models.module import set_path, tree_paths
 from repro_torch.train import optimizer as O
 from repro_torch.train import step as S
 from repro_torch.verify.digest import tree_digest
@@ -196,6 +197,42 @@ def test_reduced_train_step_cuda_matches_plain_attention(dtype, tol):
     for key in ("loss", "grad_norm"):
         a, b = float(m[key]), float(mp[key])
         assert abs(a - b) <= tol * abs(b), (key, a, b)
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b",
+                                  "llama4-scout-17b-a16e"])
+@pytest.mark.parametrize("impl", ["einsum", "gather"])
+def test_reduced_moe_forward_and_backward_are_bitwise(arch, impl):
+    """A reduced MoE model's loss and every grad (router and experts
+    included) on the DASH kernels, twice under deterministic algorithms:
+    bitwise equal, and within bf16 reach of the plain attention's loss."""
+    _card()
+    cfg = registry.get(arch).reduced(n_layers=2, attention_impl="cuda",
+                                     moe_impl=impl)
+    params = T.init(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    toks = torch.randint(0, cfg.vocab, (2, 257), device="cuda", generator=gen)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def run(c):
+        tree, leaves = {}, []
+        for path, x in tree_paths(params):
+            leaves.append(x.detach().requires_grad_(True))
+            set_path(tree, path, leaves[-1])
+        loss, m = T.loss_fn(tree, batch, c, remat=True)
+        grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), m["aux"].detach(), grads
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        a, b = run(cfg), run(cfg)
+        plain = run(cfg.replace(attention_impl="torch"))[0]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert float(a[1]) > 0
+    assert all(torch.equal(x, y) for x, y in zip(a[2], b[2]))
+    assert abs(float(a[0]) - float(plain)) <= 2e-2 * abs(float(plain))
 
 
 # ------------------------------------------- block-sparse masks (masks slice)

@@ -36,7 +36,8 @@ def test_straight_and_resume_are_bitwise_equal(cell, tmp_path):
 
 def test_matrix_holds_the_references_cells():
     assert sorted(L.MATRIX) == ["base", "bf16opt", "gqa", "int8", "mb4",
-                                "remat"]
+                                "moe", "remat"]
+    assert L.MATRIX["moe"].arch == "phi3.5-moe-42b-a6.6b"
     assert L.MATRIX["remat"].remat_policy == "dots"
     assert L.MATRIX["int8"].grad_compression == "int8"
     assert L.SCENARIOS == ("straight", "resume")
@@ -66,8 +67,9 @@ def test_token_stream_digest_invariant_to_host_split(cell):
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda: L.run_cell("moe", device="cpu"), "A8"),
-    (lambda: L.run_train_serve_parity(archs=("phi3.5-moe-42b-a6.6b",),
+    (lambda: L.run_train_serve_parity(archs=("jamba-1.5-large-398b",),
+                                      device="cpu"), "A8"),
+    (lambda: L.run_train_serve_parity(archs=("xlstm-350m",),
                                       device="cpu"), "A8"),
     (lambda: L.run_cell("base", scenarios=("straight", "elastic"),
                         device="cpu"), "A9"),
@@ -76,6 +78,18 @@ def test_token_stream_digest_invariant_to_host_split(cell):
 def test_unported_cells_and_scenarios_raise(call, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         call()
+
+
+def test_parity_cell_refuses_moe_as_the_reference_does():
+    """An MoE arch has no paged path: the parity cell raises the paged
+    engine's refusal, as the reference's engine refuses it."""
+    from repro.verify import lifecycle as JL
+    with pytest.raises(AssertionError, match="attention-only"):
+        JL.run_train_serve_parity(archs=("phi3.5-moe-42b-a6.6b",))
+    with pytest.raises(NotImplementedError,
+                       match="MoE capacity routing is batch-coupled"):
+        L.run_train_serve_parity(archs=("phi3.5-moe-42b-a6.6b",),
+                                 device="cpu")
 
 
 def test_run_cell_report_and_cli(tmp_path, capsys):

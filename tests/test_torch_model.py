@@ -147,6 +147,6 @@ def test_unported_configs_raise():
     with pytest.raises(NotImplementedError, match="not ported"):
         TT.forward(TT.init(tcfg, device="cpu"),
                    {"tokens": torch.zeros((1, 128), dtype=torch.long)},
-                   tcfg.replace(activation="relu2"))
+                   tcfg.replace(block_pattern=("mlstm",)))
     with pytest.raises(NotImplementedError, match="not ported"):
-        tregistry.get("phi3.5-moe-42b-a6.6b")
+        tregistry.get("jamba-1.5-large-398b")

@@ -280,8 +280,8 @@ def test_spec_matches_reference(fp32, k, separate):
 def test_drafter_pairing_matches_reference():
     from repro.configs import registry as JR
     for name in ("stablelm-1.6b", "qwen1.5-110b", "mistral-nemo-12b",
-                 "qwen1_5_110b"):
+                 "qwen1_5_110b", "nemotron-4-15b"):
         assert registry.drafter_for(name) == JR.drafter_for(name)
-    for name in ("nemotron-4-15b", "dash-paper", "xlstm-350m"):
+    for name in ("phi3.5-moe-42b-a6.6b", "dash-paper", "xlstm-350m"):
         with pytest.raises(KeyError, match="no drafter pairing"):
             registry.drafter_for(name)

@@ -14,6 +14,8 @@ port runs ``"torch"`` and ``"cuda"`` (whose CPU path is the kernels' plain
 versions). Numerics compare in fp32, where the point is the algorithm: a
 bf16 step at these sizes rounds most updates back to the old weights.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -203,6 +205,50 @@ def test_three_steps_twice_give_equal_digest_chains():
     moved = sum(int((x != first[p]).sum()) for p, x in
                 _leaves(state["params"]))
     assert moved > 0
+
+
+@pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
+def test_adamw_update_in_slices_is_bitwise_one_call(monkeypatch,
+                                                    state_dtype):
+    """A leaf larger than ``UPDATE_WHOLE`` is updated slice by slice (an
+    odd-sized last slice included): the new params and moments are bitwise
+    those of one call over the whole leaf."""
+    gen = torch.Generator().manual_seed(4)
+    params = {"a": torch.randn((7, 300), generator=gen).bfloat16(),
+              "b": torch.randn(5, generator=gen)}
+    grads = {k: torch.randn(v.shape, generator=gen).to(v.dtype)
+             for k, v in params.items()}
+    cfg = TO.OptConfig(state_dtype=state_dtype)
+    state = TO.adamw_init(cfg, params)
+    state = {k: {n: torch.randn(x.shape, generator=gen).abs().to(x.dtype)
+                 for n, x in v.items()} for k, v in state.items()}
+    whole = TO.adamw_update(cfg, grads, state, params, 3)
+    monkeypatch.setattr(TO, "UPDATE_SLICE", 256)
+    monkeypatch.setattr(TO, "UPDATE_WHOLE", 1024)
+    sliced = TO.adamw_update(cfg, grads, state, params, 3)
+    leaves = [TO.tree_leaves({"p": p, "s": st}) for p, st in (whole, sliced)]
+    assert len(leaves[0]) == 6
+    for x, y in zip(*leaves):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        assert torch.equal(x.view(torch.int16) if x.dtype == torch.bfloat16
+                           else x, y.view(torch.int16)
+                           if y.dtype == torch.bfloat16 else y)
+
+
+@pytest.mark.parametrize("arch,layers,sliced", [
+    ("stablelm-1.6b", None, set()),
+    ("phi3.5-moe-42b-a6.6b", 2, {"w_up", "w_gate", "w_down"})])
+def test_only_leaves_above_update_whole_are_sliced(arch, layers, sliced):
+    """At full width the dense path updates every leaf in one call
+    (StableLM's MLP stacks, 2^28.04 elements, included); of the 2-layer
+    Phi-3.5-MoE train state only the expert stacks are sliced."""
+    cfg = tregistry.get(arch)
+    cfg = cfg.replace(n_layers=layers) if layers else cfg
+    over = {path.split("/")[-1]
+            for path, d in tree_paths(TT.param_defs(cfg))
+            if math.prod(d.shape) > TO.UPDATE_WHOLE}
+    assert over == sliced
+    assert TO.UPDATE_SLICE < TO.UPDATE_WHOLE
 
 
 def test_synthetic_batches_are_pure_functions_of_seed_and_step(tmp_path):
