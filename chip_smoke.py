@@ -47,6 +47,15 @@ Phases, each reported on its own line:
                1, 7, 1000, 2^20+3 elements, aligned and not) and leaf by
                leaf on the full-width train state (~16 GB), where a
                one-bit flip and a swap must each change it, timed there;
+               the selective scan (``csrc/selective_scan.cu``: forward,
+               backward, fold; ``[kernel-check] scan``) against its plain
+               version's outputs and autograd grads at Jamba's layer
+               (Din=16384, the train slice's S=4096 in 8 chunks of 512,
+               bf16 and fp32), two ragged small shapes
+               and the serve prefill (B=4, S=512), 10 repetitions of each
+               kernel bitwise, the fold bitwise its plain version,
+               prefill then one-step decodes equal to the full pass and the
+               decode step against plain;
                and the GQA groups of this slice's models (``[kernel-check]
                gqa``: 40/8 and 48/8 at D=128, S=1024): the causal forward,
                the worker backward with its dQ and dK/dV group folds (each
@@ -88,7 +97,7 @@ Phases, each reported on its own line:
                round, host ms a round, decode tok/s;
      serve-chaos — the same traffic under faults: ``--chaos 1`` (seeded
                pool exhaustion, slot revocations, decode stalls), and a
-               crash at engine step 7 with a snapshot every 3 steps (on
+               crash at engine step 7 with a snapshot every 6 steps (on
                tmpfs) restored through ``ContinuousEngine.from_snapshot``,
                plain (the first 4 requests) and with ``spec_k=4`` (all 8):
                every request bitwise the
@@ -114,8 +123,17 @@ Phases, each reported on its own line:
                serve-continuous traffic at 4 and at 2 slots: tokens and
                logprobs bitwise equal, launches as the engine's work
                predicts; decode step ms and tok/s;
-  5. train   — train StableLM-1.6B at full width and depth (bf16, AdamW,
-               remat, causal, B=4, S=1024, 3 steps, warmup 1, ``--tune sim``,
+     serve-jamba — the static engine as in phase 4 for Jamba-1.5-Large at
+               full width cut to its period's first five layers (mamba,
+               mamba_moe, mamba, mamba_moe, attn; ~24 B parameters): bitwise
+               across two runs, one causal forward for the attention layer
+               and one scan forward a Mamba layer in the prefill and in each
+               decode step, prefill logits against the plain attention and
+               plain scan with the router's choices pinned;
+               ``launch.serve --engine continuous`` with Jamba must raise
+               the paged engine's refusal (SSM states are unpaged);
+  5. train   — train StableLM-1.6B at full width cut to 12 of its 24
+               layers (bf16, AdamW, remat, causal, B=4, S=1024, 3 steps, warmup 1, ``--tune sim``,
                which prints the tuner's pick and changes nothing else) through
                the DASH kernels, twice from seed 0 under
                ``torch.use_deterministic_algorithms``: equal state digests
@@ -128,7 +146,7 @@ Phases, each reported on its own line:
                trace with a data, step and digest span a step; each step's
                ``utilization_vs_modeled`` printed (``[obs]``). The
                train-window and dash-paper phases run the same way;
-  6. train-resume — the train phase's flags (full width and depth) as two
+  6. train-resume — the train phase's flags (full width, 12 layers) as two
                launcher subprocesses: run B with a checkpoint after every
                step (in a temporary directory on tmpfs, the newest one
                kept), killed with ``os._exit(17)`` at the top of step 2
@@ -136,14 +154,14 @@ Phases, each reported on its own line:
                ``--resume``d from the latest durable checkpoint, saving
                none of its own; run C's digest chain head must
                equal the train phase's first run's, it must resume from step
-               1 or 2, and each of its steps must launch 48 causal forwards,
-               24 worker backwards and 24 folds. Prints the checkpoint's
+               1 or 2, and each of its steps must launch 24 causal forwards,
+               12 worker backwards and 12 folds. Prints the checkpoint's
                bytes, save and restore seconds, the directory's filesystem
                and free bytes;
   7. lifecycle — every cell of ``verify.lifecycle`` (base, mb4, int8, remat
                "dots", gqa, moe, bf16opt, plus adafactor and packed
-               documents) at full width cut to 2 layers (moe: Phi-3.5-MoE at
-               the reference's reduced widths), B=2 (mb4: 4), S=1024, 4
+               documents) on 2 layers, base at full width, the others at
+               the reference's reduced widths, B=2 (mb4: 4), S=1024, 3
                steps, crash at 2, on the DASH kernels: straight ≡
                crash/resume bit for bit, with the launches each cell
                predicts (3 folds a layer under GQA); then the
@@ -156,9 +174,9 @@ Phases, each reported on its own line:
                speculation under revocations, two seeded mixes) at full
                width cut to 2 layers: every cell ok, launches equal to what
                its engines dispatched;
-     train-chaos — ``launch.train`` at the lifecycle geometry with
-               ``--chaos 3`` (seeded transient checkpoint IO failures) and a
-               checkpoint every step, against the same steps unarmed and
+     train-chaos — ``launch.train`` at full width cut to 2 layers (B=2,
+               S=1024, 3 steps) with ``--chaos 3`` (seeded transient
+               checkpoint IO failures) and a checkpoint every step, against the same steps unarmed and
                without checkpoints: equal digest chains, every planned
                failure landed within the retry budget, 4/2/2 launches a
                step;
@@ -173,12 +191,13 @@ Phases, each reported on its own line:
                prompt 2048, 32 new tokens; the prefill must launch the
                block-sparse forward once per layer;
  10. train-window — the train phase again with ``--attn-window 1024`` at
-               B=1, S=4096 (the launcher's flags): 48 block-sparse forwards,
-               24 masked worker backwards and 24 folds a step, no causal
+               B=1, S=4096, 6 of the 24 layers (the launcher's flags): 12
+               block-sparse forwards, 6 masked worker backwards and 6
+               folds a step, no causal
                forward, step 1 and every layer's attention grads against the
                plain masked, query-chunked attention's step, then one
                profiled step;
-     train-moe — the train phase for Phi-3.5-MoE at full width cut to 2 of
+     train-moe — the train phase for Phi-3.5-MoE at full width cut to 1 of
                its 32 layers (16 experts top-2, einsum dispatch; B=4,
                S=1024, 3 steps, ``--verify``), twice: equal digest chains
                and fingerprints, per layer 2 causal forwards, 1 worker
@@ -189,6 +208,14 @@ Phases, each reported on its own line:
                batch at capacity factors 1.25 and 0.5: in fp32 within
                tests/test_moe.py's tolerance, in bf16 within 3 bf16 ulps
                of the largest expert output; in bf16 each twice bitwise;
+     train-jamba — the train phase for Jamba-1.5-Large at full width cut to
+               its period's layers 0 and 4 (mamba, attn; ``--layers 0,4``,
+               B=1, S=4096, 3 steps, ``--verify``), twice: equal digest
+               chains and fingerprints; a step launches the scan forward
+               twice and its backward and fold once, the flash kernels for
+               the attention layer (2 forwards, 1 worker backward, 3
+               folds); step 1 at S=1024 against the plain attention and
+               plain scan's;
  11. tune    — the tuner (``repro_torch.tune``) in measure mode over every
                legal candidate (schedule family x worker-parallel or
                serialized), the runner one synchronized ``dash_attention``
@@ -284,6 +311,7 @@ from repro_torch.faults import (EngineCrash, Fault, FaultPlan,  # noqa: E402
                                 Injector)
 from repro_torch.faults import conformance as CF  # noqa: E402
 from repro_torch.kernels import fingerprint as FPK  # noqa: E402
+from repro_torch.kernels import scan as SCAN  # noqa: E402
 from repro_torch import obs as OBS  # noqa: E402
 from repro_torch.obs import export as OBS_EX  # noqa: E402
 from repro_torch.verify import digest as DG  # noqa: E402
@@ -352,23 +380,26 @@ SLICE = dict(arch="stablelm-1.6b", batch=4, prompt=512, gen=32, window=0)
 SLICE_WINDOW = dict(arch="stablelm-1.6b", batch=2, prompt=2048, gen=32,
                     window=1024)
 # the train launcher's flags for the train phase (3 steps, warmup 1 so the
-# weights move), and for the windowed one
-TRAIN_ARGV = ["--arch", "stablelm-1.6b", "--batch", "4", "--seq", "1024",
-              "--steps", "3", "--warmup-steps", "1", "--seed", "0",
-              "--log-every", "1", "--verify", "--tune", "sim"]
-TRAIN_WINDOW_ARGV = ["--arch", "stablelm-1.6b", "--batch", "1", "--seq",
-                     "4096", "--attn-window", "1024", "--steps", "3",
-                     "--warmup-steps", "1", "--seed", "0", "--log-every", "1",
-                     "--verify"]
+# weights move; cut to 12 of the 24 layers) and for the windowed one (cut
+# to 6), so that the whole run keeps within half its time limit: the host's
+# digests and checkpoints of the state take most of these phases' time
+TRAIN_ARGV = ["--arch", "stablelm-1.6b", "--layers", "12", "--batch", "4",
+              "--seq", "1024", "--steps", "3", "--warmup-steps", "1",
+              "--seed", "0", "--log-every", "1", "--verify", "--tune", "sim"]
+TRAIN_WINDOW_ARGV = ["--arch", "stablelm-1.6b", "--layers", "6", "--batch",
+                     "1", "--seq", "4096", "--attn-window", "1024", "--steps",
+                     "3", "--warmup-steps", "1", "--seed", "0", "--log-every",
+                     "1", "--verify"]
 # [train-moe]: Phi-3.5-MoE at its published widths (16 experts top-2,
-# 32 heads over 8 KV heads), cut to 2 of its 32 layers so that its state
-# (bf16 params, fp32 AdamW moments) fits the card, through the launcher as
+# 32 heads over 8 KV heads), cut to 1 of its 32 layers (the run's time
+# limit; 3 would not fit the card's 80 GB with bf16 params and fp32 AdamW
+# moments), through the launcher as
 # [train] runs it; then one full-width expert layer's gather dispatch
 # against the einsum dispatch on a (B, S) batch of normal inputs at the
 # capacity factors given (the config's, and one that drops tokens): in fp32
 # within tests/test_moe.py's tolerance (dot association), in bf16 within
 # MOE_BF16_ULPS
-TRAIN_MOE_ARGV = ["--arch", "phi3.5-moe-42b-a6.6b", "--layers", "2",
+TRAIN_MOE_ARGV = ["--arch", "phi3.5-moe-42b-a6.6b", "--layers", "1",
                   "--batch", "4", "--seq", "1024", "--steps", "3",
                   "--warmup-steps", "1", "--seed", "0", "--log-every", "1",
                   "--verify"]
@@ -383,6 +414,24 @@ MOE_BF16_ULPS = 3
 # to 1 (~8.6 GB: its vocab-202752 embedding and head are half of it)
 SERVE_MOE = [dict(SLICE, arch="phi3.5-moe-42b-a6.6b", layers=4),
              dict(SLICE, arch="llama4-scout-17b-a16e", layers=1)]
+# [serve-jamba]: Jamba-1.5-Large at full width (d=8192, 64 heads over 8 KV
+# heads of 128, 16 experts top-2, vocab 65536, NoPE attention), cut to its
+# period's first five layers (mamba, mamba_moe, mamba, mamba_moe, attn:
+# ~24 B parameters, ~48 GB of bf16; a whole period is ~45 B), through the
+# static engine with the [slice] traffic
+SERVE_JAMBA = dict(SLICE, arch="jamba-1.5-large-398b", layers="0,1,2,3,4")
+# [train-jamba]: its period's layers 0 and 4 (mamba, attn: ~2.85 B
+# parameters; one expert layer's train state alone would pass 200 GB) at
+# full width, B=1, S=4096, through the launcher as [train] runs it; step 1
+# held against the plain attention and plain scan at S=1024: at S=4096 the
+# plain scan's autograd (~4 MB a step a Mamba layer, ~16 GB) would not fit
+# beside the kernel run's 75 GB peak
+TRAIN_JAMBA_ARGV = ["--arch", "jamba-1.5-large-398b", "--layers", "0,4",
+                    "--batch", "1", "--seq", "4096", "--steps", "3",
+                    "--warmup-steps", "1", "--seed", "0", "--log-every", "1",
+                    "--verify"]
+TRAIN_JAMBA_COMPARE_ARGV = [("1024" if a == "4096" else a)
+                            for a in TRAIN_JAMBA_ARGV]
 # [serve-nemotron]: Nemotron-4-15B at full width, cut to 2 layers (its
 # vocab-256000 embedding and head are 3.15 B of its 3.9 B parameters),
 # through the continuous engine over [serve-continuous]'s traffic, at these
@@ -398,16 +447,18 @@ RESUME_TIMEOUT_S = 600
 # chip machine's disk takes ~45 GB of writes in one call, freed blocks
 # included
 CKPT_ROOT = "/dev/shm"
-# [lifecycle]: the lifecycle cells at full width, cut to 2 layers, B=2
-# (mb4: B=4, so each of its 4 microbatches holds a row), S=1024, 4 steps,
-# crash at 2, on the DASH kernels
-LIFECYCLE = dict(reduced=False, steps=4, batch=2, seq=1024)
+# [lifecycle]: the lifecycle cells on 2 layers (so that a layer mixed up
+# across save and restore shows), B=2 (mb4: B=4, so each of its 4
+# microbatches holds a row), S=1024, 3 steps, crash at 2, on the DASH
+# kernels; the cells of LIFECYCLE_FULL_WIDTH at full width, the others at
+# the reference's own reduced widths (their LifecycleConfig default): at
+# full width a cell's time goes to the host's digests and its checkpoint of
+# the vocab-100352 embedding and head (~35 s a cell), and [train-resume]
+# carries the full-width crash/resume contract
+LIFECYCLE = dict(steps=3, batch=2, seq=1024)
 LIFECYCLE_OVERRIDES = (("n_layers", 2), ("attention_impl", "cuda"))
 LIFECYCLE_CRASH_AT = 2
-# cells run at the reference's own reduced widths (their LifecycleConfig
-# default): a full-width expert layer's state is ~16-20 GB a checkpoint, and
-# [train-moe]'s two equal chains carry the full-width MoE contract
-LIFECYCLE_REDUCED = ("moe",)
+LIFECYCLE_FULL_WIDTH = ("base",)
 # the windowed training slice's attention shape (B, H, Hk, S, D, dtype) and
 # mask
 WINDOW_CASE = ("train_window", 1, 32, 32, 4096, 64, torch.bfloat16)
@@ -438,25 +489,25 @@ PAGED_SPARE = 5
 # [serve-spec] / [serve-chaos], on [serve-continuous]'s traffic: K drafts a
 # round; the sampled run's config; the separate drafter (full width, its
 # weights from seed 1); the seeded chaos plan; a crash at engine step 7
-# with a snapshot every 3 steps (under CKPT_ROOT)
+# with a snapshot every 6 steps (under CKPT_ROOT)
 SPEC_K = 4
 SPEC_SAMPLED = dict(temperature=0.7, top_k=20, seed=11)
 SPEC_DRAFTER = "stablelm-1.6b"
 CHAOS_SEED = 1
-CRASH_AT, SNAPSHOT_EVERY = 7, 3
+CRASH_AT, SNAPSHOT_EVERY = 7, 6
 # the plain crash serves the first 4 requests (one wave, 31 engine steps,
-# 10 snapshots of 1.6 GB); with spec_k=4 all 8 (2 waves of 7 rounds), so
+# 5 snapshots of 1.6 GB); with spec_k=4 all 8 (2 waves of 7 rounds), so
 # that the engine is still busy at step 7
 CRASH_REQUESTS = {0: 4, SPEC_K: SERVE_REQUESTS}
 # [chaos-matrix]: the 11 conformance cells at full width cut to 2 layers
 CHAOS_MATRIX_OVERRIDES = (("n_layers", 2),)
-# [train-chaos]: the lifecycle geometry through the train launcher, with
-# --chaos 3 and a checkpoint every step, against the same steps unarmed
-# and without checkpoints (each save of the 2-layer state, ~6.2 GB, takes
-# ~10 s)
+# [train-chaos]: 2 full-width layers, B=2, S=1024, 3 steps through the
+# train launcher, with --chaos 3 and a checkpoint every step, against the
+# same steps unarmed and without checkpoints (each save of the 2-layer
+# state, ~6.2 GB, takes ~10 s)
 TRAIN_CHAOS_SEED = 3
 TRAIN_CHAOS_ARGV = ["--arch", "stablelm-1.6b", "--layers", "2", "--batch",
-                    "2", "--seq", "1024", "--steps", "4", "--ckpt-every", "1",
+                    "2", "--seq", "1024", "--steps", "3", "--ckpt-every", "1",
                     "--ckpt-keep", "1", "--verify", "--log-every", "1"]
 # [kernel-check] fingerprint: element counts of the small leaves (the 0-dim
 # leaf besides), each also as views 1 and 3 elements in (unaligned), and
@@ -702,6 +753,12 @@ def _zero_counts():
     FF.launches = FF.launches_full = FF.launches_mask = 0
     FB.launches_worker = FB.launches_serial = FB.launches_fold = 0
     FPK.launches = 0
+    SCAN.launches_fwd = SCAN.launches_bwd = SCAN.launches_fold = 0
+
+
+def _no_launches():
+    """Every counter of ``_counts`` at 0."""
+    return dict.fromkeys(_counts(), 0)
 
 
 def _bwd_operands(b, h, hk, s, d, dtype, causal, seed, mask=None):
@@ -983,6 +1040,23 @@ class _PinnedRouting:
         return self._routed(route)
 
 
+@contextlib.contextmanager
+def _plain_scan():
+    """The models' selective scan on its plain version (the sequential
+    recurrence, differentiated by autograd) while the context is open: the
+    plain runs that a kernel run is held against. Outside it a CUDA tensor
+    always takes the kernels."""
+    orig = SCAN.selective_scan
+
+    def plain(u, dt, A, B, C, D, z, h0, chunk):
+        return SCAN.selective_scan_plain(u, dt, A, B, C, D, z, h0)
+    SCAN.selective_scan = plain
+    try:
+        yield
+    finally:
+        SCAN.selective_scan = orig
+
+
 def _timed(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1002,7 +1076,8 @@ def run_slice(slice_=SLICE, label="slice"):
     cfg = registry.get(slice_["arch"]).replace(attention_impl="cuda",
                                                attn_window=slice_["window"])
     if "layers" in slice_:
-        cfg = cfg.replace(n_layers=slice_["layers"])
+        cfg = launch_train.cut_layers(cfg, str(slice_["layers"]))
+    attn_layers, mamba_layers = _layer_kinds(cfg)
     b, s, n = slice_["batch"], slice_["prompt"], slice_["gen"]
     params = T.init(cfg, seed=0, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -1017,9 +1092,12 @@ def run_slice(slice_=SLICE, label="slice"):
     kind = "fwd_mask" if cfg.attn_window else "fwd_causal"
     launches = counts[kind]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    if launches != cfg.n_layers or sum(counts.values()) != launches:
-        raise AssertionError(f"prefill launched {counts}, expected "
-                             f"{cfg.n_layers} of {kind} and nothing else")
+    # the prefill's attention forward once an attention layer; the scan
+    # once a Mamba layer in the prefill and in each decode step
+    want = dict(_no_launches(), scan_fwd=mamba_layers * n)
+    want[kind] = attn_layers
+    if counts != want:
+        raise AssertionError(f"generate launched {counts}, expected {want}")
     if tokens.shape != (b, n) or not bool(
             ((tokens >= 0) & (tokens < cfg.padded_vocab)).all()):
         raise AssertionError(f"tokens out of range or misshapen: "
@@ -1043,7 +1121,7 @@ def run_slice(slice_=SLICE, label="slice"):
     _, t_decode = _timed(decode_all)
 
     plain_cfg = cfg.replace(attention_impl="torch")
-    with pin.replay():
+    with pin.replay(), _plain_scan():
         plain_logits, _ = T.prefill_step(params, batch, plain_cfg, max_seq=s)
     err = (logits - plain_logits).abs().max().item()
     finite = bool(torch.isfinite(logits).all())
@@ -1055,6 +1133,7 @@ def run_slice(slice_=SLICE, label="slice"):
         arch=cfg.name, layers=cfg.n_layers, params=count_params(params),
         batch=b, prompt=s,
         new_tokens=n, attn_window=cfg.attn_window, attention_launches=launches,
+        pattern=list(cfg.block_pattern), scan_launches=counts["scan_fwd"],
         run_s=t_run, prefill_ms=t_prefill * 1e3,
         decode_tok_per_s=b * (n - 1) / t_decode, peak_mem_gb=peak_gb,
         tokens_bitwise_equal=True, logits_max_abs_err_vs_plain=err,
@@ -1074,22 +1153,33 @@ def run_slice(slice_=SLICE, label="slice"):
 
 
 def _attn_leaves(params):
-    """The stacked attention projections of the first block (``b0_attn`` or
-    ``b0_attn_moe``): wq, wk, wv, wo."""
-    key = min(params["blocks"], key=lambda k: int(k.split("_")[0][1:]))
+    """The stacked attention projections of the first block with attention
+    (``b0_attn``, ``b0_attn_moe``, or Jamba's ``b{i}_attn``): wq, wk, wv,
+    wo."""
+    key = min((k for k in params["blocks"] if "attn" in params["blocks"][k]),
+              key=lambda k: int(k.split("_")[0][1:]))
     return tuple(f"blocks/{key}/attn/{w}" for w in ATTN_WEIGHTS)
 
 
+def _layer_kinds(cfg):
+    """(attention layers, Mamba layers) of ``cfg``."""
+    n_rep = cfg.n_layers // len(cfg.block_pattern)
+    mamba = n_rep * sum(k.startswith("mamba") for k in cfg.block_pattern)
+    return cfg.n_layers - mamba, mamba
+
+
 def _train_launches(cfg, verify):
-    """What one remat'd train step launches: the forward twice a layer
-    (block-sparse under a window, else causal), the worker backward once,
-    and its folds (the dQ partials, and under GQA dK and dV over each
-    group); one fingerprint under ``--verify``."""
+    """What one remat'd train step launches: per attention layer the
+    forward twice (block-sparse under a window, else causal), the worker
+    backward once, and its folds (the dQ partials, and under GQA dK and dV
+    over each group); per Mamba layer the scan's forward twice, its
+    backward and fold once; one fingerprint under ``--verify``."""
+    attn, mamba = _layer_kinds(cfg)
     folds = 3 if cfg.n_kv_heads < cfg.n_heads else 1
-    want = dict(fwd_causal=0, fwd_full=0, fwd_mask=0,
-                bwd_worker=cfg.n_layers, bwd_serial=0,
-                fold=folds * cfg.n_layers, fingerprint=int(verify))
-    want["fwd_mask" if cfg.attn_window else "fwd_causal"] = 2 * cfg.n_layers
+    want = dict(_no_launches(), bwd_worker=attn, fold=folds * attn,
+                fingerprint=int(verify), scan_fwd=2 * mamba, scan_bwd=mamba,
+                scan_fold=mamba)
+    want["fwd_mask" if cfg.attn_window else "fwd_causal"] = 2 * attn
     return want
 
 
@@ -1110,37 +1200,45 @@ def _attn_grads(cfg, params, batch):
     return {p: g for (p, _), g in zip(wanted, grads)}
 
 
-def run_train(argv=TRAIN_ARGV, label="train"):
-    """StableLM-1.6B at full width and depth, 3 AdamW steps through the train
-    launcher (``repro_torch.launch.train.main``, the DASH kernels) with the
-    flags ``argv``, twice from seed 0; the launcher's step 1 against the
-    plain attention's on the same weights and batch (with a window: the
-    plain masked, query-chunked attention); step 3 of the second run under
-    the profiler."""
+def run_train(argv=TRAIN_ARGV, label="train", compare_argv=None):
+    """StableLM-1.6B at full width (``TRAIN_ARGV``: 12 of its 24 layers),
+    3 AdamW steps through the train launcher
+    (``repro_torch.launch.train.main``, the DASH kernels) with the flags
+    ``argv``, twice from seed 0; the launcher's step 1 against the
+    plain attention's (and the plain scan's, over Mamba layers) on the same
+    weights and batch (with a window: the plain masked, query-chunked
+    attention); step 3 of the second run under the profiler. With
+    ``compare_argv`` (flags that differ in the batch's shape only), step 1
+    is held against the plain path on that batch instead, both steps run
+    here: the plain scan's autograd keeps (B, S, Din, N) states."""
     args, cfg, tcfg, data, device = launch_train.configure(argv)
     want = _train_launches(cfg, args.verify)
-    batch0 = data.batch(0)
+    c_args, c_cfg, c_tcfg, c_data, _ = (
+        launch_train.configure(compare_argv) if compare_argv
+        else (args, cfg, tcfg, data, device))
+    batch0 = c_data.batch(0)
 
-    # step 1 on the plain attention, and the attention grads both ways; over
-    # an MoE model the plain runs take the kernel runs' router choices
-    # (_PinnedRouting), the kernel's step 1 then run here too, and it must be
-    # the launcher's step 1 bit for bit
+    # step 1 on the plain attention (and scan), and the attention grads both
+    # ways; over an MoE model the plain runs take the kernel runs' router
+    # choices (_PinnedRouting), the kernel's step 1 then run here too, and it
+    # must be the launcher's step 1 bit for bit
     torch.use_deterministic_algorithms(True)
     pins = [_PinnedRouting(), _PinnedRouting()]
     kernel_m = None
     try:
-        state = TS.init_state(cfg, tcfg, seed=args.seed, device=device)
-        plain_cfg = cfg.replace(attention_impl="torch")
-        if cfg.n_experts:
+        state = TS.init_state(c_cfg, c_tcfg, seed=args.seed, device=device)
+        plain_cfg = c_cfg.replace(attention_impl="torch")
+        if cfg.n_experts or compare_argv:
             with pins[0].record():
-                kernel_m = TS.make_train_step(cfg, tcfg)(state, batch0)[1]
+                kernel_m = TS.make_train_step(c_cfg, c_tcfg)(state,
+                                                             batch0)[1]
             kernel_m = {k: float(kernel_m[k]) for k in ("loss", "grad_norm")}
-        with pins[0].replay():
-            plain_m = TS.make_train_step(plain_cfg, tcfg)(state, batch0)[1]
+        with pins[0].replay(), _plain_scan():
+            plain_m = TS.make_train_step(plain_cfg, c_tcfg)(state, batch0)[1]
         plain_m = {k: float(plain_m[k]) for k in ("loss", "grad_norm")}
         with pins[1].record():
-            ga = _attn_grads(cfg, state["params"], batch0)
-        with pins[1].replay():
+            ga = _attn_grads(c_cfg, state["params"], batch0)
+        with pins[1].replay(), _plain_scan():
             gp = _attn_grads(plain_cfg, state["params"], batch0)
         attn_leaves = _attn_leaves(state["params"])
         torch.cuda.synchronize()
@@ -1195,7 +1293,8 @@ def run_train(argv=TRAIN_ARGV, label="train"):
     # the second run's last step ran under the profiler
     steady = statistics.median(a["step_ms"][1:] + b_["step_ms"][1:-1])
     prof = b_["profile"]
-    first = dict(a["step1"], plain_loss=plain_m["loss"],
+    first = dict(kernel_m if compare_argv else a["step1"],
+                 plain_loss=plain_m["loss"],
                  plain_grad_norm=plain_m["grad_norm"])
     rel_loss = abs(first["loss"] - first["plain_loss"]) / abs(
         first["plain_loss"])
@@ -1204,7 +1303,9 @@ def run_train(argv=TRAIN_ARGV, label="train"):
     result = dict(
         arch=cfg.name, layers=cfg.n_layers, batch=args.batch, seq=args.seq,
         steps=args.steps, attn_window=cfg.attn_window,
+        pattern=list(cfg.block_pattern),
         entry="repro_torch.launch.train.main " + " ".join(argv),
+        step1_compared_at=dict(batch=c_args.batch, seq=c_args.seq),
 
         # a hash chain over every step's state digest: equal heads mean
         # equal params and moments after every step
@@ -1234,8 +1335,8 @@ def run_train(argv=TRAIN_ARGV, label="train"):
         raise AssertionError("three training steps changed no parameter")
     if not all(x == x and abs(x) < 1e4 for x in result["final_losses"]):
         raise AssertionError(f"non-finite losses {result['final_losses']}")
-    if kernel_m is not None and kernel_m != {k: a["step1"][k] for k in
-                                             kernel_m}:
+    if kernel_m is not None and not compare_argv and kernel_m != {
+            k: a["step1"][k] for k in kernel_m}:
         raise AssertionError(f"the pinned kernel step 1 {kernel_m} is not "
                              f"the launcher's {a['step1']}")
     if rel_loss > LOSS_RTOL or rel_gn > GNORM_RTOL:
@@ -1423,7 +1524,7 @@ def check_moe_gather(label="train-moe-gather"):
 
 
 def run_train_moe(label="train-moe"):
-    """Phi-3.5-MoE at full width, 2 layers, through the train launcher as
+    """Phi-3.5-MoE at full width, 1 layer, through the train launcher as
     :func:`run_train` drives it (``TRAIN_MOE_ARGV``, einsum dispatch): two
     runs with equal digest chains and fingerprints, step 1 within
     ``LOSS_RTOL``/``GNORM_RTOL`` of the plain attention's, the launches a
@@ -1479,7 +1580,7 @@ def _launcher(argv, timeout=RESUME_TIMEOUT_S):
 
 
 def run_train_resume(straight, label="train-resume"):
-    """StableLM-1.6B at full width and depth with ``TRAIN_ARGV``'s flags, as
+    """StableLM-1.6B at full width, 12 layers, with ``TRAIN_ARGV``'s flags, as
     two launcher subprocesses: run B saves a checkpoint after every step and
     is killed with ``os._exit(17)`` at the top of step ``RESUME_DIE_AT``
     (step 2's async save possibly in flight); run C resumes from the latest
@@ -1556,14 +1657,11 @@ def run_train_resume(straight, label="train-resume"):
 
 
 def _lifecycle_config(name):
-    """The cell's config at full width, 2 layers, on the DASH kernels (a
-    cell of ``LIFECYCLE_REDUCED`` at its reduced widths)."""
+    """The cell's config on 2 layers and the DASH kernels: at full width
+    for a cell of ``LIFECYCLE_FULL_WIDTH``, else at its reduced widths."""
     base = LC.cell_config(name)
-    if name in LIFECYCLE_REDUCED:
-        return dataclasses.replace(
-            base, **dict(LIFECYCLE, reduced=True),
-            overrides=base.overrides + (("attention_impl", "cuda"),))
-    kw = dict(LIFECYCLE, overrides=base.overrides + LIFECYCLE_OVERRIDES)
+    kw = dict(LIFECYCLE, reduced=name not in LIFECYCLE_FULL_WIDTH,
+              overrides=base.overrides + LIFECYCLE_OVERRIDES)
     if base.microbatches > LIFECYCLE["batch"]:
         kw["batch"] = base.microbatches
     return dataclasses.replace(base, **kw)
@@ -1575,15 +1673,12 @@ def _lifecycle_launches(lc, cfg):
     under remat) and its backward and folds once; packed batches take the
     plain segment-masked attention."""
     if lc.packed:
-        return dict.fromkeys(("fwd_causal", "fwd_full", "fwd_mask",
-                              "bwd_worker", "bwd_serial", "fold",
-                              "fingerprint"), 0)
+        return _no_launches()
     per = 2 * lc.steps * lc.microbatches * cfg.n_layers
     # a GQA backward folds dK and dV over each group besides the dQ partials
     folds = 3 if cfg.n_kv_heads < cfg.n_heads else 1
-    return dict(fwd_causal=per * (2 if lc.remat else 1), fwd_full=0,
-                fwd_mask=0, bwd_worker=per, bwd_serial=0, fold=folds * per,
-                fingerprint=0)
+    return dict(_no_launches(), fwd_causal=per * (2 if lc.remat else 1),
+                bwd_worker=per, fold=folds * per)
 
 
 def run_lifecycle(label="lifecycle", names=None):
@@ -1687,8 +1782,7 @@ def run_ops():
     if window_dropped:
         raise AssertionError("the windowed op equals the causal op beyond "
                              "the window: the window was dropped")
-    none = dict(fwd_causal=0, fwd_full=0, fwd_mask=0, bwd_worker=0,
-                bwd_serial=0, fold=0, fingerprint=0)
+    none = _no_launches()
     want = dict(
         causal_default=dict(none, fwd_causal=1, bwd_worker=1, fold=1),
         full_shift=dict(none, fwd_full=1, bwd_worker=1, fold=1),
@@ -1891,7 +1985,9 @@ def run_tune(tune_root, label="tune"):
     if theirs != ours:
         raise AssertionError(f"[tune] a fresh process picked {theirs}, this "
                              f"one {ours}")
-    idle = [k for k, n in launches.items() if not n and k != "fingerprint"]
+    # the tune path runs the attention kernels only
+    idle = [k for k, n in launches.items() if not n and k != "fingerprint"
+            and not k.startswith("scan_")]
     if idle:
         raise AssertionError(f"[tune] the tune path never launched {idle}: "
                              f"{launches}")
@@ -2770,6 +2866,289 @@ def check_fingerprint():
     return result
 
 
+# the main paths' shapes: the train slice's mamba layer (B=1, S=4096, chunk
+# 512: 8 chunks) and the serve slice's decode step (B=4)
+SCAN_TRAIN = (1, 4096, 16384, 512)
+SCAN_DECODE = (4, 16384)
+# [kernel-check] scan: csrc/selective_scan.cu against its plain version.
+# (B, S, Din, chunk, z dtype, grads): two small ragged shapes (a partial tile
+# and a partial chunk, both dtypes), Jamba's layer at the train slice's
+# shape, both z dtypes (the plain version's autograd keeps ~4 MB a step, ~16
+# GB at S = 4096, and is run there alone), and the serve slice's batch 4 at
+# its prompt length (forward only)
+SCAN_CASES = [("ragged_fp32", 2, 100, 256, 32, torch.float32, True),
+              ("ragged_bf16", 2, 100, 256, 32, torch.bfloat16, True),
+              ("jamba_layer", *SCAN_TRAIN, torch.bfloat16, True),
+              ("jamba_layer_fp32", *SCAN_TRAIN, torch.float32, True),
+              ("jamba_prefill", 4, 512, 16384, 512, torch.bfloat16, False)]
+# |kernel - plain| <= tol * max(1, max|plain|), per output: fp32 sums taken
+# in another order (the sum over the 16 states, fma vs mul+add, dB/dC over
+# 16384 channels, dA/dD over 4096 steps); bf16 y and dz: one rounding apart
+SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# prefill then decode vs the full pass (the reference's
+# tests/test_models_numerics.py limits)
+SCAN_SPLIT_TOL = dict(atol=2e-4, rtol=2e-3)
+# flops a (step, channel, state): forward exp, dt*A, the state's fma, dtu*B,
+# the output's fma (7); backward the state recomputed (5) and the reverse
+# step's (15) — an exponential counted as one
+SCAN_FWD_FLOPS, SCAN_BWD_FLOPS = 7, 20
+
+
+def _scan_inputs(b, s, din, dtype, seed):
+    """Operands at a Mamba layer's magnitudes: u a SiLU output, dt a
+    softplus, A = -exp(A_log) with A_log in [-1, 1], B, C, D, z, dy ~ N(0,
+    1), a carried state h0 and a last-state gradient."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    n = SCAN.STATE
+    return dict(
+        u=F.silu(r(b, s, din)), dt=F.softplus(r(b, s, din) - 1.0),
+        A=-torch.exp(torch.rand((din, n), generator=gen, device="cuda")
+                     * 2 - 1),
+        B=r(b, s, n), C=r(b, s, n), D=r(din), z=r(b, s, din).to(dtype),
+        h0=0.5 * r(b, din, n)), r(b, s, din).to(dtype), 0.1 * r(b, din, n)
+
+
+_SCAN_ARGS = ("u", "dt", "A", "B", "C", "D", "z", "h0")
+
+
+def _scan_plain_grads(x, dy, dh_last):
+    """The plain version's outputs and, by autograd, the grads of
+    sum(y * dy) + sum(h_last * dh_last) w.r.t. u, dt, A, B, C, D, z."""
+    leaves = {k: (v.detach().requires_grad_(k != "h0"))
+              for k, v in x.items()}
+    y, h_last = SCAN.selective_scan_plain(*(leaves[k] for k in _SCAN_ARGS))
+    loss = (y.float() * dy.float()).sum() + (h_last * dh_last).sum()
+    names = [k for k in _SCAN_ARGS if k != "h0"]
+    grads = torch.autograd.grad(loss, [leaves[k] for k in names])
+    return y.detach(), h_last.detach(), dict(zip(names, grads))
+
+
+def _scan_err(got, want, abs_err=None):
+    """max |got - want| / max(1, max |want|); the unscaled max |got -
+    want| goes into ``abs_err`` (a list) when given."""
+    diff = float((got.float() - want.float()).abs().max())
+    if abs_err is not None:
+        abs_err.append(diff)
+    return diff / max(1.0, float(want.float().abs().max()))
+
+
+def check_scan():
+    """``csrc/selective_scan.cu`` against its plain version on the card:
+    the forward's y and last state, and the backward's du, ddt, dA, dB, dC,
+    dD, dz (through the fold) against the plain version's autograd, at each
+    of ``SCAN_CASES``; 10 repeated launches of each kernel bitwise; the
+    fold against its plain version bitwise; prefill then one-step decodes
+    with the carried state equal to the full pass; the decode step at the
+    serve shape against plain. Each grads case also times the plain
+    version (``plain_ms`` its forward alone, ``plain_grads_ms`` forward and
+    autograd backward: one call each, it walks S steps from Python)."""
+    results, failed = [], []
+    for name, b, s, din, chunk, dtype, grads in SCAN_CASES:
+        x, dy, dh_last = _scan_inputs(b, s, din, dtype, seed=s + din)
+        args = [x[k] for k in _SCAN_ARGS]
+        y, h_last, h_chk = SCAN.scan_fwd_cuda(*args, chunk)
+        times = {}
+        if grads:
+            with torch.no_grad():
+                times["plain_ms"] = _ms(
+                    lambda: SCAN.selective_scan_plain(*args), reps=1,
+                    rounds=1, warmup=1)
+            t0 = time.perf_counter()
+            yp, hp, gp = _scan_plain_grads(x, dy, dh_last)
+            torch.cuda.synchronize()
+            times["plain_grads_ms"] = (time.perf_counter() - t0) * 1e3
+        else:
+            with torch.no_grad():
+                yp, hp = SCAN.selective_scan_plain(*args)
+        abs_y, abs_grads = [], []
+        err = dict(y=_scan_err(y, yp, abs_y), h_last=_scan_err(h_last, hp))
+        tol = dict(y=SCAN_TOL[dtype], h_last=SCAN_TOL[torch.float32])
+        reps = dict(fwd=all(torch.equal(y, SCAN.scan_fwd_cuda(
+            *args, chunk)[0]) for _ in range(10)))
+        if grads:
+            g = SCAN.scan_bwd_cuda(*args, dy, h_chk, chunk, dh_last)
+            got = dict(zip(("u", "dt", "A", "B", "C", "D", "z"), g[:7]))
+            for k, v in got.items():
+                err["d" + k] = _scan_err(v, gp[k], abs_grads)
+                tol["d" + k] = SCAN_TOL[dtype if k == "z" else torch.float32]
+            reps["bwd"] = all(
+                all(torch.equal(a, b_) for a, b_ in zip(g, SCAN.scan_bwd_cuda(
+                    *args, dy, h_chk, chunk, dh_last))) for _ in range(10))
+            _, _, _, _, bc_part, ad_part = SCAN.scan_bwd_partials_cuda(
+                *args, dy, h_chk, chunk, dh_last)
+            folded = SCAN.scan_fold_cuda(bc_part, ad_part)
+            plain_fold = SCAN.fold_plain(bc_part, ad_part)
+            reps["fold_vs_plain"] = all(torch.equal(a, b_) for a, b_ in
+                                        zip(folded, plain_fold))
+            del g, got, gp, bc_part, ad_part, folded, plain_fold
+        ok = (all(err[k] <= tol[k] for k in err) and all(reps.values()))
+        line = dict(case=name, B=b, S=s, Din=din, chunk=chunk,
+                    dtype=str(dtype), err=err, tol=tol, bitwise=reps, ok=ok,
+                    max_abs_err_y=abs_y[0],
+                    max_abs_err_grads=max(abs_grads, default=None), **times)
+        print("[kernel-check] scan " + json.dumps(line), flush=True)
+        results.append(line)
+        if not ok:
+            failed.append(name)
+        del x, dy, dh_last, args, y, h_last, h_chk, yp, hp
+    split = _scan_split()
+    decode = _scan_decode()
+    _free_device_memory()
+    if failed or not split["ok"] or not decode["ok"]:
+        raise AssertionError(f"scan kernels vs plain failed: {failed}, "
+                             f"split {split['ok']}, decode {decode['ok']}")
+    return dict(cases=results, split=split, decode=decode)
+
+
+@torch.no_grad()
+def _scan_split():
+    """Prefill of S - 8 steps, then 8 one-step launches carrying the state
+    (the decode path), against one launch over all S: within the
+    reference's limits, and whether bitwise."""
+    b, s, din = 4, 512, 16384
+    x, _, _ = _scan_inputs(b, s, din, torch.bfloat16, seed=11)
+    args = [x[k] for k in _SCAN_ARGS]
+    full, h_full, _ = SCAN.scan_fwd_cuda(*args, 512, keep_states=False)
+    p = s - 8
+
+    def part(lo, hi, h0):
+        sl = {k: (v[:, lo:hi].contiguous() if k in ("u", "dt", "B", "C", "z")
+                  else v) for k, v in x.items()}
+        sl["h0"] = h0
+        return SCAN.scan_fwd_cuda(*(sl[k] for k in _SCAN_ARGS), 512,
+                                  keep_states=False)[:2]
+    ys, h = [], x["h0"]
+    y, h = part(0, p, h)
+    ys.append(y)
+    for t in range(p, s):
+        y, h = part(t, t + 1, h)
+        ys.append(y)
+    got = torch.cat(ys, 1)
+    ok = bool(torch.allclose(got.float(), full.float(), **SCAN_SPLIT_TOL)
+              and torch.allclose(h, h_full, **SCAN_SPLIT_TOL))
+    line = dict(B=b, prefill=p, decode_steps=s - p, Din=din,
+                max_abs_err=float((got.float() - full.float()).abs().max()),
+                state_max_abs_err=float((h - h_full).abs().max()),
+                bitwise=bool(torch.equal(got, full) and torch.equal(h, h_full)),
+                ok=ok)
+    print("[kernel-check] scan split " + json.dumps(line), flush=True)
+    return line
+
+
+@torch.no_grad()
+def _scan_decode():
+    """The decode step at the serve shape (S = 1, a carried state) against
+    plain, and its time."""
+    b, din = SCAN_DECODE
+    x, _, _ = _scan_inputs(b, 1, din, torch.bfloat16, seed=12)
+    args = [x[k] for k in _SCAN_ARGS]
+    y, h, _ = SCAN.scan_fwd_cuda(*args, 512, keep_states=False)
+    yp, hp = SCAN.selective_scan_plain(*args)
+    err = dict(y=_scan_err(y, yp), h_last=_scan_err(h, hp))
+    ok = err["y"] <= SCAN_TOL[torch.bfloat16] and err["h_last"] <= SCAN_TOL[
+        torch.float32]
+    ms = _queued_ms(lambda: SCAN.scan_fwd_cuda(*args, 512,
+                                               keep_states=False))
+    plain_ms = _ms(lambda: SCAN.selective_scan_plain(*args), reps=20)
+    moved = b * din * (4 + 4 + 2 + 2 + 2 * 4 * SCAN.STATE) + din * (
+        SCAN.STATE + 1) * 4 + 2 * b * SCAN.STATE * 4
+    bound = _bound(moved, SCAN_FWD_FLOPS * b * din * SCAN.STATE,
+                   torch.float32)
+    line = dict(B=b, Din=din, err=err, ok=ok, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound[0], bound_by=bound[1])
+    print("[kernel-check] scan decode " + json.dumps(line), flush=True)
+    return line
+
+
+def _scan_bound(b, s, din, backward, z_bytes=2):
+    """Least time for the scan at (b, s, din): each input read once and
+    each output written once (forward: u, dt, z, B, C, A, D, h0 in; y,
+    h_last and the kept states out; backward: those and dy in, du, ddt, dz,
+    dA, dB, dC, dD out), against SCAN_{FWD,BWD}_FLOPS a state a step at
+    the fp32 rate."""
+    n = SCAN.STATE
+    per_tok = b * s * din
+    states = b * din * n * 4
+    if backward:
+        moved = per_tok * (4 + 4 + 2 * z_bytes + 4 + 4 + z_bytes) + 4 * (
+            b * s * n * 4) + 2 * din * (n + 1) * 4 + states * (
+            2 + SCAN.n_chunks(s, SCAN_TRAIN[3]))
+        flops = SCAN_BWD_FLOPS * per_tok * n
+    else:
+        moved = per_tok * (4 + 4 + 2 * z_bytes) + 2 * b * s * n * 4 + din * (
+            n + 1) * 4 + states * (2 + SCAN.n_chunks(s, SCAN_TRAIN[3]))
+        flops = SCAN_FWD_FLOPS * per_tok * n
+    return _bound(moved, flops, torch.float32)
+
+
+def time_scan(scan_check, launches):
+    """The three scan kernels at the train slice's mamba shape (and the
+    forward at the serve prefill's), beside the plain version's times that
+    ``check_scan`` took there (its ``jamba_layer`` case) and, for the fold,
+    ``torch.sum`` of each partial — the ``{"kernels": ...}`` entries."""
+    b, s, din, chunk = SCAN_TRAIN
+    jamba = {c["case"]: c for c in scan_check["cases"]}["jamba_layer"]
+    assert (jamba["B"], jamba["S"], jamba["Din"], jamba["chunk"]) == SCAN_TRAIN
+    plain_fwd_ms = jamba["plain_ms"]
+    plain_bwd_ms = jamba["plain_grads_ms"] - plain_fwd_ms
+    x, dy, _ = _scan_inputs(b, s, din, torch.bfloat16, seed=13)
+    args = [x[k] for k in _SCAN_ARGS]
+    with torch.no_grad():
+        fwd_ms = _ms(lambda: SCAN.scan_fwd_cuda(*args, chunk), reps=5)
+        _, _, h_chk = SCAN.scan_fwd_cuda(*args, chunk)
+        bwd_ms = _ms(lambda: SCAN.scan_bwd_partials_cuda(
+            *args, dy, h_chk, chunk), reps=5)
+        part = SCAN.scan_bwd_partials_cuda(*args, dy, h_chk, chunk)
+        fold_ms = _queued_ms(lambda: SCAN.scan_fold_cuda(part[4], part[5]),
+                             reps=20)
+        fold_library_ms = _queued_ms(lambda: (part[4].sum(1),
+                                              part[5].sum(0)), reps=20)
+    plain_fold_ms = _ms(lambda: SCAN.fold_plain(part[4], part[5]), reps=3)
+    fold_moved = (part[4].numel() + part[5].numel()) * 4 + (
+        b * s * 2 * SCAN.STATE + din * (SCAN.STATE + 1)) * 4
+    fold_bound = _bound(fold_moved, part[4].numel() + part[5].numel(),
+                        torch.float32)
+    pb, ps = 4, 512
+    xp, _, _ = _scan_inputs(pb, ps, din, torch.bfloat16, seed=14)
+    argsp = [xp[k] for k in _SCAN_ARGS]
+    with torch.no_grad():
+        prefill_ms = _ms(lambda: SCAN.scan_fwd_cuda(
+            *argsp, chunk, keep_states=False), reps=5)
+    del x, dy, args, h_chk, part, xp, argsp
+    _free_device_memory()
+    src = "src/repro_torch/kernels/csrc/selective_scan.cu"
+    rep = ("no TPU kernel: XLA lax.scan/associative_scan "
+           "(src/repro/models/mamba.py:64-89, decode :116-125)")
+    path = (f"train step (B={b}, S={s}): forward twice a mamba layer "
+            f"(remat), backward and fold once")
+    kernels = [
+        _entry("selective_scan_fwd", src, rep, launches["scan_fwd"], path,
+               jamba["max_abs_err_y"], fwd_ms, plain_fwd_ms,
+               _scan_bound(b, s, din, False), None),
+        _entry("selective_scan_bwd", src, rep, launches["scan_bwd"], path,
+               jamba["max_abs_err_grads"], bwd_ms, plain_bwd_ms,
+               _scan_bound(b, s, din, True), None),
+        _entry("selective_scan_fold", src, rep + "; the backward's sums",
+               launches["scan_fold"], path,
+               0.0 if jamba["bitwise"]["fold_vs_plain"] else float("nan"),
+               fold_ms, plain_fold_ms,
+               fold_bound, fold_library_ms)]
+    for k in kernels[:2]:
+        k["library_note"] = "none: no single PyTorch call computes it"
+    kernels[2]["library_note"] = ("torch.sum over each partial: "
+                                  "bc_part.sum(1) + ad_part.sum(0)")
+    kernels[0].update(prefill_ms=prefill_ms, prefill_shape=[pb, ps, din],
+                      decode_ms=scan_check["decode"]["ms"],
+                      decode_bound_ms=scan_check["decode"]["bound_ms"])
+    print(f"[timing] selective_scan_fwd at the serve prefill ({pb}, {ps}, "
+          f"{din}): {prefill_ms:.4f} ms; decode step ({SCAN_DECODE[0]}, 1, "
+          f"{din}): {scan_check['decode']['ms']:.4f} ms", flush=True)
+    return kernels
+
+
 def library_m_invariance():
     """A finding, not a check: whether ``torch.matmul`` (bf16, and fp32 as
     the training path's ``layers.dot`` calls it), ``F.layer_norm`` and
@@ -2992,6 +3371,48 @@ def run_serve_moe(label="serve-moe"):
         refusal=refusal)), flush=True)
     if "MoE capacity routing is batch-coupled" not in refusal:
         raise AssertionError(f"the paged engine refused with {refusal!r}")
+    return out
+
+
+def run_serve_jamba(label="serve-jamba"):
+    """``SERVE_JAMBA`` through the static engine as :func:`run_slice`
+    drives StableLM: greedy twice (bitwise), the causal forward once for
+    its attention layer and the scan forward once a Mamba layer in the
+    prefill and in each decode step, prefill logits against the plain
+    attention and plain scan with the router's choices pinned; then
+    ``launch.serve --engine continuous --arch`` Jamba must raise the paged
+    engine's refusal (its SSM states are unpaged)."""
+    _free_device_memory()
+    out = run_slice(SERVE_JAMBA, label)
+    _free_device_memory()
+    argv = ["--engine", "continuous", "--arch", SERVE_JAMBA["arch"],
+            "--reduced"]
+    try:
+        launch_serve.main(argv)
+    except NotImplementedError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError(f"launch.serve {' '.join(argv)} served a Mamba "
+                             f"arch on the paged engine")
+    print(f"[{label}-refusal] " + json.dumps(dict(
+        entry="repro_torch.launch.serve.main " + " ".join(argv),
+        refusal=refusal)), flush=True)
+    if "SSM states are unpaged" not in refusal:
+        raise AssertionError(f"the paged engine refused with {refusal!r}")
+    return out
+
+
+def run_train_jamba(label="train-jamba"):
+    """Jamba's (mamba, attn) cut at full width through the train launcher
+    as :func:`run_train` drives it (``TRAIN_JAMBA_ARGV``): two runs with
+    equal digest chains and fingerprints, the launches a step (the scan's
+    forward twice, its backward and fold once for the Mamba layer; the
+    flash kernels for the attention layer), step 1 at S=1024 within
+    ``LOSS_RTOL``/``GNORM_RTOL`` of the plain attention and plain scan."""
+    _free_device_memory()
+    out = run_train(TRAIN_JAMBA_ARGV, label,
+                    compare_argv=TRAIN_JAMBA_COMPARE_ARGV)
+    _free_device_memory()
     return out
 
 
@@ -3415,7 +3836,7 @@ def _crash_restore(base, spec_k, lens, prompts):
 def run_serve_chaos(base, label="serve-chaos"):
     """Faults on ``[serve-continuous]``'s traffic at full width: (a) the
     launcher's ``--chaos 1`` (seeded pool exhaustion, slot revocations,
-    decode stalls); (b) a crash at engine step 7 with a snapshot every 3
+    decode stalls); (b) a crash at engine step 7 with a snapshot every 6
     steps, restored through ``ContinuousEngine.from_snapshot`` (the first
     4 requests); (c) the same with ``spec_k=4`` (all 8). Every request
     bitwise the fault-free run's, tokens
@@ -3490,8 +3911,8 @@ def run_chaos_matrix(label="chaos-matrix"):
 
 
 def run_train_chaos(label="train-chaos"):
-    """The train launcher at the lifecycle geometry (full width, 2 layers,
-    B=2, S=1024, 4 steps) with ``--chaos 3`` and a checkpoint every step on
+    """The train launcher at full width cut to 2 layers (B=2, S=1024, 3
+    steps) with ``--chaos 3`` and a checkpoint every step on
     ``CKPT_ROOT``, against the same steps unarmed and without checkpoints:
     equal digest chains (neither the saves nor the faults touch the state),
     every planned IO failure landed and absorbed by the writer's retry
@@ -3499,8 +3920,9 @@ def run_train_chaos(label="train-chaos"):
     a worker backward and a fold a layer and one fingerprint (``--verify``)
     a step."""
     layers = int(TRAIN_CHAOS_ARGV[TRAIN_CHAOS_ARGV.index("--layers") + 1])
-    want = dict(fwd_causal=2 * layers, fwd_full=0, fwd_mask=0,
-                bwd_worker=layers, bwd_serial=0, fold=layers, fingerprint=1)
+    steps = int(TRAIN_CHAOS_ARGV[TRAIN_CHAOS_ARGV.index("--steps") + 1])
+    want = dict(_no_launches(), fwd_causal=2 * layers, bwd_worker=layers,
+                fold=layers, fingerprint=1)
     runs = {}
     t0 = time.perf_counter()
     runs["unarmed"] = dict(launch_train.main(TRAIN_CHAOS_ARGV),
@@ -3513,7 +3935,7 @@ def run_train_chaos(label="train-chaos"):
         runs["armed"] = dict(summary, seconds=time.perf_counter() - t0)
     finally:
         shutil.rmtree(d, ignore_errors=True)
-    plan = FaultPlan.seeded_ckpt(TRAIN_CHAOS_SEED, steps=4, every=1,
+    plan = FaultPlan.seeded_ckpt(TRAIN_CHAOS_SEED, steps=steps, every=1,
                                  rate=0.5, max_failures=CK.IO_RETRIES,
                                  name=f"train-chaos-{TRAIN_CHAOS_SEED}")
     a, b_ = runs["unarmed"], runs["armed"]
@@ -3535,7 +3957,7 @@ def run_train_chaos(label="train-chaos"):
     if (b_["chaos_plan"] != plan.key() or not plan.faults
             or b_["chaos_faults_landed"] != sum(f.arg for f in plan.faults)
             or max(f.arg for f in plan.faults) > CK.IO_RETRIES
-            or line["saves"] != 4):
+            or line["saves"] != steps):
         raise AssertionError(f"train chaos: {line}")
     if any(c != want for r in (a, b_) for c in r["launches"]):
         raise AssertionError(f"a train-chaos step launched other than "
@@ -3854,6 +4276,8 @@ def _main(t0, tune_root):
     lap("kernel-check gqa")
     fp_check = check_fingerprint()
     lap("kernel-check fingerprint")
+    scan_check = check_scan()
+    lap("kernel-check scan")
     library_m_invariance()
     serve = run_slice()
     serve_window = run_slice(SLICE_WINDOW, "slice-window")
@@ -3873,7 +4297,8 @@ def _main(t0, tune_root):
     _free_device_memory()
     nemotron = run_serve_nemotron()
     lap("serve-nemotron")
-    _free_device_memory()
+    serve_jamba = run_serve_jamba()
+    lap("serve-jamba")
     _tune_cache(tune_root, "train")
     train = run_train()
     lap("train")
@@ -3891,6 +4316,8 @@ def _main(t0, tune_root):
     lap("train-window")
     train_moe = run_train_moe()
     lap("train-moe")
+    train_jamba = run_train_jamba()
+    lap("train-jamba")
     op_paths = run_ops()
     tune = run_tune(tune_root)
     lap("ops+tune")
@@ -3909,6 +4336,7 @@ def _main(t0, tune_root):
     kernels += time_backward(bwd_check, launches)
     kernels += time_masks(mask_check, window_launches)
     kernels += time_serve(continuous, paged_check, gemm_check, rows_check)
+    kernels += time_scan(scan_check, train_jamba["launches_per_step"])
     lap("timing")
     kernels.append(dict(
         name="fingerprint", route="cuda",
@@ -3949,6 +4377,10 @@ def _main(t0, tune_root):
           f"{', '.join(r['arch'] for r in serve_moe)} served bitwise on the "
           f"static engine; {nemotron['arch']} on the continuous engine "
           f"bitwise at {len(nemotron['runs'])} slot counts; "
+          f"{serve_jamba['arch']} served {serve_jamba['layers']} layers "
+          f"bitwise ({serve_jamba['scan_launches']} scan launches) and "
+          f"trained {train_jamba['layers']} twice to one digest chain at "
+          f"{train_jamba['steady_step_ms']:.1f} ms a step; "
           f"{time.perf_counter() - t0:.1f}s in all",
           flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -4,7 +4,8 @@
     python3 scripts/adamw_slice_cost.py
 
 StableLM-1.6B at full width and depth, ``chip_smoke.py``'s ``[train]``
-flags (B=4, S=1024, the DASH kernels, random weights from seed 0). Three
+flags without their ``--layers`` cut (B=4, S=1024, the DASH kernels,
+random weights from seed 0). Three
 settings of ``train/optimizer.py``'s ``UPDATE_WHOLE``: ``whole`` (the
 default: every leaf of the model is updated in one call), ``mlp_sliced``
 (2^28: the three MLP stacks, 2^28.04 elements each, are updated in slices
@@ -39,6 +40,8 @@ STEPS, UPDATES = 3, 5
 SETTINGS = {"whole": O.UPDATE_WHOLE, "mlp_sliced": 1 << 28,
             "sliced": O.UPDATE_SLICE}
 ORDER = ("whole", "mlp_sliced", "sliced", "sliced", "mlp_sliced", "whole")
+_CUT = C.TRAIN_ARGV.index("--layers")
+TRAIN_ARGV = C.TRAIN_ARGV[:_CUT] + C.TRAIN_ARGV[_CUT + 2:]
 
 
 def _ms(fn):
@@ -54,7 +57,7 @@ def main():
         print("adamw_slice_cost: needs a CUDA card", file=sys.stderr)
         return 2
     C.phase_build()
-    args, cfg, tcfg, data, device = launch_train.configure(C.TRAIN_ARGV)
+    args, cfg, tcfg, data, device = launch_train.configure(TRAIN_ARGV)
     state = TS.init_state(cfg, tcfg, seed=args.seed, device=device)
     step = TS.make_train_step(cfg, tcfg)
     batch = data.batch(0)

@@ -2,8 +2,8 @@
 
 The port's counterpart of ``repro.configs.base.ModelConfig``, holding the
 fields of the features the port implements so far (decoder-only stacks of
-attention and mixture-of-experts blocks); fields for other families arrive
-with them. Two changes from the reference: ``dtype`` is a torch dtype, and
+attention, mixture-of-experts and Mamba blocks); fields for other families
+arrive with them. Two changes from the reference: ``dtype`` is a torch dtype, and
 ``attention_impl`` names the port's implementations — ``"torch"`` (plain
 PyTorch attention, counterpart of ``"xla"``) and ``"cuda"`` (the
 hand-written DASH kernels, counterpart of ``"pallas"``).
@@ -19,7 +19,8 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | moe (the families ported so far)
+    family: str                    # dense | moe | hybrid (the families ported
+                                   # so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -31,6 +32,9 @@ class ModelConfig:
     qkv_bias: bool = False
     rope_theta: float = 10_000.0
     rope_pct: float = 1.0
+    pos_embed: str = "rope"        # rope | none (rotary iff rope_pct > 0 in
+                                   # both); "learned" (Whisper) is refused
+                                   # by the model until ROADMAP A8 ports it
     norm: str = "rmsnorm"          # rmsnorm | layernorm
     activation: str = "silu"
     attention_impl: str = "torch"  # torch | cuda (DASH kernels)
@@ -52,6 +56,17 @@ class ModelConfig:
     moe_impl: str = "einsum"       # einsum (one-hot dispatch) | gather
     moe_groups: int = 1            # >1: split seq into token-parallel
                                    # dispatch groups (when they divide it)
+    # ssm
+    ssm_expand: int = 2
+    ssm_state_dim: int = 16
+    ssm_conv: int = 4
+    ssm_chunk: int = 512           # steps between the scan states the
+                                   # forward keeps for the backward
+                                   # (kernels/scan.py), which recomputes the
+                                   # states in between: memory, never
+                                   # results (the reference's chunked
+                                   # association; the port's scan is
+                                   # sequential at every value)
     # structure
     block_pattern: Tuple[str, ...] = ("attn",)
     # numerics
@@ -91,6 +106,7 @@ class ModelConfig:
             d_ff=256 if self.d_ff else 0, vocab=512, vocab_pad=128,
             n_experts=4 if self.n_experts else 0,
             top_k=min(self.top_k, 2) if self.top_k else 0,
+            ssm_chunk=32,
         )
         small.update(kw)
         return self.replace(**small)

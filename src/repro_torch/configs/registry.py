@@ -14,6 +14,7 @@ ARCHS = [
     "mistral_nemo_12b",
     "phi3_5_moe",
     "llama4_scout",
+    "jamba_1_5_large",
     "dash_paper",
 ]
 
@@ -24,6 +25,7 @@ ALIASES = {
     "mistral-nemo-12b": "mistral_nemo_12b",
     "phi3.5-moe-42b-a6.6b": "phi3_5_moe",
     "llama4-scout-17b-a16e": "llama4_scout",
+    "jamba-1.5-large-398b": "jamba_1_5_large",
     "dash-paper": "dash_paper",
 }
 

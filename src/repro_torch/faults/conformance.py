@@ -24,7 +24,7 @@ request's token sha256; the report's ``work`` sums what every engine of the
 matrix dispatched (:func:`engine_work`), which ``chip_smoke.py`` holds the
 kernels' launch counts to. :func:`run_matrix` takes the reference's reduced
 StableLM by default; ``reduced=False`` with ``overrides`` runs the published
-widths cut as the overrides say (``chip_smoke.py``: 2 layers on the card).
+widths cut as the overrides say (``chip_smoke.py``: 1 layer on the card).
 
     PYTHONPATH=src python -m repro_torch.faults.conformance --device cpu \\
         --reduced --out chaos_conformance.json

@@ -32,6 +32,7 @@ from repro_torch.kernels import flash_bwd as FB
 from repro_torch.kernels import fingerprint as FP
 from repro_torch.kernels import flash_fwd as FF
 from repro_torch.kernels import ref as ref_mod
+from repro_torch.kernels import scan as SC
 from repro_torch.kernels.flash_bwd import flash_bwd
 from repro_torch.kernels.flash_fwd import flash_fwd
 from repro_torch.kernels.gqa import validate_group
@@ -47,7 +48,8 @@ def launch_counts():
     return dict(fwd_causal=FF.launches, fwd_full=FF.launches_full,
                 fwd_mask=FF.launches_mask, bwd_worker=FB.launches_worker,
                 bwd_serial=FB.launches_serial, fold=FB.launches_fold,
-                fingerprint=FP.launches)
+                fingerprint=FP.launches, scan_fwd=SC.launches_fwd,
+                scan_bwd=SC.launches_bwd, scan_fold=SC.launches_fold)
 
 
 def _flatten(x):  # (B, H, S, D) -> (BH, S, D)

@@ -15,12 +15,18 @@ KV, on the card.
     PYTHONPATH=src python -m repro_torch.launch.serve --engine continuous \
         --arch nemotron-4-15b --reduced --device cpu --requests 8 --slots 4 \
         --prompt-len 64 --gen 8
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch jamba-1.5-large-398b --reduced --device cpu --prompt-len 128 \
+        --gen 8
 
 ``--arch`` takes every ported arch (``configs/registry.py``). The
 mixture-of-experts archs (``phi3.5-moe-42b-a6.6b``,
-``llama4-scout-17b-a16e``) serve on the static engine only: with
-``--engine continuous`` they raise the paged engine's refusal, as in the
-reference (capacity routing couples the rows of a batch).
+``llama4-scout-17b-a16e``) and Jamba (``jamba-1.5-large-398b``) serve on
+the static engine only: with ``--engine continuous`` they raise the paged
+engine's refusal before any weights are made, as in the reference
+(capacity routing couples the rows of a batch; SSM states are unpaged).
+On the card Jamba's scan runs ``csrc/selective_scan.cu``, in the prefill
+and in every decode step (S = 1, the carried state).
 
 Weights are random, from ``--seed``. On the card the prefill attention is
 the causal DASH forward kernel (``attention_impl="cuda"``), or with

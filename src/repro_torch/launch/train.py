@@ -20,11 +20,19 @@
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch llama4-scout-17b-a16e --reduced --device cpu --steps 2 \
         --batch 2 --seq 128 --verify
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch jamba-1.5-large-398b --layers 0,4 --batch 1 --seq 4096 \
+        --steps 3 --warmup-steps 1 --log-every 1 --verify
 
 ``--arch`` takes every ported arch (``configs/registry.py``), the
 mixture-of-experts ones too (their aux loss enters the objective, weighted
-by ``moe_aux_weight``, and is logged as ``aux``); ``--layers`` cuts the
-depth and keeps the widths.
+by ``moe_aux_weight``, and is logged as ``aux``), and Jamba's hybrid of
+Mamba, MoE and attention blocks (on the card its scan runs
+``csrc/selective_scan.cu``). ``--layers`` cuts the depth and keeps the
+widths: ``N`` (a multiple of the block pattern's length) keeps the first N
+layers; a comma-separated list of positions in the pattern keeps one layer
+of each of those kinds, in order (``0,4``: Jamba's first ``mamba`` and its
+``attn`` layer).
 
 Weights are random, from ``--seed``; data is the synthetic source
 (``data.pipeline.SyntheticLM``, a pure function of (seed, step)) or, with
@@ -121,6 +129,26 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def cut_layers(cfg, spec: str):
+    """``cfg`` cut in depth by ``--layers``: ``"N"`` keeps the first N
+    layers (N a positive multiple of the pattern's length); ``"I,J,..."``
+    keeps one layer at each of those positions of the pattern, in order,
+    as a pattern of its own repeated once."""
+    pattern = cfg.block_pattern
+    if "," not in spec:
+        n = int(spec)
+        if n < 1 or n % len(pattern):
+            raise ValueError(f"--layers must be a positive multiple of "
+                             f"{len(pattern)}")
+        return cfg.replace(n_layers=n)
+    pos = [int(i) for i in spec.split(",")]
+    if any(not 0 <= i < len(pattern) for i in pos):
+        raise ValueError(f"--layers positions must lie in [0, "
+                         f"{len(pattern)}): got {pos}")
+    return cfg.replace(n_layers=len(pos),
+                       block_pattern=tuple(pattern[i] for i in pos))
+
+
 def configure(argv=None):
     """Parse the flags and build what a run needs: (args, cfg, tcfg, data,
     device). :func:`main` runs exactly these, so a caller that checks the
@@ -128,9 +156,10 @@ def configure(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="stablelm-1.6b")
     ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--layers", type=int, default=None, metavar="N",
-                    help="cut the model to N layers (depth only; the widths "
-                         "stay the config's)")
+    ap.add_argument("--layers", default=None, metavar="N|I,J,...",
+                    help="cut the model to N layers, or to the pattern's "
+                         "layers at positions I, J, ... (depth only; the "
+                         "widths stay the config's)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
@@ -218,10 +247,10 @@ def configure(argv=None):
     if args.reduced:
         cfg = cfg.reduced()
     if args.layers is not None:
-        if args.layers < 1 or args.layers % len(cfg.block_pattern):
-            ap.error(f"--layers must be a positive multiple of "
-                     f"{len(cfg.block_pattern)}")
-        cfg = cfg.replace(n_layers=args.layers)
+        try:
+            cfg = cut_layers(cfg, args.layers)
+        except ValueError as e:
+            ap.error(str(e))
     cfg = cfg.replace(attention_impl="cuda" if device.type == "cuda"
                       else "torch")
     if args.attn_window is not None:

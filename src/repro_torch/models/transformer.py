@@ -1,4 +1,5 @@
-"""Model assembly for decoder-only LMs of ``attn`` and ``attn_moe`` blocks.
+"""Model assembly for decoder-only LMs of ``attn``, ``attn_moe``, ``mamba``
+and ``mamba_moe`` blocks.
 
 Counterpart of ``repro.models.transformer``. Parameters keep the reference's
 tree: per pattern position ``b{i}_{kind}`` a stack of ``(n_repeats, ...)``
@@ -6,7 +7,9 @@ leaves, walked here by a Python loop over the repeats (the reference scans).
 An ``attn`` block is attention then an MLP; an ``attn_moe`` block has the
 mixture-of-experts FFN (``models/moe.py``, ``cfg.moe_impl``) in place of the
 MLP, plus a shared MLP on the same normed input when
-``cfg.n_shared_experts`` (Llama-4). The blocks' aux losses are summed in fp32
+``cfg.n_shared_experts`` (Llama-4). A ``mamba`` block is the selective SSM
+(``models/mamba.py``) then an MLP, ``mamba_moe`` the SSM then the
+mixture-of-experts FFN (Jamba). The blocks' aux losses are summed in fp32
 in pattern-then-repeat order, as the reference's scan carry sums them.
 
 Entry modes:
@@ -15,15 +18,16 @@ Entry modes:
                 ``jax.checkpoint`` on the scan body, with the reference's
                 ``remat_policy``);
   loss_fn:      next-token cross-entropy over ``forward``;
-  prefill_step: prompt processing that also fills the KV caches;
+  prefill_step: prompt processing that also fills the caches (KV for
+                attention, the conv and SSM states for Mamba);
   decode_step:  one-token step over the caches (updated in place);
   paged_step:   the continuous engine's step over paged KV pools (a prefill
                 chunk or a batched one-token decode), always under the
                 canonical reduction scope (``dist/fold.py``); attention-only
                 patterns, as in the reference (MoE capacity routing couples
                 the rows of a batch).
-Other block kinds (SSM, xLSTM, cross-attention) raise
-``NotImplementedError``.
+Other block kinds (xLSTM, cross-attention) and learned position
+embeddings raise ``NotImplementedError``.
 
 ``cfg.canonical_reductions = N`` runs ``forward`` in serve-canonical mode:
 the paged attention walk over N-token pages and the canonical folds, so its
@@ -36,14 +40,16 @@ one layer: ``"none"`` recomputes everything; ``"dots"`` and ``"names"`` run a
 selective-checkpoint policy over the dispatched ops — ``"dots"`` saves every
 matrix product's output (the reference's ``dots_saveable``), ``"names"`` only
 the tensors the reference tags with ``checkpoint_name``: ``attn_out`` (the
-residual after attention) and ``ffn_in`` (the MLP's normed input);
-``ssm_out`` comes with the SSM blocks (ROADMAP A8). A policy decides what is
+residual after attention), ``ffn_in`` (the MLP's normed input) and
+``ssm_out`` (the residual after a Mamba mixer). A policy decides what is
 *kept*; the backward still re-runs the layer's Python code, and a saved op
 returns its kept output instead of computing again. The DASH forward is a
 ``torch.autograd.Function`` whose kernel launch is no dispatched op, so it is
 recomputed under every policy: with ``remat`` a train step launches the
 attention forward twice a layer for ``"none"``, ``"dots"`` and ``"names"``
-alike (once without remat), the backward kernels once.
+alike (once without remat), the backward kernels once. The selective scan
+(``kernels/scan.py``) is such a Function too: its forward twice a Mamba
+layer, its backward and fold once.
 """
 from __future__ import annotations
 
@@ -54,29 +60,40 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch import resolve_device
 from repro_torch.dist import fold
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as MB
 from repro_torch.models import moe as MOE
 from repro_torch.models.module import init_tree, stacked, tree_paths
 
 F32 = torch.float32
 
 
-BLOCK_KINDS = ("attn", "attn_moe")
+BLOCK_KINDS = ("attn", "attn_moe", "mamba", "mamba_moe")
+POS_EMBEDS = ("rope", "none")
 
 
 def check_supported(cfg) -> None:
-    """Raise for a block pattern this port does not cover yet."""
+    """Raise for a block pattern or position embedding this port does not
+    cover yet."""
     if any(k not in BLOCK_KINDS for k in cfg.block_pattern):
         raise NotImplementedError(
             f"{cfg.name}: block pattern {cfg.block_pattern} is not ported yet "
             f"(ROADMAP A8, 'Other model families')")
+    if cfg.pos_embed not in POS_EMBEDS:
+        raise NotImplementedError(
+            f"{cfg.name}: pos_embed={cfg.pos_embed!r} is not ported yet "
+            f"(ROADMAP A8: learned position embeddings come with Whisper)")
 
 
 def _block_defs(cfg, kind: str):
-    d = {"ln1": L.norm_defs(cfg), "attn": L.attn_defs(cfg),
-         "ln2": L.norm_defs(cfg)}
-    if kind == "attn_moe":
+    if kind.startswith("mamba"):
+        d = {"ln1": L.norm_defs(cfg), "mamba": MB.mamba_defs(cfg),
+             "ln2": L.norm_defs(cfg)}
+    else:
+        d = {"ln1": L.norm_defs(cfg), "attn": L.attn_defs(cfg),
+             "ln2": L.norm_defs(cfg)}
+    if kind.endswith("_moe"):
         d["moe"] = MOE.moe_defs(cfg)
-        if cfg.n_shared_experts:
+        if cfg.n_shared_experts and kind == "attn_moe":
             d["shared_mlp"] = L.mlp_defs(cfg)
     else:
         d["mlp"] = L.mlp_defs(cfg)
@@ -175,14 +192,26 @@ def _identity_name(x, tag):
 
 def _apply_block(p, x, cfg, *, positions, cache=None, cache_pos=None,
                  segment_ids=None, name=_identity_name, paged=None):
-    """One ``attn`` or ``attn_moe`` block (told apart by its parameters).
-    Returns (x, aux): the MoE's aux loss, or None for an MLP block."""
-    h, _ = L.attention_block(p["attn"], L.apply_norm(p["ln1"], x, cfg), cfg,
-                             positions=positions, cache=cache,
-                             cache_pos=cache_pos, segment_ids=segment_ids,
-                             paged=paged)
-    x = name(x + h, "attn_out")
-    y_in = name(L.apply_norm(p["ln2"], x, cfg), "ffn_in")
+    """One block of any kind in ``BLOCK_KINDS`` (told apart by its
+    parameters). ``cache``: the layer's (k, v) cache for attention, its
+    (conv_state, ssm_state) for Mamba, each updated in place. Returns (x,
+    aux): the MoE's aux loss, or None for an MLP block."""
+    if "mamba" in p:
+        h, new_state = MB.apply_mamba(p["mamba"],
+                                      L.apply_norm(p["ln1"], x, cfg), cfg,
+                                      state=cache)
+        if cache is not None:
+            cache[0].copy_(new_state[0])
+            cache[1].copy_(new_state[1])
+        x = name(x + h, "ssm_out")
+        y_in = L.apply_norm(p["ln2"], x, cfg)
+    else:
+        h, _ = L.attention_block(p["attn"], L.apply_norm(p["ln1"], x, cfg),
+                                 cfg, positions=positions, cache=cache,
+                                 cache_pos=cache_pos, segment_ids=segment_ids,
+                                 paged=paged)
+        x = name(x + h, "attn_out")
+        y_in = name(L.apply_norm(p["ln2"], x, cfg), "ffn_in")
     if "moe" not in p:
         return x + L.apply_mlp(p["mlp"], y_in, cfg), None
     y, aux = MOE.apply(p["moe"], y_in, cfg)
@@ -222,8 +251,8 @@ def _apply_stack(params, x, cfg, *, positions, caches=None, cache_pos=None,
             else:
                 cache = None
                 if caches is not None:
-                    k_all, v_all = caches[key]["attn"]
-                    cache = (k_all[i], v_all[i])
+                    a_all, b_all = next(iter(caches[key].values()))
+                    cache = (a_all[i], b_all[i])
                 x, aux = _apply_block(p, x, cfg, positions=positions,
                                       cache=cache, cache_pos=cache_pos,
                                       segment_ids=segment_ids, paged=paged)
@@ -304,15 +333,28 @@ def loss_fn(params, batch, cfg, *, remat=False, remat_policy="none"):
 
 
 def init_cache(cfg, batch_size: int, max_seq: int, device):
-    """KV caches per pattern position (every ``attn*`` block has one):
-    {"attn": (k, v)}, each (n_repeats, B, max_seq, Hk, D) in cfg.dtype."""
+    """Caches per pattern position, as the reference's: an ``attn*`` block
+    {"attn": (k, v)}, each (n_repeats, B, max_seq, Hk, D) in cfg.dtype; a
+    ``mamba*`` block {"mamba": (conv_state (n_repeats, B, k-1, Din) in
+    cfg.dtype, ssm_state (n_repeats, B, Din, N) fp32)}, all zeros."""
     check_supported(cfg)
     n_rep = cfg.n_layers // len(cfg.block_pattern)
-    shape = (n_rep, batch_size, max_seq, cfg.n_kv_heads, cfg.head_dim)
-    return {f"b{i}_{kind}": {"attn": (
-        torch.zeros(shape, dtype=cfg.dtype, device=device),
-        torch.zeros(shape, dtype=cfg.dtype, device=device))}
-        for i, kind in enumerate(cfg.block_pattern)}
+    d_in, _, d_state, k_conv = MB.mamba_dims(cfg)
+    caches = {}
+    for i, kind in enumerate(cfg.block_pattern):
+        if kind.startswith("mamba"):
+            caches[f"b{i}_{kind}"] = {"mamba": (
+                torch.zeros((n_rep, batch_size, k_conv - 1, d_in),
+                            dtype=cfg.dtype, device=device),
+                torch.zeros((n_rep, batch_size, d_in, d_state), dtype=F32,
+                            device=device))}
+        else:
+            shape = (n_rep, batch_size, max_seq, cfg.n_kv_heads,
+                     cfg.head_dim)
+            caches[f"b{i}_{kind}"] = {"attn": (
+                torch.zeros(shape, dtype=cfg.dtype, device=device),
+                torch.zeros(shape, dtype=cfg.dtype, device=device))}
+    return caches
 
 
 def prefill_step(params, batch, cfg, *, max_seq=None):

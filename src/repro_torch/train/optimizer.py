@@ -89,10 +89,12 @@ def clip_by_global_norm(grads, max_norm: float):
 # a leaf of more than UPDATE_WHOLE elements is updated over slices of
 # UPDATE_SLICE, so that its fp32 temporaries stay ~0.5 GB each however large
 # the leaf (an expert stack of Phi-3.5-MoE holds 2^29.6 elements a layer
-# pair); a smaller leaf in one call, with no copy of the slices into the
-# result (every leaf of StableLM-1.6B: its MLP stacks hold 2^28.04 elements)
+# pair; Jamba's embedding and head 2^29 each, whose whole-leaf temporaries
+# overflow its (mamba, attn) train state's card); a smaller leaf in one
+# call, with no copy of the slices into the result (every leaf of
+# StableLM-1.6B: its MLP stacks hold 2^28.04 elements)
 UPDATE_SLICE = 1 << 27
-UPDATE_WHOLE = 1 << 29
+UPDATE_WHOLE = 3 << 27
 
 
 def _sliced(fn, *leaves):

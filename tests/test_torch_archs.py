@@ -1,8 +1,9 @@
-"""Port parity for the mixture-of-experts family and the non-SiLU MLPs: the
-reduced Phi-3.5-MoE (``attn_moe`` blocks, top-2), Llama-4-Scout (top-1 plus
-a shared MLP) and Nemotron-4-15B (dense, squared ReLU, LayerNorm, half
-rotary) against the reference, with its weights bridged by
-``from_jax_params`` and the same token ids.
+"""Port parity for the mixture-of-experts family, the non-SiLU MLPs and the
+hybrid Mamba family: the reduced Phi-3.5-MoE (``attn_moe`` blocks, top-2),
+Llama-4-Scout (top-1 plus a shared MLP), Nemotron-4-15B (dense, squared
+ReLU, LayerNorm, half rotary) and Jamba-1.5 (one period of ``mamba``,
+``mamba_moe`` and a NoPE ``attn`` block) against the reference, with its
+weights bridged by ``from_jax_params`` and the same token ids.
 
 * the configs equal the reference's on every field they share; the archs
   still waiting for their families raise, naming ROADMAP A8;
@@ -13,9 +14,13 @@ rotary) against the reference, with its weights bridged by
   drops nothing: capacity routing couples the tokens of a call);
 * the static ``Engine``'s greedy tokens equal the reference ``Engine``'s;
 * Nemotron's ``ContinuousEngine`` streams equal the reference's and do not
-  depend on slots or chunking; an MoE arch is refused by the paged path
-  with the reference's reason."""
+  depend on slots or chunking; an MoE or Mamba arch is refused by the
+  paged path with the reference's reason;
+* Jamba: its fp32 ``A_log`` / ``D`` leaves kept fp32 by the bridge and by a
+  reference checkpoint restored in the port, its grads under each remat
+  policy (``"names"`` keeping ``ssm_out``), both launchers."""
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -34,9 +39,9 @@ from repro_torch.models.module import iter_defs
 from repro_torch.serve import engine as TE
 
 MOE_ARCHS = ["phi3.5-moe-42b-a6.6b", "llama4-scout-17b-a16e"]
-ARCHS = MOE_ARCHS + ["nemotron-4-15b"]
-UNPORTED = ["xlstm-350m", "internvl2-1b", "jamba-1.5-large-398b",
-            "whisper-base"]
+JAMBA = "jamba-1.5-large-398b"
+ARCHS = MOE_ARCHS + ["nemotron-4-15b", JAMBA]
+UNPORTED = ["xlstm-350m", "internvl2-1b", "whisper-base"]
 S = 64
 TOLS = {"float32": dict(atol=2e-5, rtol=2e-5),
         "bfloat16": dict(atol=2e-2, rtol=2e-2)}
@@ -44,7 +49,9 @@ GRAD_TOL = dict(atol=5e-5, rtol=5e-5)
 
 
 def _models(arch, dtype="float32", **kw):
-    kw = dict(dtype_name=dtype, n_layers=2, **kw)
+    # two layers, or one period of a longer pattern (Jamba's 8)
+    n_layers = max(2, len(jregistry.get(arch).block_pattern))
+    kw = dict(dtype_name=dtype, n_layers=n_layers, **kw)
     jcfg = jregistry.get(arch).reduced(attention_impl="xla", **kw)
     tcfg = tregistry.get(arch).reduced(attention_impl="torch", **kw)
     jparams = JT.init(jcfg, jax.random.PRNGKey(0))
@@ -128,6 +135,11 @@ def test_bridge_maps_every_leaf(arch):
         assert ours[blk + "moe/router"].dtype == torch.float32
         assert ours[blk + "moe/w_up"].shape == (2, 4, 128, 256)
         assert (blk + "shared_mlp/w_up" in ours) == (arch == MOE_ARCHS[1])
+    elif arch == JAMBA:
+        for leaf in ("A_log", "D"):
+            assert ours[f"blocks/b0_mamba/mamba/{leaf}"].dtype == torch.float32
+        assert ours["blocks/b0_mamba/mamba/in_proj"].dtype == torch.bfloat16
+        assert ours["blocks/b1_mamba_moe/moe/w_up"].shape == (1, 4, 128, 256)
     else:
         assert not [p for p in ours if p.endswith("w_gate")]
 
@@ -169,20 +181,23 @@ def test_forward_and_loss_match_reference(arch, dtype):
                       (tm["aux"], jm["aux"]), (taux, jaux)]:
         assert got.dtype == torch.float32
         np.testing.assert_allclose(float(got), float(want), **TOLS[dtype])
-    assert (float(taux) > 0) == (arch in MOE_ARCHS)
+    assert (float(taux) > 0) == (tcfg.n_experts > 0)
 
 
-@pytest.mark.parametrize("remat", [False, True])
-@pytest.mark.parametrize("arch", ARCHS)
-def test_grads_match_reference(arch, remat):
-    """fp32 grads of ``loss_fn`` (ce + the weighted aux) for every leaf,
-    the router and the experts included; ``remat`` runs each layer under
-    ``torch.utils.checkpoint``, which must carry the aux too."""
+@functools.lru_cache(maxsize=None)
+def _reference_grads(arch):
+    """The reference's fp32 grads of ``loss_fn`` on ``_tokens(1)``, with
+    the models and the batch (computed once an arch)."""
     jcfg, tcfg, jparams, tparams = _models(arch)
     toks = _tokens(1)
     jb = {"tokens": jnp.asarray(toks[:, :-1]), "labels": jnp.asarray(toks[:, 1:])}
     tb = {k: torch.from_numpy(np.array(v)).long() for k, v in jb.items()}
     jg = _flat(jax.grad(lambda p: JT.loss_fn(p, jb, jcfg)[0])(jparams))
+    return tcfg, tparams, tb, jg
+
+
+def _port_grads(tcfg, tparams, tb, **kw):
+    """The port's grads of ``loss_fn`` for every leaf, by path."""
     leaves = {p: t.clone().requires_grad_(True)
               for p, t in _flat(tparams).items()}
     tree = {}
@@ -192,12 +207,47 @@ def test_grads_match_reference(arch, remat):
         for k in parents:
             node = node.setdefault(k, {})
         node[leaf] = t
-    loss, _ = TT.loss_fn(tree, tb, tcfg, remat=remat)
+    loss, _ = TT.loss_fn(tree, tb, tcfg, **kw)
     loss.backward()
-    assert sorted(leaves) == sorted(jg)
-    for p, t in leaves.items():
-        np.testing.assert_allclose(t.grad.numpy(), np.asarray(jg[p]),
+    return {p: t.grad for p, t in leaves.items()}
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_grads_match_reference(arch, remat):
+    """fp32 grads of ``loss_fn`` (ce + the weighted aux) for every leaf,
+    the router and the experts included; ``remat`` runs each layer under
+    ``torch.utils.checkpoint``, which must carry the aux too."""
+    tcfg, tparams, tb, jg = _reference_grads(arch)
+    grads = _port_grads(tcfg, tparams, tb, remat=remat)
+    assert sorted(grads) == sorted(jg)
+    for p, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), np.asarray(jg[p]),
                                    err_msg=p, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("policy", ["dots", "names"])
+def test_jamba_grads_under_remat_policies(policy, monkeypatch):
+    """Jamba's grads under the selective policies equal the reference's;
+    ``"names"`` keeps the ``ssm_out`` tag of each Mamba block (and
+    ``attn_out`` / ``ffn_in`` of its attention block), as the reference's
+    ``save_only_these_names`` does."""
+    tcfg, tparams, tb, jg = _reference_grads(JAMBA)
+    tags = []
+    name = TT._Policy.name
+
+    def spy(self, x, tag):
+        tags.append(tag)
+        return name(self, x, tag)
+    monkeypatch.setattr(TT._Policy, "name", spy)
+    grads = _port_grads(tcfg, tparams, tb, remat=True, remat_policy=policy)
+    for p, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), np.asarray(jg[p]),
+                                   err_msg=p, **GRAD_TOL)
+    # 7 Mamba blocks and 1 attention block, each run forward and again in
+    # the backward's recomputation
+    assert tags.count("ssm_out") == 2 * 7
+    assert tags.count("attn_out") == tags.count("ffn_in") == 2 * 1
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -277,10 +327,12 @@ def test_nemotron_streams_invariant_to_slots_and_chunks(nemotron, kw):
                                       eb.result_logprobs[i])
 
 
-@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("arch", MOE_ARCHS + [JAMBA])
 def test_paged_path_refuses_moe_with_the_references_reason(arch):
     cfg = tregistry.get(arch).reduced()
     reason = "MoE capacity routing is batch-coupled"
+    if arch == JAMBA:
+        reason = r"got \['mamba', 'mamba_moe'.*SSM states are unpaged"
     assert not TT.supports_paged(cfg)
     with pytest.raises(NotImplementedError, match=reason):
         TT.init_paged_cache(cfg, 4, 8, "cpu")
@@ -306,3 +358,58 @@ def test_launchers_take_the_new_archs(capsys):
                            "--seq", "64", "--verify", "--log-every", "1"])
     assert summary["final_step"] == 2 and summary["fingerprint_ok"]
     assert np.isfinite(summary["final_loss"])
+
+
+def test_launchers_take_jamba():
+    from repro_torch.launch import train as ttrain
+    tokens = tlaunch.main(["--arch", JAMBA, "--reduced", "--device", "cpu",
+                           "--prompt-len", "128", "--gen", "4", "--batch",
+                           "2"])
+    assert tuple(tokens.shape) == (2, 4)
+    summary = ttrain.main(["--arch", JAMBA, "--reduced", "--device", "cpu",
+                           "--steps", "2", "--batch", "1", "--seq", "64",
+                           "--verify", "--log-every", "1"])
+    assert summary["final_step"] == 2 and summary["fingerprint_ok"]
+    assert np.isfinite(summary["final_loss"])
+
+
+def test_reference_jamba_checkpoint_restores_in_the_port(tmp_path):
+    """A reduced Jamba train state written by the reference (bf16 params,
+    fp32 ``A_log`` / ``D`` / norms / router, fp32 moments) restores into
+    the port's state tree, every leaf's dtype and digest the reference's;
+    the port's own checkpoint of it restores in the reference."""
+    from repro.ckpt import checkpoint as JC
+    from repro.train import optimizer as JO
+    from repro.train import step as JS
+    from repro_torch.ckpt import checkpoint as C
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import step as S
+    from repro_torch.verify import digest as D
+    jcfg, tcfg = jregistry.get(JAMBA).reduced(), tregistry.get(JAMBA).reduced()
+    opt = dict(total_steps=10)
+    jstate = JS.init_state(jcfg, JS.TrainConfig(opt=JO.OptConfig(**opt)),
+                           jax.random.PRNGKey(1))
+    tstate = S.state_from_params(
+        from_jax_params(jax.tree.map(np.asarray, jstate["params"]), tcfg,
+                        device="cpu"), S.TrainConfig(opt=O.OptConfig(**opt)))
+    JC.save(str(tmp_path / "ref"), 3, jstate)
+    restored = C.restore(str(tmp_path / "ref"), 3,
+                         O.tree_map(torch.zeros_like, tstate))
+    manifest = JC.read_manifest(str(tmp_path / "ref"), 3)
+    leaves = dict(zip(sorted(manifest["arrays"]), O.tree_leaves(restored)))
+    dtypes = {str(leaf.dtype) for leaf in leaves.values()}
+    assert {"torch.float32", "torch.bfloat16"} <= dtypes
+    for key, leaf in leaves.items():
+        assert D.leaf_digest(leaf) == manifest["arrays"][key]["digest"], key
+    mamba = restored["params"]["blocks"]["b0_mamba"]["mamba"]
+    assert mamba["A_log"].dtype == mamba["D"].dtype == torch.float32
+    assert D.tree_digest(restored) == D.tree_digest(
+        jax.tree.map(np.asarray, jstate))
+    C.save(str(tmp_path / "port"), 3, restored)
+    back = JC.restore(str(tmp_path / "port"), 3,
+                      jax.tree.map(jnp.zeros_like, jstate))
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jstate)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(
+            np.atleast_1d(np.asarray(a)).view(np.uint8),
+            np.atleast_1d(np.asarray(b)).view(np.uint8))

@@ -235,6 +235,50 @@ def test_reduced_moe_forward_and_backward_are_bitwise(arch, impl):
     assert abs(float(a[0]) - float(plain)) <= 2e-2 * abs(float(plain))
 
 
+def test_reduced_jamba_forward_and_backward_are_bitwise(monkeypatch):
+    """The reduced Jamba period (7 Mamba layers, 4 of them MoE, and a NoPE
+    attention layer) on the scan and DASH kernels, remat on, twice under
+    deterministic algorithms: loss and every grad bitwise equal, the scan
+    launched as remat predicts (forward twice a Mamba layer, backward and
+    fold once), and within bf16 reach of the plain attention and plain
+    scan's loss."""
+    _card()
+    from repro_torch.kernels import scan as SC
+    cfg = registry.get("jamba-1.5-large-398b").reduced(attention_impl="cuda")
+    params = T.init(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    toks = torch.randint(0, cfg.vocab, (2, 257), device="cuda", generator=gen)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def run(c):
+        tree, leaves = {}, []
+        for path, x in tree_paths(params):
+            leaves.append(x.detach().requires_grad_(True))
+            set_path(tree, path, leaves[-1])
+        loss, m = T.loss_fn(tree, batch, c, remat=True)
+        grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), m["aux"].detach(), grads
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        before = ops.launch_counts()
+        a = run(cfg)
+        after = ops.launch_counts()
+        b = run(cfg)
+        monkeypatch.setattr(SC, "selective_scan",
+                            lambda *x: SC.selective_scan_plain(*x[:8]))
+        plain = run(cfg.replace(attention_impl="torch"))[0]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    launched = {k: after[k] - before[k] for k in after}
+    assert (launched["scan_fwd"], launched["scan_bwd"],
+            launched["scan_fold"]) == (14, 7, 7)
+    assert launched["fwd_causal"] == 2 and launched["bwd_worker"] == 1
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert all(torch.equal(x, y) for x, y in zip(a[2], b[2]))
+    assert abs(float(a[0]) - float(plain)) <= 2e-2 * abs(float(plain))
+
+
 # ------------------------------------------- block-sparse masks (masks slice)
 MASKS = {   # the reference's families at S = 512
     "window": lambda: M.SlidingWindow(192),

@@ -67,7 +67,7 @@ def test_token_stream_digest_invariant_to_host_split(cell):
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda: L.run_train_serve_parity(archs=("jamba-1.5-large-398b",),
+    (lambda: L.run_train_serve_parity(archs=("whisper-base",),
                                       device="cpu"), "A8"),
     (lambda: L.run_train_serve_parity(archs=("xlstm-350m",),
                                       device="cpu"), "A8"),
@@ -89,6 +89,18 @@ def test_parity_cell_refuses_moe_as_the_reference_does():
     with pytest.raises(NotImplementedError,
                        match="MoE capacity routing is batch-coupled"):
         L.run_train_serve_parity(archs=("phi3.5-moe-42b-a6.6b",),
+                                 device="cpu")
+
+
+def test_parity_cell_refuses_jamba_with_the_paged_reason():
+    """Jamba is ported but has no paged path (its SSM states are unpaged):
+    the parity cell raises the paged engine's refusal, not ROADMAP A8, as
+    the reference's engine refuses it."""
+    from repro.verify import lifecycle as JL
+    with pytest.raises(AssertionError, match="attention-only"):
+        JL.run_train_serve_parity(archs=("jamba-1.5-large-398b",))
+    with pytest.raises(NotImplementedError, match="SSM states are unpaged"):
+        L.run_train_serve_parity(archs=("jamba-1.5-large-398b",),
                                  device="cpu")
 
 

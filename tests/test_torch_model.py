@@ -140,13 +140,21 @@ def test_norm_matches_reference(norm):
                                rtol=2e-5)
 
 
+def test_learned_position_embeddings_raise_naming_a8():
+    _, tcfg = _cfgs("float32", "torch", 4)
+    assert tcfg.pos_embed == "rope"
+    TT.param_defs(tcfg.replace(pos_embed="none"))
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        TT.param_defs(tcfg.replace(pos_embed="learned"))
+
+
 def test_unported_configs_raise():
     _, tcfg = _cfgs("float32", "torch", 4)
     with pytest.raises(NotImplementedError, match="not ported"):
-        TT.param_defs(tcfg.replace(block_pattern=("attn", "mamba")))
+        TT.param_defs(tcfg.replace(block_pattern=("attn", "slstm")))
     with pytest.raises(NotImplementedError, match="not ported"):
         TT.forward(TT.init(tcfg, device="cpu"),
                    {"tokens": torch.zeros((1, 128), dtype=torch.long)},
                    tcfg.replace(block_pattern=("mlstm",)))
     with pytest.raises(NotImplementedError, match="not ported"):
-        tregistry.get("jamba-1.5-large-398b")
+        tregistry.get("xlstm-350m")

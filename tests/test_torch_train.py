@@ -251,6 +251,18 @@ def test_only_leaves_above_update_whole_are_sliced(arch, layers, sliced):
     assert TO.UPDATE_SLICE < TO.UPDATE_WHOLE
 
 
+def test_jamba_train_cut_slices_its_embedding_and_head_only():
+    """Jamba's (mamba, attn) train cut at full width: its embedding and
+    head (2^29 elements each) are sliced, every other leaf (the Mamba
+    in_proj 2^28, the MLP stacks) is updated in one call."""
+    from repro_torch.launch.train import cut_layers
+    cfg = cut_layers(tregistry.get("jamba-1.5-large-398b"), "0,4")
+    over = {path for path, d in tree_paths(TT.param_defs(cfg))
+            if math.prod(d.shape) > TO.UPDATE_WHOLE}
+    assert over == {"embed/tok", "lm_head/w"}
+    assert cfg.block_pattern == ("mamba", "attn") and cfg.n_layers == 2
+
+
 def test_synthetic_batches_are_pure_functions_of_seed_and_step(tmp_path):
     cfg = DataConfig(seed=4, batch=4, seq=16, vocab=100)
     src = make_source(cfg)
