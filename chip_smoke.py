@@ -55,7 +55,11 @@ Phases, each reported on its own line:
                and the serve prefill (B=4, S=512), 10 repetitions of each
                kernel bitwise, the fold bitwise its plain version,
                prefill then one-step decodes equal to the full pass and the
-               decode step against plain;
+               decode step against plain; at each of those cases, the split
+               and the decode the kernels also against their first design
+               (``csrc/selective_scan_v1.cu``; ``[kernel-check] scan v1``):
+               ``h_last`` and ``h_chk`` bitwise, y and every gradient
+               within ``SCAN_TOL``;
                and the GQA groups of this slice's models (``[kernel-check]
                gqa``: 40/8 and 48/8 at D=128, S=1024): the causal forward,
                the worker backward with its dQ and dK/dV group folds (each
@@ -247,7 +251,11 @@ Phases, each reported on its own line:
                torch.log_softmax), each serving kernel also beside its
                first design in turns (``v1_ms``), bitwise equal to it at
                every timed shape (the norm also at a prefill chunk's M = 32,
-               the log-softmax at M = 1); the fingerprint's entry is timed
+               the log-softmax at M = 1); the selective scan's forward and
+               backward at the train shape, its forward at the serve prefill
+               (4, 512) and the decode step (4, 1), each beside its first
+               design in turns (``v1_ms``), with ptxas' registers and spills
+               (a spill fails the run); the fingerprint's entry is timed
                in its kernel check, at the full-width train state.
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script exits
@@ -319,6 +327,9 @@ from repro_torch.verify import digest as DG  # noqa: E402
 # H100 SXM, NVIDIA's data sheet (dense, at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# exponentials a second: the special function units (MUFU.EX2) take 16 a
+# clock on each of the 132 SMs of sm_90, at the 1.98 GHz boost clock
+SFU_EXP_PER_S = 132 * 16 * 1.98e9
 
 # |out - plain| <= tol + tol * |plain| (the reference's kernel tolerances)
 OUT_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
@@ -635,6 +646,34 @@ def fwd_resources(ptxas):
     return _ptxas_entries(ptxas, classify)
 
 
+def scan_resources(built=None):
+    """Per scan kernel instantiation (``csrc/selective_scan.cu`` and its
+    first design ``selective_scan_v1.cu``; forward, backward, fold; fp32 and
+    bf16 z): registers and spilled bytes, with the redesign's dynamic shared
+    memory."""
+    built = built or build.build(["selective_scan", "selective_scan_v1"])
+    layout = SCAN.layout()
+    out = []
+    for source in ("selective_scan", "selective_scan_v1"):
+        def classify(name, source=source):
+            found = re.search(r"scan_(fwd|bwd|fold)_kernel", name)
+            if found is None:
+                return None
+            kind = found.group(1)
+            bf16 = "bfloat16" in name
+            entry = dict(source=source, kernel=kind,
+                         dtype="bfloat16" if bf16 else "float32")
+            if source == "selective_scan" and kind != "fold":
+                dt = "bf16" if bf16 else "fp32"
+                entry.update(lanes=layout["lanes"], stages=layout[
+                    "stages" if kind == "fwd" else f"bwd_stages_{dt}"],
+                    threads=layout["threads"],
+                    smem_bytes=layout[f"{kind}_smem_{dt}"])
+            return entry
+        out += _ptxas_entries(built[source]["ptxas"], classify)
+    return out
+
+
 def phase_build():
     t0 = time.perf_counter()
     built = build.build()
@@ -651,6 +690,8 @@ def phase_build():
     for k in kernels:
         k["launched_by_slices"] = (k["dtype"], k["head_dim"]) == (
             "bfloat16", 64)
+        print("[ptxas] " + json.dumps(k), flush=True)
+    for k in scan_resources(built):
         print("[ptxas] " + json.dumps(k), flush=True)
     budget = {d: (FF.kernel_smem_bytes(d, torch.bfloat16),
                   FF.fwd_smem_bytes(d, FF.fwd_stages(d)))
@@ -2032,11 +2073,12 @@ def _queued_ms(fn, reps=50, rounds=5):
     return statistics.median(samples)
 
 
-def _bound(moved_bytes, flops, dtype):
+def _bound(moved_bytes, flops, dtype, exps=0):
     """(ms, what bounds it): the larger of bytes over the memory rate and
-    operations over the dtype's peak rate."""
+    operations over their peak rate: ``flops`` at the dtype's, ``exps``
+    exponentials at the special function units' (both "operations")."""
     t_bytes = moved_bytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
+    t_ops = max(flops / PEAK_FLOPS[dtype], exps / SFU_EXP_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -2888,10 +2930,13 @@ SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # prefill then decode vs the full pass (the reference's
 # tests/test_models_numerics.py limits)
 SCAN_SPLIT_TOL = dict(atol=2e-4, rtol=2e-3)
-# flops a (step, channel, state): forward exp, dt*A, the state's fma, dtu*B,
-# the output's fma (7); backward the state recomputed (5) and the reverse
-# step's (15) — an exponential counted as one
-SCAN_FWD_FLOPS, SCAN_BWD_FLOPS = 7, 20
+# flops a (step, channel, state) beside its exponentials: forward dt*A,
+# dtu*B, the state's fma, the output's fma (6); backward the state
+# recomputed (4) and the reverse step's (14). Exponentials, on the special
+# function units (SFU_EXP_PER_S): at least one a (step, channel, state)
+# each way (the backward's reverse step needs exp(dt*A), which the forward
+# does not keep)
+SCAN_FWD_FLOPS, SCAN_BWD_FLOPS = 6, 18
 
 
 def _scan_inputs(b, s, din, dtype, seed):
@@ -2935,6 +2980,37 @@ def _scan_err(got, want, abs_err=None):
     return diff / max(1.0, float(want.float().abs().max()))
 
 
+def _scan_vs_v1(name, args, chunk, dtype, got, grads=None):
+    """The redesign against its first design (``csrc/selective_scan_v1.cu``)
+    on the same inputs: ``h_last`` and ``h_chk`` ``torch.equal``, y and, with
+    ``grads`` = (dy, dh_last, the redesign's ``scan_bwd_cuda`` outputs),
+    every gradient within ``SCAN_TOL`` (a sum over the 16 states and one over
+    the channels taken in another order). One ``[kernel-check] scan v1``
+    line."""
+    y, h_last, h_chk = got
+    y1, h1, hc1 = SCAN.scan_fwd_v1_cuda(*args, chunk)
+    line = dict(case=name, h_last_equal=bool(torch.equal(h_last, h1)),
+                h_chk_equal=bool(torch.equal(h_chk, hc1)),
+                err=dict(y=_scan_err(y, y1)), tol=dict(y=SCAN_TOL[dtype]))
+    if grads is not None:
+        dy, dh_last, g = grads
+        du, ddt, dz, dh0, bc_part, ad_part = SCAN.scan_bwd_partials_v1_cuda(
+            *args, dy, hc1, chunk, dh_last)
+        bc, ad = SCAN.fold_plain(bc_part, ad_part)
+        n, din = SCAN.STATE, args[0].shape[-1]
+        want = dict(u=du, dt=ddt, A=ad[:din * n].view(din, n),
+                    B=bc[..., :n], C=bc[..., n:], D=ad[din * n:], z=dz,
+                    h0=dh0)
+        for k, v in zip(("u", "dt", "A", "B", "C", "D", "z", "h0"), g):
+            line["err"]["d" + k] = _scan_err(v, want[k])
+            line["tol"]["d" + k] = SCAN_TOL[dtype if k == "z"
+                                            else torch.float32]
+    line["ok"] = (line["h_last_equal"] and line["h_chk_equal"] and all(
+        line["err"][k] <= line["tol"][k] for k in line["err"]))
+    print("[kernel-check] scan v1 " + json.dumps(line), flush=True)
+    return line
+
+
 def check_scan():
     """``csrc/selective_scan.cu`` against its plain version on the card:
     the forward's y and last state, and the backward's du, ddt, dA, dB, dC,
@@ -2942,10 +3018,12 @@ def check_scan():
     of ``SCAN_CASES``; 10 repeated launches of each kernel bitwise; the
     fold against its plain version bitwise; prefill then one-step decodes
     with the carried state equal to the full pass; the decode step at the
-    serve shape against plain. Each grads case also times the plain
-    version (``plain_ms`` its forward alone, ``plain_grads_ms`` forward and
-    autograd backward: one call each, it walks S steps from Python)."""
-    results, failed = [], []
+    serve shape against plain. At every case, the split and the decode it
+    also holds the kernels to their first design (``_scan_vs_v1``: states
+    bitwise). Each grads case also times the plain version (``plain_ms``
+    its forward alone, ``plain_grads_ms`` forward and autograd backward:
+    one call each, it walks S steps from Python)."""
+    results, failed, v1_lines = [], [], []
     for name, b, s, din, chunk, dtype, grads in SCAN_CASES:
         x, dy, dh_last = _scan_inputs(b, s, din, dtype, seed=s + din)
         args = [x[k] for k in _SCAN_ARGS]
@@ -2983,7 +3061,12 @@ def check_scan():
             plain_fold = SCAN.fold_plain(bc_part, ad_part)
             reps["fold_vs_plain"] = all(torch.equal(a, b_) for a, b_ in
                                         zip(folded, plain_fold))
-            del g, got, gp, bc_part, ad_part, folded, plain_fold
+            del got, gp, bc_part, ad_part, folded, plain_fold
+        v1_lines.append(_scan_vs_v1(name, args, chunk, dtype,
+                                    (y, h_last, h_chk),
+                                    (dy, dh_last, g) if grads else None))
+        if grads:
+            del g
         ok = (all(err[k] <= tol[k] for k in err) and all(reps.values()))
         line = dict(case=name, B=b, S=s, Din=din, chunk=chunk,
                     dtype=str(dtype), err=err, tol=tol, bitwise=reps, ok=ok,
@@ -2997,10 +3080,12 @@ def check_scan():
     split = _scan_split()
     decode = _scan_decode()
     _free_device_memory()
-    if failed or not split["ok"] or not decode["ok"]:
+    not_v1 = [line["case"] for line in v1_lines if not line["ok"]]
+    if failed or not split["ok"] or not decode["ok"] or not_v1:
         raise AssertionError(f"scan kernels vs plain failed: {failed}, "
-                             f"split {split['ok']}, decode {decode['ok']}")
-    return dict(cases=results, split=split, decode=decode)
+                             f"split {split['ok']}, decode {decode['ok']}; "
+                             f"vs their first design: {not_v1}")
+    return dict(cases=results, split=split, decode=decode, v1=v1_lines)
 
 
 @torch.no_grad()
@@ -3011,22 +3096,25 @@ def _scan_split():
     b, s, din = 4, 512, 16384
     x, _, _ = _scan_inputs(b, s, din, torch.bfloat16, seed=11)
     args = [x[k] for k in _SCAN_ARGS]
-    full, h_full, _ = SCAN.scan_fwd_cuda(*args, 512, keep_states=False)
     p = s - 8
 
-    def part(lo, hi, h0):
-        sl = {k: (v[:, lo:hi].contiguous() if k in ("u", "dt", "B", "C", "z")
-                  else v) for k, v in x.items()}
-        sl["h0"] = h0
-        return SCAN.scan_fwd_cuda(*(sl[k] for k in _SCAN_ARGS), 512,
-                                  keep_states=False)[:2]
-    ys, h = [], x["h0"]
-    y, h = part(0, p, h)
-    ys.append(y)
-    for t in range(p, s):
-        y, h = part(t, t + 1, h)
+    def split(fwd):
+        def part(lo, hi, h0):
+            sl = {k: (v[:, lo:hi].contiguous()
+                      if k in ("u", "dt", "B", "C", "z") else v)
+                  for k, v in x.items()}
+            sl["h0"] = h0
+            return fwd(*(sl[k] for k in _SCAN_ARGS), 512,
+                       keep_states=False)[:2]
+        ys, h = [], x["h0"]
+        y, h = part(0, p, h)
         ys.append(y)
-    got = torch.cat(ys, 1)
+        for t in range(p, s):
+            y, h = part(t, t + 1, h)
+            ys.append(y)
+        return torch.cat(ys, 1), h
+    full, h_full, _ = SCAN.scan_fwd_cuda(*args, 512, keep_states=False)
+    got, h = split(SCAN.scan_fwd_cuda)
     ok = bool(torch.allclose(got.float(), full.float(), **SCAN_SPLIT_TOL)
               and torch.allclose(h, h_full, **SCAN_SPLIT_TOL))
     line = dict(B=b, prefill=p, decode_steps=s - p, Din=din,
@@ -3035,6 +3123,19 @@ def _scan_split():
                 bitwise=bool(torch.equal(got, full) and torch.equal(h, h_full)),
                 ok=ok)
     print("[kernel-check] scan split " + json.dumps(line), flush=True)
+    # the first design over the same split and the full pass
+    got1, h1 = split(SCAN.scan_fwd_v1_cuda)
+    full1, h_full1, _ = SCAN.scan_fwd_v1_cuda(*args, 512, keep_states=False)
+    tol = SCAN_TOL[torch.bfloat16]
+    v1 = dict(case="split", h_last_equal=bool(torch.equal(h, h1)),
+              full_h_last_equal=bool(torch.equal(h_full, h_full1)),
+              err=dict(y=_scan_err(got, got1), full_y=_scan_err(full, full1)),
+              tol=dict(y=tol, full_y=tol))
+    v1["ok"] = (v1["h_last_equal"] and v1["full_h_last_equal"]
+                and max(v1["err"].values()) <= tol)
+    print("[kernel-check] scan v1 " + json.dumps(v1), flush=True)
+    line["v1"] = v1
+    line["ok"] = ok and v1["ok"]
     return line
 
 
@@ -3050,15 +3151,23 @@ def _scan_decode():
     err = dict(y=_scan_err(y, yp), h_last=_scan_err(h, hp))
     ok = err["y"] <= SCAN_TOL[torch.bfloat16] and err["h_last"] <= SCAN_TOL[
         torch.float32]
-    ms = _queued_ms(lambda: SCAN.scan_fwd_cuda(*args, 512,
-                                               keep_states=False))
+    y1, h1, _ = SCAN.scan_fwd_v1_cuda(*args, 512, keep_states=False)
+    v1 = dict(case="decode", h_last_equal=bool(torch.equal(h, h1)),
+              err=dict(y=_scan_err(y, y1)),
+              tol=dict(y=SCAN_TOL[torch.bfloat16]))
+    v1["ok"] = v1["h_last_equal"] and v1["err"]["y"] <= v1["tol"]["y"]
+    print("[kernel-check] scan v1 " + json.dumps(v1), flush=True)
+    ms, v1_ms = _turns_ms(
+        lambda: SCAN.scan_fwd_cuda(*args, 512, keep_states=False),
+        lambda: SCAN.scan_fwd_v1_cuda(*args, 512, keep_states=False))
     plain_ms = _ms(lambda: SCAN.selective_scan_plain(*args), reps=20)
     moved = b * din * (4 + 4 + 2 + 2 + 2 * 4 * SCAN.STATE) + din * (
         SCAN.STATE + 1) * 4 + 2 * b * SCAN.STATE * 4
     bound = _bound(moved, SCAN_FWD_FLOPS * b * din * SCAN.STATE,
-                   torch.float32)
-    line = dict(B=b, Din=din, err=err, ok=ok, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound[0], bound_by=bound[1])
+                   torch.float32, exps=b * din * SCAN.STATE)
+    line = dict(B=b, Din=din, err=err, ok=ok and v1["ok"], ms=ms,
+                v1_ms=v1_ms, plain_ms=plain_ms, bound_ms=bound[0],
+                bound_by=bound[1], v1=v1)
     print("[kernel-check] scan decode " + json.dumps(line), flush=True)
     return line
 
@@ -3068,7 +3177,7 @@ def _scan_bound(b, s, din, backward, z_bytes=2):
     each output written once (forward: u, dt, z, B, C, A, D, h0 in; y,
     h_last and the kept states out; backward: those and dy in, du, ddt, dz,
     dA, dB, dC, dD out), against SCAN_{FWD,BWD}_FLOPS a state a step at
-    the fp32 rate."""
+    the fp32 rate and one exponential a state a step at the SFU's."""
     n = SCAN.STATE
     per_tok = b * s * din
     states = b * din * n * 4
@@ -3081,7 +3190,7 @@ def _scan_bound(b, s, din, backward, z_bytes=2):
         moved = per_tok * (4 + 4 + 2 * z_bytes) + 2 * b * s * n * 4 + din * (
             n + 1) * 4 + states * (2 + SCAN.n_chunks(s, SCAN_TRAIN[3]))
         flops = SCAN_FWD_FLOPS * per_tok * n
-    return _bound(moved, flops, torch.float32)
+    return _bound(moved, flops, torch.float32, exps=per_tok * n)
 
 
 def time_scan(scan_check, launches):
@@ -3097,10 +3206,14 @@ def time_scan(scan_check, launches):
     x, dy, _ = _scan_inputs(b, s, din, torch.bfloat16, seed=13)
     args = [x[k] for k in _SCAN_ARGS]
     with torch.no_grad():
-        fwd_ms = _ms(lambda: SCAN.scan_fwd_cuda(*args, chunk), reps=5)
+        fwd_ms, fwd_v1_ms = _turns_ms(
+            lambda: SCAN.scan_fwd_cuda(*args, chunk),
+            lambda: SCAN.scan_fwd_v1_cuda(*args, chunk), reps=10)
         _, _, h_chk = SCAN.scan_fwd_cuda(*args, chunk)
-        bwd_ms = _ms(lambda: SCAN.scan_bwd_partials_cuda(
-            *args, dy, h_chk, chunk), reps=5)
+        bwd_ms, bwd_v1_ms = _turns_ms(
+            lambda: SCAN.scan_bwd_partials_cuda(*args, dy, h_chk, chunk),
+            lambda: SCAN.scan_bwd_partials_v1_cuda(*args, dy, h_chk, chunk),
+            reps=5)
         part = SCAN.scan_bwd_partials_cuda(*args, dy, h_chk, chunk)
         fold_ms = _queued_ms(lambda: SCAN.scan_fold_cuda(part[4], part[5]),
                              reps=20)
@@ -3115,8 +3228,10 @@ def time_scan(scan_check, launches):
     xp, _, _ = _scan_inputs(pb, ps, din, torch.bfloat16, seed=14)
     argsp = [xp[k] for k in _SCAN_ARGS]
     with torch.no_grad():
-        prefill_ms = _ms(lambda: SCAN.scan_fwd_cuda(
-            *argsp, chunk, keep_states=False), reps=5)
+        prefill_ms, prefill_v1_ms = _turns_ms(
+            lambda: SCAN.scan_fwd_cuda(*argsp, chunk, keep_states=False),
+            lambda: SCAN.scan_fwd_v1_cuda(*argsp, chunk, keep_states=False),
+            reps=20)
     del x, dy, args, h_chk, part, xp, argsp
     _free_device_memory()
     src = "src/repro_torch/kernels/csrc/selective_scan.cu"
@@ -3140,12 +3255,30 @@ def time_scan(scan_check, launches):
         k["library_note"] = "none: no single PyTorch call computes it"
     kernels[2]["library_note"] = ("torch.sum over each partial: "
                                   "bc_part.sum(1) + ad_part.sum(0)")
-    kernels[0].update(prefill_ms=prefill_ms, prefill_shape=[pb, ps, din],
-                      decode_ms=scan_check["decode"]["ms"],
-                      decode_bound_ms=scan_check["decode"]["bound_ms"])
-    print(f"[timing] selective_scan_fwd at the serve prefill ({pb}, {ps}, "
-          f"{din}): {prefill_ms:.4f} ms; decode step ({SCAN_DECODE[0]}, 1, "
-          f"{din}): {scan_check['decode']['ms']:.4f} ms", flush=True)
+    for k in kernels:
+        k["bound_note"] = ("operations: exponentials at the SFU rate "
+                           "(SFU_EXP_PER_S)" if k["bound_by"] == "operations"
+                           else "bytes")
+    decode = scan_check["decode"]
+    res = scan_resources()
+    kernels[0].update(
+        v1_ms=fwd_v1_ms, prefill_ms=prefill_ms, prefill_v1_ms=prefill_v1_ms,
+        prefill_shape=[pb, ps, din], decode_ms=decode["ms"],
+        decode_v1_ms=decode["v1_ms"], decode_bound_ms=decode["bound_ms"],
+        ptxas=[r for r in res if r["kernel"] == "fwd"])
+    kernels[1].update(v1_ms=bwd_v1_ms,
+                      ptxas=[r for r in res if r["kernel"] == "bwd"])
+    kernels[2]["ptxas"] = [r for r in res if r["kernel"] == "fold"]
+    _vs_v1(f"selective_scan_fwd ({b}, {s}, {din})", fwd_ms, fwd_v1_ms)
+    _vs_v1(f"selective_scan_bwd ({b}, {s}, {din})", bwd_ms, bwd_v1_ms)
+    _vs_v1(f"selective_scan_fwd serve prefill ({pb}, {ps}, {din})",
+           prefill_ms, prefill_v1_ms)
+    _vs_v1(f"selective_scan_fwd decode step ({SCAN_DECODE[0]}, 1, {din})",
+           decode["ms"], decode["v1_ms"])
+    spilled = [r for r in res if r["source"] == "selective_scan" and (
+        r.get("spill_store_bytes") or r.get("spill_load_bytes"))]
+    if spilled:
+        raise AssertionError(f"selective scan kernels spill: {spilled}")
     return kernels
 
 
@@ -4004,10 +4137,10 @@ def bound_paged(qpos, hk, d, elt, q_bytes, window=None):
     return _bound(moved, 0, torch.bfloat16)
 
 
-def _turns_ms(new, old):
+def _turns_ms(new, old, reps=50):
     """``_queued_ms`` of a kernel and of its first design in turns (new,
     old, old, new) in this call: the mean of each pair."""
-    a, b, c, d = (_queued_ms(fn) for fn in (new, old, old, new))
+    a, b, c, d = (_queued_ms(fn, reps) for fn in (new, old, old, new))
     return (a + d) / 2, (b + c) / 2
 
 

@@ -13,7 +13,12 @@ Din) in the model dtype and the carried state ``h0`` (B, Din, N) fp32:
 returned as ``y`` in ``z``'s dtype and the last state ``h_S`` (fp32). The
 (B, S, Din, N) states are never kept: :func:`selective_scan_plain` walks the
 steps one at a time, and ``csrc/selective_scan.cu`` holds a channel's N
-states in registers.
+states in registers, split over 2 lanes of a warp, fed by a ring of TMA
+tensor copies. Its forward gives the first design's
+(``csrc/selective_scan_v1.cu``, kept as the bit oracle:
+:func:`scan_fwd_v1_cuda`, :func:`scan_bwd_partials_v1_cuda`) ``h_last`` and
+kept states bitwise; y and the gradients differ from it by the order of the
+sums over the 16 states and over the channels.
 
 :func:`selective_scan` takes the plain version for CPU tensors and launches
 the kernels for CUDA tensors (raising for a shape they do not take: N other
@@ -23,7 +28,8 @@ scan per chunk of ``chunk`` steps that recomputes the states from the ones
 the forward kept every ``chunk`` steps, then an ordered fold of the
 per-CTA partials of dB and dC (over channels) and of dA and dD (over the
 batch). ``chunk`` (``cfg.ssm_chunk``) trades memory for recomputation and
-changes no result. ``h0`` takes no gradient (the model starts every
+changes no result: the sums' order depends on none of S, chunk, B or where a
+launch starts. ``h0`` takes no gradient (the model starts every
 sequence from a state without one).
 """
 from __future__ import annotations
@@ -38,7 +44,8 @@ from repro_torch.kernels import build
 F32 = torch.float32
 STATE = 16          # the state size N the kernels take
 CHANNELS = 128      # channels a CTA of the kernels (Din must be a multiple)
-SUB = 16            # steps the backward recomputes into scratch at once
+SUB = 16            # steps the backward recomputes on chip at once
+ALIGN = 16          # bytes the kernels' vector loads and TMA copies need
 
 # launches of each CUDA kernel; the wrappers add one per launch and nothing
 # else touches them
@@ -69,19 +76,42 @@ def selective_scan_plain(u, dt, A, B, C, D, z, h0):
 # --------------------------------------------------------------------------- #
 # CUDA kernels (csrc/selective_scan.cu)
 # --------------------------------------------------------------------------- #
-@functools.lru_cache(maxsize=None)
-def _lib():
-    lib = build.load("selective_scan")
-    fwd, bwd, fold = lib.dash_scan_fwd, lib.dash_scan_bwd, lib.dash_scan_fold
+def _bind(lib, suffix, bwd_scratch):
+    """The forward, backward and fold entry points of a scan library; the
+    backward takes ``bwd_scratch`` scratch pointers."""
+    fwd, bwd, fold = (getattr(lib, f"dash_scan_{k}{suffix}")
+                      for k in ("fwd", "bwd", "fold"))
     fwd.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
-    bwd.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
+    bwd.argtypes = [ctypes.c_void_p] * (16 + bwd_scratch) + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p]
     fold.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     for fn in (fwd, bwd, fold):
         fn.restype = ctypes.c_int
     return fwd, bwd, fold
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    return _bind(build.load("selective_scan"), "", 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_v1():
+    return _bind(build.load("selective_scan_v1"), "_v1", 2)
+
+
+def layout():
+    """The build's layout: lanes a channel, the forward's ring stages,
+    threads a CTA, the dynamic shared memory of each kernel (bytes; fp32 /
+    bf16 z) and the backward's ring stages."""
+    out = (ctypes.c_int * 9)()
+    build.load("selective_scan").dash_scan_layout(out)
+    keys = ("lanes", "stages", "threads", "fwd_smem_fp32", "fwd_smem_bf16",
+            "bwd_smem_fp32", "bwd_smem_bf16", "bwd_stages_fp32",
+            "bwd_stages_bf16")
+    return dict(zip(keys, out))
 
 
 def _stream(device):
@@ -115,6 +145,9 @@ def _check(u, dt, A, B, C, D, z, h0):
                          f"{din}, S = {s}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the scan kernels need contiguous operands")
+    if any(t.data_ptr() % ALIGN for t in tensors):
+        raise ValueError(f"the scan kernels need operands aligned to {ALIGN} "
+                         f"bytes")
 
 
 def n_chunks(s: int, chunk: int) -> int:
@@ -126,6 +159,21 @@ def scan_fwd_cuda(u, dt, A, B, C, D, z, h0, chunk, keep_states=True):
     (B, n_chunks, N, Din) fp32 the state before each chunk's first step
     (what the backward restarts from), or None without ``keep_states``."""
     global launches_fwd
+    out = _fwd(_lib, u, dt, A, B, C, D, z, h0, chunk, keep_states)
+    launches_fwd += 1
+    return out
+
+
+def scan_fwd_v1_cuda(u, dt, A, B, C, D, z, h0, chunk, keep_states=True):
+    """The forward's first design (``csrc/selective_scan_v1.cu``), kept as
+    its bit oracle: :func:`scan_fwd_cuda` must return these ``h_last`` and
+    ``h_chk`` bits. Only ``chip_smoke.py`` and the gpu-marked tests call it;
+    it counts in no launch counter."""
+    return _fwd(_lib_v1, u, dt, A, B, C, D, z, h0, chunk, keep_states)
+
+
+def _fwd(lib, u, dt, A, B, C, D, z, h0, chunk, keep_states):
+    """Check the operands, then launch ``lib()``'s forward."""
     _check(u, dt, A, B, C, D, z, h0)
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
@@ -134,16 +182,13 @@ def scan_fwd_cuda(u, dt, A, B, C, D, z, h0, chunk, keep_states=True):
     h_last = torch.empty_like(h0)
     h_chk = (torch.empty((b, n_chunks(s, chunk), STATE, din), dtype=F32,
                          device=u.device) if keep_states else None)
-    fwd, _, _ = _lib()
-    err = fwd(u.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-              C.data_ptr(), D.data_ptr(), z.data_ptr(), h0.data_ptr(),
-              y.data_ptr(), h_last.data_ptr(),
-              None if h_chk is None else h_chk.data_ptr(), b, s, din, chunk,
-              int(z.dtype == torch.bfloat16), _stream(u.device))
+    ptrs = [t.data_ptr() for t in (u, dt, A, B, C, D, z, h0, y, h_last)]
+    err = lib()[0](*ptrs, None if h_chk is None else h_chk.data_ptr(), b, s,
+                   din, chunk, int(z.dtype == torch.bfloat16),
+                   _stream(u.device))
     if err:
         raise RuntimeError(f"selective scan forward kernel failed to "
                            f"launch: cudaError {err}")
-    launches_fwd += 1
     return y, h_last, h_chk
 
 
@@ -168,18 +213,42 @@ def scan_bwd_partials_cuda(u, dt, A, B, C, D, z, h0, dy, h_chk, chunk,
     of dB then dC over its channels, ``ad_part`` (B, Din * (N + 1)) each
     batch row's dA then dD."""
     global launches_bwd
+    out = _bwd_partials(_lib, False, u, dt, A, B, C, D, z, h0, dy,
+                        h_chk, chunk, dh_last)
+    launches_bwd += 1
+    return out
+
+
+def scan_bwd_partials_v1_cuda(u, dt, A, B, C, D, z, h0, dy, h_chk, chunk,
+                              dh_last=None):
+    """The backward's first design (``csrc/selective_scan_v1.cu``), kept
+    as its oracle: :func:`scan_bwd_partials_cuda`'s outputs agree with these
+    within the order of the sums over the states and the channels. Only
+    ``chip_smoke.py`` and the gpu-marked tests call it; it counts in no
+    launch counter."""
+    return _bwd_partials(_lib_v1, True, u, dt, A, B, C, D, z, h0, dy,
+                         h_chk, chunk, dh_last)
+
+
+def _bwd_partials(lib, v1, u, dt, A, B, C, D, z, h0, dy, h_chk, chunk,
+                  dh_last):
+    """Check the operands, then launch ``lib()``'s backward (``v1``: the
+    first design's, which also takes a per-step scratch)."""
     _check(u, dt, A, B, C, D, z, h0)
     b, s, din = u.shape
     if dy.dtype != z.dtype or tuple(dy.shape) != (b, s, din) or not (
-            dy.is_contiguous() and dy.device == u.device):
-        raise ValueError("dy must be contiguous, on u's device, in z's "
-                         "dtype and shape")
+            dy.is_contiguous() and dy.device == u.device) or (
+            dy.data_ptr() % ALIGN):
+        raise ValueError("dy must be contiguous, aligned, on u's device, in "
+                         "z's dtype and shape")
     if h_chk is None or tuple(h_chk.shape) != (b, n_chunks(s, chunk), STATE,
                                                din):
         raise ValueError(f"h_chk is not the forward's at chunk {chunk}")
     if dh_last is not None and (dh_last.dtype != F32 or tuple(
-            dh_last.shape) != (b, din, STATE) or not dh_last.is_contiguous()):
-        raise ValueError("dh_last must be a contiguous fp32 (B, Din, N)")
+            dh_last.shape) != (b, din, STATE) or not dh_last.is_contiguous()
+            or dh_last.data_ptr() % ALIGN):
+        raise ValueError("dh_last must be a contiguous, aligned fp32 (B, "
+                         "Din, N)")
     dev = u.device
     du, ddt = torch.empty_like(u), torch.empty_like(dt)
     dz = torch.empty_like(z)
@@ -187,22 +256,22 @@ def scan_bwd_partials_cuda(u, dt, A, B, C, D, z, h0, dy, h_chk, chunk,
     bc_part = torch.empty((b, din // CHANNELS, s, 2 * STATE), dtype=F32,
                           device=dev)
     ad_part = torch.empty((b, din * (STATE + 1)), dtype=F32, device=dev)
+    # the states before each sub-chunk of a chunk (the first design also
+    # passed each step's states of a sub-chunk through device memory)
     sub = torch.empty((b, -(-min(chunk, s) // SUB), STATE, din), dtype=F32,
                       device=dev)
-    hs = torch.empty((b, SUB, STATE, din), dtype=F32, device=dev)
-    _, bwd, _ = _lib()
-    err = bwd(u.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-              C.data_ptr(), D.data_ptr(), z.data_ptr(), dy.data_ptr(),
-              h_chk.data_ptr(),
-              None if dh_last is None else dh_last.data_ptr(),
-              du.data_ptr(), ddt.data_ptr(), dz.data_ptr(), dh0.data_ptr(),
-              ad_part.data_ptr(), bc_part.data_ptr(), sub.data_ptr(),
-              hs.data_ptr(), b, s, din, chunk,
-              int(z.dtype == torch.bfloat16), _stream(dev))
+    scratch = [sub.data_ptr()]
+    if v1:
+        hs = torch.empty((b, SUB, STATE, din), dtype=F32, device=dev)
+        scratch.append(hs.data_ptr())
+    ins = [t.data_ptr() for t in (u, dt, A, B, C, D, z, dy, h_chk)]
+    outs = [t.data_ptr() for t in (du, ddt, dz, dh0, ad_part, bc_part)]
+    err = lib()[1](*ins, None if dh_last is None else dh_last.data_ptr(),
+                   *outs, *scratch, b, s, din, chunk,
+                   int(z.dtype == torch.bfloat16), _stream(dev))
     if err:
         raise RuntimeError(f"selective scan backward kernel failed to "
                            f"launch: cudaError {err}")
-    launches_bwd += 1
     return du, ddt, dz, dh0, bc_part, ad_part
 
 
@@ -222,7 +291,7 @@ def scan_fold_cuda(bc_part, ad_part):
                          f"{ad_part.dtype}")
     bc = torch.empty((b, s, 2 * STATE), dtype=F32, device=bc_part.device)
     ad = torch.empty((din * (STATE + 1),), dtype=F32, device=bc_part.device)
-    _, _, fold = _lib()
+    fold = _lib()[2]
     err = fold(bc_part.data_ptr(), bc.data_ptr(), ad_part.data_ptr(),
                ad.data_ptr(), b, n_blk, s, din, _stream(bc_part.device))
     if err:

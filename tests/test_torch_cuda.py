@@ -850,3 +850,118 @@ def test_fingerprint_state_on_the_card_equals_the_cpu():
     with pytest.raises(TypeError, match="covers"):
         tree_fingerprint({"x": torch.zeros(3, device="cuda",
                                            dtype=torch.int64)})
+
+
+# ------------------------------ the selective scan against its first design
+# |kernel - other| <= tol * max(1, max|other|), as chip_smoke.py's SCAN_TOL:
+# sums over the states and the channels in another order; bf16 y and dz one
+# rounding apart
+SCAN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+SCAN_SHAPES = {                   # (B, S, Din, chunk)
+    "ragged_s": (1, 100, 256, 32),    # S not a multiple of the 16-step tile
+    "chunk_24": (1, 80, 128, 24),     # chunk not a multiple of 16
+    "batch_2": (2, 64, 256, 32),
+    "one_step": (2, 1, 256, 512),
+}
+SCAN_GRADS = ("u", "dt", "A", "B", "C", "D", "z", "h0")
+
+
+def _scan_operands(b, s, din, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    n = 16
+
+    def f(*shape, scale=1.0):
+        return torch.from_numpy(
+            (scale * rng.standard_normal(shape)).astype(np.float32)).cuda()
+    x = dict(u=torch.nn.functional.silu(f(b, s, din)),
+             dt=torch.nn.functional.softplus(f(b, s, din) - 1.0),
+             A=-torch.exp(f(din, n, scale=0.5)), B=f(b, s, n), C=f(b, s, n),
+             D=f(din), z=f(b, s, din).to(getattr(torch, dtype)),
+             h0=f(b, din, n, scale=0.5))
+    dy = f(b, s, din).to(getattr(torch, dtype))
+    return [x[k] for k in SCAN_GRADS], dy, f(b, din, n, scale=0.1)
+
+
+def _scan_grads(partials, args, dy, h_chk, chunk, dh_last):
+    """(du, ddt, dA, dB, dC, dD, dz, dh0) from a backward's partials folded
+    by the plain fold."""
+    from repro_torch.kernels import scan as SC
+    du, ddt, dz, dh0, bc_part, ad_part = partials(*args, dy, h_chk, chunk,
+                                                  dh_last)
+    bc, ad = SC.fold_plain(bc_part, ad_part)
+    din = args[0].shape[-1]
+    return (du, ddt, ad[:din * 16].view(din, 16), bc[..., :16],
+            bc[..., 16:], ad[din * 16:], dz, dh0)
+
+
+def _scan_plain_grads(args, dy, dh_last):
+    from repro_torch.kernels import scan as SC
+    leaves = [a.detach().requires_grad_(True) for a in args]
+    y, h = SC.selective_scan_plain(*leaves)
+    loss = (y.float() * dy.float()).sum() + (h * dh_last).sum()
+    return y.detach(), h.detach(), torch.autograd.grad(loss, leaves)
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).abs().max()) / max(
+        1.0, float(want.float().abs().max()))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", list(SCAN_SHAPES))
+def test_scan_redesign_keeps_its_first_designs_states(shape, dtype):
+    """csrc/selective_scan.cu against csrc/selective_scan_v1.cu on the same
+    inputs: h_last and h_chk bitwise; y and every gradient within SCAN_TOL
+    of the first design's and of the plain version's."""
+    _card()
+    from repro_torch.kernels import scan as SC
+    b, s, din, chunk = SCAN_SHAPES[shape]
+    args, dy, dh_last = _scan_operands(b, s, din, dtype)
+    y, h, h_chk = SC.scan_fwd_cuda(*args, chunk)
+    y1, h1, h_chk1 = SC.scan_fwd_v1_cuda(*args, chunk)
+    yp, hp, gp = _scan_plain_grads(args, dy, dh_last)
+    assert torch.equal(h, h1) and torch.equal(h_chk, h_chk1)
+    assert _rel(y, y1) <= SCAN_TOL[dtype] and _rel(y, yp) <= SCAN_TOL[dtype]
+    assert _rel(h, hp) <= SCAN_TOL["float32"]
+    g = _scan_grads(SC.scan_bwd_partials_cuda, args, dy, h_chk, chunk,
+                    dh_last)
+    g1 = _scan_grads(SC.scan_bwd_partials_v1_cuda, args, dy, h_chk1, chunk,
+                     dh_last)
+    assert torch.equal(g[7], g1[7])      # dh0: the same products, in order
+    for name, got, old, plain in zip(SCAN_GRADS, g, g1, gp):
+        tol = SCAN_TOL[dtype if name == "z" else "float32"]
+        assert _rel(got, old) <= tol, name
+        if name != "h0":                 # the model's h0 takes no gradient
+            assert _rel(got, plain) <= tol, name
+
+
+def test_scan_redesign_repeats_bitwise():
+    """Ten launches of the forward and of the backward give the same bits."""
+    _card()
+    from repro_torch.kernels import scan as SC
+    b, s, din, chunk = SCAN_SHAPES["ragged_s"]
+    args, dy, dh_last = _scan_operands(b, s, din, "bfloat16", seed=1)
+    y, h, h_chk = SC.scan_fwd_cuda(*args, chunk)
+    g = SC.scan_bwd_cuda(*args, dy, h_chk, chunk, dh_last)
+    for _ in range(10):
+        y2, h2, h_chk2 = SC.scan_fwd_cuda(*args, chunk)
+        assert torch.equal(y, y2) and torch.equal(h, h2)
+        assert torch.equal(h_chk, h_chk2)
+        g2 = SC.scan_bwd_cuda(*args, dy, h_chk, chunk, dh_last)
+        assert all(torch.equal(a, c) for a, c in zip(g, g2))
+
+
+def test_scan_redesign_results_do_not_depend_on_chunk():
+    """y, the last state and every gradient are the same bits at any
+    chunk: the sums' order depends on none of S, chunk or the launch."""
+    _card()
+    from repro_torch.kernels import scan as SC
+    b, s, din, _ = SCAN_SHAPES["ragged_s"]
+    args, dy, dh_last = _scan_operands(b, s, din, "bfloat16", seed=2)
+    results = []
+    for chunk in (16, 24, 64, s):
+        y, h, h_chk = SC.scan_fwd_cuda(*args, chunk)
+        results.append((y, h) + SC.scan_bwd_cuda(*args, dy, h_chk, chunk,
+                                                  dh_last))
+    for other in results[1:]:
+        assert all(torch.equal(a, c) for a, c in zip(results[0], other))
