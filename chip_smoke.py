@@ -60,6 +60,15 @@ Phases, each reported on its own line:
                (``csrc/selective_scan_v1.cu``; ``[kernel-check] scan v1``):
                ``h_last`` and ``h_chk`` bitwise, y and every gradient
                within ``SCAN_TOL``;
+               the xLSTM kernels (``[kernel-check] xlstm``:
+               ``csrc/mlstm.cu``'s parallel form and recurrence,
+               ``csrc/slstm.cu``) against their plain versions within
+               ``XLSTM_TOL`` at xLSTM-350M's 4 heads of 256 (the serve
+               slice's B=4, S=512, and S=2048 for the parallel form), a
+               ragged S, fp32 and hd=32; each recurrence also at the decode
+               step (S=1) from the state its prefill leaves; 10 repetitions
+               of each bitwise, and each recurrence split at 3/5 of S and at
+               S-1 bitwise one launch;
                and the GQA groups of this slice's models (``[kernel-check]
                gqa``: 40/8 and 48/8 at D=128, S=1024): the causal forward,
                the worker backward with its dQ and dK/dV group folds (each
@@ -136,6 +145,23 @@ Phases, each reported on its own line:
                plain scan with the router's choices pinned;
                ``launch.serve --engine continuous`` with Jamba must raise
                the paged engine's refusal (SSM states are unpaged);
+     serve-xlstm — the static engine as in phase 4 for xLSTM-350M at full
+               width and depth (24 layers: 21 mLSTM, 3 sLSTM; ~0.23 B
+               parameters): bitwise across two runs, the mLSTM recurrence
+               and the sLSTM once a layer in the prefill and in each decode
+               step, prefill logits against the plain mixers' (a reading:
+               24 bf16 layers amplify a flipped rounding); then one
+               ``forward`` at (4, 512) through the parallel kernel (its
+               launches and ms), the bf16 model cut to one mLSTM and one
+               sLSTM layer (``XLSTM_CUT``) and the fp32 model at full
+               width and depth: prefill and forward logits against the
+               plain mixers' within ``LOGITS_ATOL`` and
+               ``XLSTM_FP32_LOGITS_ATOL``; ``forward`` against prefill +
+               decode at full width (a reading) and at the reduced config
+               within ``XLSTM_IDENTITY_ATOL`` (fp32 1e-4, bf16 0.1; the
+               reference's allclose(5e-2) beside it);
+               ``launch.serve --engine continuous`` with xLSTM must raise
+               the paged engine's refusal;
   5. train   — train StableLM-1.6B at full width cut to 12 of its 24
                layers (bf16, AdamW, remat, causal, B=4, S=1024, 3 steps, warmup 1, ``--tune sim``,
                which prints the tuner's pick and changes nothing else) through
@@ -255,8 +281,12 @@ Phases, each reported on its own line:
                backward at the train shape, its forward at the serve prefill
                (4, 512) and the decode step (4, 1), each beside its first
                design in turns (``v1_ms``), with ptxas' registers and spills
-               (a spill fails the run); the fingerprint's entry is timed
-               in its kernel check, at the full-width train state.
+               (a spill fails the run); the three xLSTM kernels at the
+               serve slice's shapes (the recurrences also at the decode
+               step) beside their plain versions and bounds, their
+               launches those of ``[serve-xlstm]``; the fingerprint's entry
+               is timed in its kernel check, at the full-width train
+               state.
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script exits
 non-zero and prints no result; so does a machine without CUDA.
@@ -266,6 +296,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -320,6 +351,8 @@ from repro_torch.faults import (EngineCrash, Fault, FaultPlan,  # noqa: E402
 from repro_torch.faults import conformance as CF  # noqa: E402
 from repro_torch.kernels import fingerprint as FPK  # noqa: E402
 from repro_torch.kernels import scan as SCAN  # noqa: E402
+from repro_torch.kernels import mlstm as MLSTM  # noqa: E402
+from repro_torch.kernels import slstm as SLSTM  # noqa: E402
 from repro_torch import obs as OBS  # noqa: E402
 from repro_torch.obs import export as OBS_EX  # noqa: E402
 from repro_torch.verify import digest as DG  # noqa: E402
@@ -795,6 +828,7 @@ def _zero_counts():
     FB.launches_worker = FB.launches_serial = FB.launches_fold = 0
     FPK.launches = 0
     SCAN.launches_fwd = SCAN.launches_bwd = SCAN.launches_fold = 0
+    MLSTM.launches_parallel = MLSTM.launches_recurrent = SLSTM.launches = 0
 
 
 def _no_launches():
@@ -1082,20 +1116,26 @@ class _PinnedRouting:
 
 
 @contextlib.contextmanager
-def _plain_scan():
-    """The models' selective scan on its plain version (the sequential
-    recurrence, differentiated by autograd) while the context is open: the
-    plain runs that a kernel run is held against. Outside it a CUDA tensor
-    always takes the kernels."""
-    orig = SCAN.selective_scan
+def _plain_mixers():
+    """The models' selective scan and xLSTM mixers on their plain versions
+    (the scan's sequential recurrence, differentiated by autograd; the
+    mLSTM parallel form and recurrence and the sLSTM recurrence) while the
+    context is open: the plain runs that a kernel run is held against.
+    Outside it a CUDA tensor always takes the kernels."""
+    orig = (SCAN.selective_scan, MLSTM.mlstm_parallel,
+            MLSTM.mlstm_recurrent, SLSTM.slstm)
 
     def plain(u, dt, A, B, C, D, z, h0, chunk):
         return SCAN.selective_scan_plain(u, dt, A, B, C, D, z, h0)
     SCAN.selective_scan = plain
+    MLSTM.mlstm_parallel = MLSTM.mlstm_parallel_plain
+    MLSTM.mlstm_recurrent = MLSTM.mlstm_recurrent_plain
+    SLSTM.slstm = SLSTM.slstm_plain
     try:
         yield
     finally:
-        SCAN.selective_scan = orig
+        (SCAN.selective_scan, MLSTM.mlstm_parallel, MLSTM.mlstm_recurrent,
+         SLSTM.slstm) = orig
 
 
 def _timed(fn):
@@ -1107,18 +1147,22 @@ def _timed(fn):
 
 
 @torch.inference_mode()
-def run_slice(slice_=SLICE, label="slice"):
+def _serve_static(slice_):
     """The static engine at full width and depth (or the slice's
-    ``layers``): greedy, twice (bitwise equal tokens), the prefill's
-    attention launches (the causal forward, or the block-sparse one under a
-    window, once per layer), prefill logits vs the plain attention's (over
-    an MoE model with the router's choices pinned to the kernel run's:
-    :class:`_PinnedRouting`), prefill ms and decode tok/s."""
+    ``layers``): greedy, twice (bitwise equal tokens), the generate's
+    launches (the prefill's attention forward, causal or block-sparse under
+    a window, once per attention layer; the scan, the mLSTM recurrence and
+    the sLSTM once a layer of theirs in the prefill and each decode step),
+    prefill ms and decode tok/s. Returns (result, vs_plain): ``vs_plain()``
+    runs the timed prefill again on the plain attention and mixers (over an
+    MoE model with the router's choices pinned to the kernel run's:
+    :class:`_PinnedRouting`) and gives its logits' errors against the
+    kernels'."""
     cfg = registry.get(slice_["arch"]).replace(attention_impl="cuda",
                                                attn_window=slice_["window"])
     if "layers" in slice_:
         cfg = launch_train.cut_layers(cfg, str(slice_["layers"]))
-    attn_layers, mamba_layers = _layer_kinds(cfg)
+    attn_layers, mamba_layers, mlstm_layers, slstm_layers = _layer_kinds(cfg)
     b, s, n = slice_["batch"], slice_["prompt"], slice_["gen"]
     params = T.init(cfg, seed=0, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -1133,9 +1177,11 @@ def run_slice(slice_=SLICE, label="slice"):
     kind = "fwd_mask" if cfg.attn_window else "fwd_causal"
     launches = counts[kind]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    # the prefill's attention forward once an attention layer; the scan
-    # once a Mamba layer in the prefill and in each decode step
-    want = dict(_no_launches(), scan_fwd=mamba_layers * n)
+    # the prefill's attention forward once an attention layer; the scan,
+    # the mLSTM recurrence and the sLSTM once a layer of theirs in the
+    # prefill and in each decode step
+    want = dict(_no_launches(), scan_fwd=mamba_layers * n,
+                mlstm_recurrent=mlstm_layers * n, slstm=slstm_layers * n)
     want[kind] = attn_layers
     if counts != want:
         raise AssertionError(f"generate launched {counts}, expected {want}")
@@ -1161,35 +1207,55 @@ def run_slice(slice_=SLICE, label="slice"):
         return tok
     _, t_decode = _timed(decode_all)
 
-    plain_cfg = cfg.replace(attention_impl="torch")
-    with pin.replay(), _plain_scan():
-        plain_logits, _ = T.prefill_step(params, batch, plain_cfg, max_seq=s)
-    err = (logits - plain_logits).abs().max().item()
-    finite = bool(torch.isfinite(logits).all())
-    rel = (torch.linalg.vector_norm(logits - plain_logits, dim=-1)
-           / torch.linalg.vector_norm(plain_logits, dim=-1)).max().item()
-    close = rel <= MOE_LOGITS_REL if cfg.n_experts else err <= LOGITS_ATOL
-    same_argmax = (logits.argmax(-1) == plain_logits.argmax(-1)).float().mean()
+    def vs_plain():
+        plain_cfg = cfg.replace(attention_impl="torch")
+        with pin.replay(), _plain_mixers():
+            plain_logits, _ = T.prefill_step(params, batch, plain_cfg,
+                                             max_seq=s)
+        rel = (torch.linalg.vector_norm(logits - plain_logits, dim=-1)
+               / torch.linalg.vector_norm(plain_logits, dim=-1)).max().item()
+        same = (logits.argmax(-1) == plain_logits.argmax(-1)).float().mean()
+        return dict(
+            logits_finite=bool(torch.isfinite(logits).all()),
+            logits_max_abs_err_vs_plain=(logits - plain_logits).abs().max()
+            .item(),
+            logits_row_rel_err_vs_plain=rel,
+            max_abs_logit=plain_logits.abs().max().item(),
+            argmax_agreement=same.item(),
+            router_choices_flipped_unpinned=[pin.flips, pin.choices])
+
     result = dict(
         arch=cfg.name, layers=cfg.n_layers, params=count_params(params),
         batch=b, prompt=s,
         new_tokens=n, attn_window=cfg.attn_window, attention_launches=launches,
         pattern=list(cfg.block_pattern), scan_launches=counts["scan_fwd"],
+        xlstm_launches=dict(mlstm_recurrent=counts["mlstm_recurrent"],
+                            slstm=counts["slstm"]),
         run_s=t_run, prefill_ms=t_prefill * 1e3,
         decode_tok_per_s=b * (n - 1) / t_decode, peak_mem_gb=peak_gb,
-        tokens_bitwise_equal=True, logits_max_abs_err_vs_plain=err,
-        logits_row_rel_err_vs_plain=rel,
-        logits_bound=(f"row rel. err <= {MOE_LOGITS_REL}" if cfg.n_experts
-                      else f"max abs err <= {LOGITS_ATOL}"),
-        max_abs_logit=plain_logits.abs().max().item(),
-        argmax_agreement=same_argmax.item(),
-        router_choices_flipped_unpinned=[pin.flips, pin.choices],
-        tokens_row0=tokens[0, :8].tolist())
+        tokens_bitwise_equal=True, tokens_row0=tokens[0, :8].tolist())
+    return result, vs_plain
+
+
+@torch.inference_mode()
+def run_slice(slice_=SLICE, label="slice"):
+    """:func:`_serve_static`, and its prefill logits against the plain
+    attention's: within ``LOGITS_ATOL``, an MoE model's rows within
+    ``MOE_LOGITS_REL``."""
+    result, vs_plain = _serve_static(slice_)
+    result.update(vs_plain())
+    moe = bool(registry.get(slice_["arch"]).n_experts)
+    result["logits_bound"] = (f"row rel. err <= {MOE_LOGITS_REL}" if moe
+                              else f"max abs err <= {LOGITS_ATOL}")
     print(f"[{label}] " + json.dumps(result), flush=True)
-    if not (finite and close):
-        raise AssertionError(f"prefill logits: finite={finite}, max |cuda - "
-                             f"plain| = {err}, row rel. err {rel}: beyond "
-                             f"{result['logits_bound']}")
+    close = (result["logits_row_rel_err_vs_plain"] <= MOE_LOGITS_REL if moe
+             else result["logits_max_abs_err_vs_plain"] <= LOGITS_ATOL)
+    if not (result["logits_finite"] and close):
+        raise AssertionError(
+            f"prefill logits: finite={result['logits_finite']}, max |cuda - "
+            f"plain| = {result['logits_max_abs_err_vs_plain']}, row rel. err "
+            f"{result['logits_row_rel_err_vs_plain']}: beyond "
+            f"{result['logits_bound']}")
     return result
 
 
@@ -1203,10 +1269,10 @@ def _attn_leaves(params):
 
 
 def _layer_kinds(cfg):
-    """(attention layers, Mamba layers) of ``cfg``."""
+    """(attention, Mamba, mLSTM, sLSTM) layers of ``cfg``."""
     n_rep = cfg.n_layers // len(cfg.block_pattern)
-    mamba = n_rep * sum(k.startswith("mamba") for k in cfg.block_pattern)
-    return cfg.n_layers - mamba, mamba
+    return tuple(n_rep * sum(k.startswith(f) for k in cfg.block_pattern)
+                 for f in ("attn", "mamba", "mlstm", "slstm"))
 
 
 def _train_launches(cfg, verify):
@@ -1215,7 +1281,7 @@ def _train_launches(cfg, verify):
     backward once, and its folds (the dQ partials, and under GQA dK and dV
     over each group); per Mamba layer the scan's forward twice, its
     backward and fold once; one fingerprint under ``--verify``."""
-    attn, mamba = _layer_kinds(cfg)
+    attn, mamba, _, _ = _layer_kinds(cfg)
     folds = 3 if cfg.n_kv_heads < cfg.n_heads else 1
     want = dict(_no_launches(), bwd_worker=attn, fold=folds * attn,
                 fingerprint=int(verify), scan_fwd=2 * mamba, scan_bwd=mamba,
@@ -1274,12 +1340,12 @@ def run_train(argv=TRAIN_ARGV, label="train", compare_argv=None):
                 kernel_m = TS.make_train_step(c_cfg, c_tcfg)(state,
                                                              batch0)[1]
             kernel_m = {k: float(kernel_m[k]) for k in ("loss", "grad_norm")}
-        with pins[0].replay(), _plain_scan():
+        with pins[0].replay(), _plain_mixers():
             plain_m = TS.make_train_step(plain_cfg, c_tcfg)(state, batch0)[1]
         plain_m = {k: float(plain_m[k]) for k in ("loss", "grad_norm")}
         with pins[1].record():
             ga = _attn_grads(c_cfg, state["params"], batch0)
-        with pins[1].replay(), _plain_scan():
+        with pins[1].replay(), _plain_mixers():
             gp = _attn_grads(plain_cfg, state["params"], batch0)
         attn_leaves = _attn_leaves(state["params"])
         torch.cuda.synchronize()
@@ -2027,8 +2093,9 @@ def run_tune(tune_root, label="tune"):
         raise AssertionError(f"[tune] a fresh process picked {theirs}, this "
                              f"one {ours}")
     # the tune path runs the attention kernels only
-    idle = [k for k, n in launches.items() if not n and k != "fingerprint"
-            and not k.startswith("scan_")]
+    attention = ("fwd_causal", "fwd_full", "fwd_mask", "bwd_worker",
+                 "bwd_serial", "fold")
+    idle = [k for k in attention if not launches[k]]
     if idle:
         raise AssertionError(f"[tune] the tune path never launched {idle}: "
                              f"{launches}")
@@ -2073,12 +2140,15 @@ def _queued_ms(fn, reps=50, rounds=5):
     return statistics.median(samples)
 
 
-def _bound(moved_bytes, flops, dtype, exps=0):
+def _bound(moved_bytes, flops, dtype, exps=0, tc_flops=0):
     """(ms, what bounds it): the larger of bytes over the memory rate and
-    operations over their peak rate: ``flops`` at the dtype's, ``exps``
-    exponentials at the special function units' (both "operations")."""
+    operations over their peak rate: ``flops`` at the dtype's plus
+    ``tc_flops`` at the bf16 tensor cores', ``exps`` exponentials at the
+    special function units' (all "operations")."""
     t_bytes = moved_bytes / HBM_BYTES_PER_S
-    t_ops = max(flops / PEAK_FLOPS[dtype], exps / SFU_EXP_PER_S)
+    t_ops = max(flops / PEAK_FLOPS[dtype]
+                + tc_flops / PEAK_FLOPS[torch.bfloat16],
+                exps / SFU_EXP_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -3282,6 +3352,471 @@ def time_scan(scan_check, launches):
     return kernels
 
 
+# [kernel-check] xlstm: csrc/mlstm.cu (parallel form, recurrence) and
+# csrc/slstm.cu against their plain versions. (case, B, S, hd, dtype of
+# q/k/v or r): xLSTM-350M's widths (4 heads of 256) at the serve slice's
+# batch and prompt and at S = 2048 (parallel form), a ragged S that is no
+# multiple of the 32-query tile, fp32, and the reduced configs' hd = 32
+XLSTM_HEADS = 4
+XLSTM_PAR_CASES = [("serve", 4, 512, 256, torch.bfloat16),
+                   ("long", 4, 2048, 256, torch.bfloat16),
+                   ("ragged", 2, 300, 256, torch.bfloat16),
+                   ("fp32", 1, 512, 256, torch.float32),
+                   ("hd32", 2, 100, 32, torch.float32),
+                   ("hd32_bf16", 2, 77, 32, torch.bfloat16)]
+# the recurrences: the serve prefill from the model's initial state (then
+# its decode step, S = 1, from the state it leaves), and from carried states
+XLSTM_REC_CASES = [("serve_prefill", 4, 512, 256, torch.bfloat16, False),
+                   ("ragged", 2, 77, 256, torch.bfloat16, True),
+                   ("fp32", 2, 200, 256, torch.float32, True),
+                   ("hd32", 2, 100, 32, torch.float32, True)]
+# |kernel - plain| <= tol * max(1, max |plain|), per output: both compute
+# in fp32 from the same inputs (bf16 operands are exact in fp32) and differ
+# by the order of their sums (over hd, and over the keys in the parallel
+# form) and by fused multiply-adds in the dot products
+XLSTM_TOL = 1e-4
+# the reference's identity forward ~ prefill + decode
+# (tests/test_archs_smoke.py:59-89) at the reduced config: its own limit,
+# allclose(5e-2, 5e-2) on the bf16 model, printed as a reading: the
+# reference itself fails it on the CPU at PRNGKey(2), max |diff| 0.069
+# (tests/test_torch_xlstm.py::test_bf16_identity_readings). The gates, on
+# max |diff| of the logits (which reach ~1): fp32 within 1e-4 (its
+# readings, CPU and card, 3e-6 to 1.7e-5), bf16 within 0.1
+XLSTM_IDENTITY_TOL = dict(atol=5e-2, rtol=5e-2)
+XLSTM_IDENTITY_ATOL = {"float32": 1e-4, "bfloat16": 0.1}
+# xLSTM-350M's logits through the kernels against the plain mixers' at full
+# width and depth in fp32: each mixer agrees within ~1e-6 of its outputs
+# and the 24 layers amplify a perturbation ~x200-500 (their prefill and
+# forward logits differ by 2.7e-4 and 2.6e-3 on an H100 80GB HBM3 at 700
+# W, scripts/xlstm_conditioning.py). In bf16 a rounding that flips one ulp
+# (4e-3) is amplified the same way, to 0.9 at 24 layers: the bf16 model's
+# comparison at full depth is a reading, and is gated within LOGITS_ATOL
+# at XLSTM_CUT (one mLSTM and one sLSTM layer, 2e-3 and 6e-3 there)
+XLSTM_FP32_LOGITS_ATOL = 1e-2
+XLSTM_CUT = "0,7"
+SERVE_XLSTM = dict(SLICE, arch="xlstm-350m")
+
+
+def _xl_rand(gen):
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    return r
+
+
+def _mlstm_inputs(b, s, hd, dtype, seed, carried=True):
+    """q, k (divided by sqrt(hd)), v in ``dtype``; the log input gate
+    ~ N(0, 1) and the log forget gate log_sigmoid(N(1, 1)) (the model's
+    forget bias 1); and a carried (C, n, m), or the model's zeros."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    r, h = _xl_rand(gen), XLSTM_HEADS
+    args = (r(b, s, h, hd).to(dtype),
+            (r(b, s, h, hd) / math.sqrt(hd)).to(dtype),
+            r(b, s, h, hd).to(dtype), r(b, s, h),
+            F.logsigmoid(r(b, s, h) + 1.0))
+    state = (0.1 * r(b, h, hd, hd), 0.1 * r(b, h, hd),
+             torch.rand((b, h), generator=gen, device="cuda") * 2 - 1)
+    if not carried:
+        state = tuple(torch.zeros_like(t) for t in state)
+    return args, state
+
+
+def _slstm_inputs(b, s, hd, dtype, seed, carried=True):
+    """The four pre-activations ~ N(0, 1), r_g at their fan-in scale in
+    ``dtype``, and a carried (c, n, h, m) or the model's initial state."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    r, h = _xl_rand(gen), XLSTM_HEADS
+    z = tuple(r(b, s, h, hd) for _ in range(4))
+    rr = tuple((r(h, hd, hd) / math.sqrt(hd)).to(dtype) for _ in range(4))
+    if carried:
+        u = torch.rand((2, b, h, hd), generator=gen, device="cuda")
+        state = (0.3 * r(b, h, hd), 0.5 + 1.5 * u[0], 0.3 * r(b, h, hd),
+                 2 * u[1] - 1)
+    else:
+        zero = torch.zeros((b, h, hd), device="cuda")
+        state = (zero, zero.clone(), zero.clone(), torch.full_like(
+            zero, -1e30))
+    return z, rr, state
+
+
+def _flat_tensors(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for y in x for t in _flat_tensors(y)]
+
+
+def _same(a, b_):
+    fa, fb = _flat_tensors(a), _flat_tensors(b_)
+    return len(fa) == len(fb) and all(torch.equal(x, y)
+                                      for x, y in zip(fa, fb))
+
+
+def _sliced(args, lo, hi):
+    return tuple(a[:, lo:hi].contiguous() for a in args)
+
+
+def _split_equal(run, args, state, full, t):
+    """A recurrence launched over steps [0, t) then [t, S) from the first
+    launch's state: bitwise the one launch ``full`` over [0, S)."""
+    out1, st1 = run(_sliced(args, 0, t), state)
+    out2, st2 = run(_sliced(args, t, args[0].shape[1]), st1)
+    return _same((torch.cat([out1, out2], 1), st2), full)
+
+
+@torch.no_grad()
+def check_xlstm():
+    """The three xLSTM kernels against their plain versions on the card,
+    at ``XLSTM_PAR_CASES`` and ``XLSTM_REC_CASES`` (and each recurrence's
+    decode step at the serve shape): every output within ``XLSTM_TOL``, 10
+    repeated launches bitwise, and each recurrence split at two points
+    (3/5 of S, and S - 1: a prefill then a one-step decode) bitwise one
+    launch. One ``[kernel-check] xlstm`` line a case; raises on any
+    failure. Returns the lines and the serve shapes' max abs errors."""
+    lines = []
+
+    def report(kernel, case, shape, dtype, pairs, bitwise):
+        err = {k: _scan_err(g, w) for k, (g, w) in pairs.items()}
+        line = dict(kernel=kernel, case=case, shape=list(shape),
+                    dtype=str(dtype).split(".")[-1], err=err, tol=XLSTM_TOL,
+                    max_abs_err=max(float((g.float() - w.float()).abs().max())
+                                    for g, w in pairs.values()),
+                    bitwise=bitwise)
+        line["ok"] = (all(e <= XLSTM_TOL for e in err.values())
+                      and all(bitwise.values()))
+        print("[kernel-check] xlstm " + json.dumps(line), flush=True)
+        lines.append(line)
+        return line
+
+    def reps10(run, first):
+        return all(_same(run(), first) for _ in range(10))
+
+    for case, b, s, hd, dtype in XLSTM_PAR_CASES:
+        args, _ = _mlstm_inputs(b, s, hd, dtype, seed=s + hd)
+        out = MLSTM.mlstm_parallel_cuda(*args)
+        want = MLSTM.mlstm_parallel_plain(*args)
+        report("mlstm_parallel", case, (b, s, XLSTM_HEADS, hd), dtype,
+               {"out": (out, want)},
+               {"reps10": reps10(lambda: MLSTM.mlstm_parallel_cuda(*args),
+                                 out)})
+        del args, out, want
+
+    def mlstm_run(args, state):
+        return MLSTM.mlstm_recurrent_cuda(*args, *state)
+
+    def slstm_run(args, state, rr=None):
+        return SLSTM.slstm_cuda(args, rr, state)
+
+    for kernel in ("mlstm_recurrent", "slstm"):
+        names = (("out", "C", "n", "m") if kernel == "mlstm_recurrent"
+                 else ("h_all", "c", "n", "h", "m"))
+        for case, b, s, hd, dtype, carried in XLSTM_REC_CASES:
+            seed = s + hd + (kernel == "slstm")
+            if kernel == "mlstm_recurrent":
+                args, state = _mlstm_inputs(b, s, hd, dtype, seed, carried)
+                run, plain = mlstm_run, (
+                    lambda a, st: MLSTM.mlstm_recurrent_plain(*a, *st))
+            else:
+                args, rr, state = _slstm_inputs(b, s, hd, dtype, seed,
+                                                carried)
+                run = functools.partial(slstm_run, rr=rr)
+                plain = functools.partial(
+                    lambda a, st, rr: SLSTM.slstm_plain(a, rr, st), rr=rr)
+            got = run(args, state)
+            want = plain(args, state)
+            pairs = dict(zip(names, zip(_flat_tensors(got),
+                                        _flat_tensors(want))))
+            bitwise = dict(
+                reps10=reps10(lambda: run(args, state), got),
+                split_3_5=_split_equal(run, args, state, got, s * 3 // 5),
+                split_last=_split_equal(run, args, state, got, s - 1))
+            report(kernel, case, (b, s, XLSTM_HEADS, hd), dtype, pairs,
+                   bitwise)
+            if case == "serve_prefill":
+                # the decode step from the state the prefill leaves
+                if kernel == "mlstm_recurrent":
+                    dargs, _ = _mlstm_inputs(b, 1, hd, dtype, seed + 1)
+                else:
+                    dargs = _slstm_inputs(b, 1, hd, dtype, seed + 1)[0]
+                dstate = tuple(_flat_tensors(got)[1:])
+                dgot = run(dargs, dstate)
+                dwant = plain(dargs, dstate)
+                report(kernel, "serve_decode", (b, 1, XLSTM_HEADS, hd),
+                       dtype, dict(zip(names, zip(_flat_tensors(dgot),
+                                                  _flat_tensors(dwant)))),
+                       dict(reps10=reps10(lambda: run(dargs, dstate), dgot)))
+            del args, state, got, want
+    _free_device_memory()
+    failed = [f"{x['kernel']}/{x['case']}" for x in lines if not x["ok"]]
+    if failed:
+        raise AssertionError(f"xLSTM kernels vs plain failed: {failed}")
+    by = {(x["kernel"], x["case"]): x["max_abs_err"] for x in lines}
+    return dict(lines=lines, max_abs_err=dict(
+        mlstm_parallel=by[("mlstm_parallel", "serve")],
+        mlstm_recurrent=max(by[("mlstm_recurrent", "serve_prefill")],
+                            by[("mlstm_recurrent", "serve_decode")]),
+        slstm=max(by[("slstm", "serve_prefill")],
+                  by[("slstm", "serve_decode")])))
+
+
+def _xlstm_bounds(b, s, hd, elt):
+    """Least time of each xLSTM kernel at (b, s, 4 heads of hd), q/k/v or
+    r in ``elt``-byte elements: inputs read once, outputs written once,
+    against the operations (2 a multiply-add) and the exponentials at the
+    SFU's rate. The parallel form's two products run over the s (s + 1) / 2
+    live pairs: q k^T, whose bf16 operands multiply exactly into an fp32
+    sum, at the bf16 tensor cores' rate (at the CUDA cores' for fp32
+    operands), and S v, whose scores are fp32, at the CUDA cores'. The
+    recurrence's 6 a state element a step (fi C, v k, ii (v k), their sum,
+    C q) and the sLSTM's four (hd x hd) matrix-vector products a step over
+    the fp32 h run at the CUDA cores' rate."""
+    h = XLSTM_HEADS
+    tok, gates = b * s * h * hd, b * s * h
+    pairs = b * h * s * (s + 1) // 2
+    state = b * h * (hd * hd + hd + 1) * 4
+    qk = 2 * hd * pairs
+    return dict(
+        mlstm_parallel=_bound(3 * tok * elt + 2 * gates * 4 + tok * 4,
+                              qk * (elt == 4) + 2 * hd * pairs,
+                              torch.float32, exps=pairs,
+                              tc_flops=qk * (elt == 2)),
+        mlstm_recurrent=_bound(3 * tok * elt + 2 * gates * 4 + tok * 4
+                               + 2 * state, 6 * b * h * s * hd * hd,
+                               torch.float32, exps=3 * gates),
+        slstm=_bound(4 * tok * 4 + 4 * h * hd * hd * elt + tok * 4
+                     + 2 * 4 * b * h * hd * 4, 8 * b * h * s * hd * hd,
+                     torch.float32, exps=5 * tok))
+
+
+@torch.no_grad()
+def time_xlstm(xlstm_check, serve):
+    """The three xLSTM kernels at the serve slice's shapes (B = 4, prompt
+    512; the recurrences also at the decode step, S = 1), each beside its
+    plain version and its bound — the ``{"kernels": ...}`` entries, whose
+    launches are ``[serve-xlstm]``'s: the static engine's generate for the
+    recurrences, its ``forward`` for the parallel form."""
+    b, s = SERVE_XLSTM["batch"], SERVE_XLSTM["prompt"]
+    hd, dtype = registry.get(SERVE_XLSTM["arch"]).head_dim, torch.bfloat16
+    args, _ = _mlstm_inputs(b, s, hd, dtype, seed=31)
+    _, zero = _mlstm_inputs(b, 1, hd, dtype, seed=31, carried=False)
+    dargs, dstate = _mlstm_inputs(b, 1, hd, dtype, seed=32)
+    z, rr, st0 = _slstm_inputs(b, s, hd, dtype, seed=33, carried=False)
+    dz, _, dst = _slstm_inputs(b, 1, hd, dtype, seed=34)
+    ms = dict(
+        mlstm_parallel=_ms(lambda: MLSTM.mlstm_parallel_cuda(*args),
+                           reps=20),
+        mlstm_recurrent=_ms(lambda: MLSTM.mlstm_recurrent_cuda(
+            *args, *zero), reps=10),
+        mlstm_recurrent_decode=_queued_ms(
+            lambda: MLSTM.mlstm_recurrent_cuda(*dargs, *dstate)),
+        slstm=_ms(lambda: SLSTM.slstm_cuda(z, rr, st0), reps=5),
+        slstm_decode=_queued_ms(lambda: SLSTM.slstm_cuda(dz, rr, dst)))
+    plain = dict(
+        mlstm_parallel=_ms(lambda: MLSTM.mlstm_parallel_plain(*args),
+                           reps=3),
+        mlstm_recurrent=_ms(lambda: MLSTM.mlstm_recurrent_plain(
+            *args, *zero), reps=1, rounds=3, warmup=1),
+        mlstm_recurrent_decode=_ms(lambda: MLSTM.mlstm_recurrent_plain(
+            *dargs, *dstate), reps=20),
+        slstm=_ms(lambda: SLSTM.slstm_plain(z, rr, st0), reps=1, rounds=3,
+                  warmup=1),
+        slstm_decode=_ms(lambda: SLSTM.slstm_plain(dz, rr, dst), reps=20))
+    bounds = _xlstm_bounds(b, s, hd, 2)
+    decode_bounds = _xlstm_bounds(b, 1, hd, 2)
+    ml_src = "src/repro_torch/kernels/csrc/mlstm.cu"
+    gen = serve["launches"]
+    shape = f"(B={b}, S={s}, 4 heads of {hd}, bf16)"
+    kernels = [
+        _entry("mlstm_parallel", ml_src,
+               "no TPU kernel: XLA einsums (src/repro/models/xlstm.py:57-69)",
+               serve["forward_launches"]["mlstm_parallel"],
+               f"forward {shape}: one a mLSTM layer",
+               xlstm_check["max_abs_err"]["mlstm_parallel"],
+               ms["mlstm_parallel"], plain["mlstm_parallel"],
+               bounds["mlstm_parallel"], None),
+        _entry("mlstm_recurrent", ml_src,
+               "no TPU kernel: XLA lax.scan (src/repro/models/xlstm.py:"
+               "70-89)", gen["mlstm_recurrent"],
+               f"static engine generate {shape}, 32 tokens: one a mLSTM "
+               f"layer in the prefill and in each decode step",
+               xlstm_check["max_abs_err"]["mlstm_recurrent"],
+               ms["mlstm_recurrent"], plain["mlstm_recurrent"],
+               bounds["mlstm_recurrent"], None),
+        _entry("slstm", "src/repro_torch/kernels/csrc/slstm.cu",
+               "no TPU kernel: XLA lax.scan (src/repro/models/xlstm.py:"
+               "128-145)", gen["slstm"],
+               f"static engine generate {shape}, 32 tokens: one a sLSTM "
+               f"layer in the prefill and in each decode step",
+               xlstm_check["max_abs_err"]["slstm"], ms["slstm"],
+               plain["slstm"], bounds["slstm"], None)]
+    for k in kernels:
+        k["library_note"] = ("none: no single PyTorch call computes this "
+                             "function")
+        k["bound_note"] = ("operations: fp32 at the CUDA cores' rate"
+                           if k["bound_by"] == "operations" else "bytes")
+    if kernels[0]["bound_by"] == "operations":
+        kernels[0]["bound_note"] = (
+                "operations: q k^T (bf16 operands, fp32 sums) at the bf16 "
+            "tensor cores' rate plus S v (fp32 scores) at the fp32 CUDA "
+            "cores' rate")
+    for k in kernels[1:]:
+        name = k["name"]
+        k.update(decode_ms=ms[f"{name}_decode"],
+                 decode_plain_ms=plain[f"{name}_decode"],
+                 decode_bound_ms=decode_bounds[name][0],
+                 decode_bound_by=decode_bounds[name][1])
+        print(f"[timing] {name} decode step (B={b}, S=1): kernel "
+              f"{k['decode_ms']:.4f} ms, plain {k['decode_plain_ms']:.4f} "
+              f"ms, bound {k['decode_bound_ms']:.4f} ms "
+              f"({k['decode_bound_by']})", flush=True)
+    kernels[2]["bound_note"] += (
+        f"; latency-paced instead: {s} dependent steps, each four (hd x hd) "
+        f"matrix-vector products over shared memory and a cluster barrier")
+    del args, zero, dargs, dstate, z, rr, st0, dz, dst
+    _free_device_memory()
+    return kernels
+
+
+def _vs_plain(fn):
+    """(max |kernels - plain|, max row rel. error, argmax agreement) of the
+    logits ``fn()`` gives through the kernels and under
+    :func:`_plain_mixers`."""
+    got = fn()
+    with _plain_mixers():
+        want = fn()
+    rel = (torch.linalg.vector_norm((got - want).float(), dim=-1)
+           / torch.linalg.vector_norm(want.float(), dim=-1)).max().item()
+    return dict(max_abs_err=(got - want).abs().max().item(), row_rel_err=rel,
+                argmax_agreement=(got.argmax(-1) == want.argmax(-1)).float()
+                .mean().item())
+
+
+def _forward_identity(params, cfg, toks):
+    """forward's logits at the last two positions against prefill of all
+    but the last token and one decode step: (max |diff| of each, both
+    within the reference's ``XLSTM_IDENTITY_TOL``)."""
+    s = toks.shape[1]
+    full, _ = T.forward(params, {"tokens": toks}, cfg)
+    last, caches = T.prefill_step(params, {"tokens": toks[:, :-1]}, cfg,
+                                  max_seq=s)
+    step, _ = T.decode_step(params, caches, toks[:, -1:], s - 1, cfg)
+    pairs = ((last[:, 0], full[:, -2]), (step[:, 0], full[:, -1]))
+    return dict(prefill_max_abs=(pairs[0][0] - pairs[0][1]).abs().max().item(),
+                decode_max_abs=(pairs[1][0] - pairs[1][1]).abs().max().item(),
+                within_tol=all(bool(torch.allclose(
+                    a.float(), b_.float(), **XLSTM_IDENTITY_TOL))
+                    for a, b_ in pairs))
+
+
+@torch.inference_mode()
+def _xlstm_model_checks(label):
+    """xLSTM-350M beside ``[serve-xlstm]``'s bf16 serve: its ``forward`` at
+    (4, 512), full width and depth, through the parallel kernel (the
+    launches: the parallel form once a mLSTM layer, the sLSTM once a sLSTM
+    layer, nothing else; its ms; its logits against the plain mixers', a
+    reading); the bf16 model cut to ``XLSTM_CUT``'s two layers, its prefill
+    and forward logits against the plain mixers' within ``LOGITS_ATOL``;
+    the fp32 model's at full width and depth within
+    ``XLSTM_FP32_LOGITS_ATOL``; ``forward`` against prefill + decode (the
+    reference's identity) at full width (a reading) and at the reduced
+    config (hd 32) within ``XLSTM_IDENTITY_ATOL`` in each dtype, the
+    reference's own allclose beside it."""
+    cfg = registry.get(SERVE_XLSTM["arch"])
+    b, s = SERVE_XLSTM["batch"], SERVE_XLSTM["prompt"]
+    _, _, mlstm_layers, slstm_layers = _layer_kinds(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompt = torch.randint(1, cfg.vocab, (b, s), generator=gen, device="cuda")
+    batch = {"tokens": prompt}
+    params = T.init(cfg, seed=0, device="cuda")
+    _zero_counts()
+    (logits, _), t_fwd = _timed(lambda: T.forward(params, batch, cfg))
+    counts = _counts()
+    want = dict(_no_launches(), mlstm_parallel=mlstm_layers,
+                slstm=slstm_layers)
+    if counts != want:
+        raise AssertionError(f"forward launched {counts}, expected {want}")
+    bf16 = _vs_plain(lambda: T.forward(params, batch, cfg)[0])
+    identity_full_width = _forward_identity(params, cfg, prompt)
+    del params, logits
+
+    def vs_plain(c):
+        p = T.init(c, seed=0, device="cuda")
+        return dict(
+            prefill=_vs_plain(lambda: T.prefill_step(p, batch, c,
+                                                     max_seq=s)[0]),
+            forward=_vs_plain(lambda: T.forward(p, batch, c)[0]))
+    cut = launch_train.cut_layers(cfg, XLSTM_CUT)
+    bf16_cut = dict(vs_plain(cut), pattern=list(cut.block_pattern),
+                    bound=f"max abs err <= {LOGITS_ATOL}")
+    fp32 = dict(vs_plain(cfg.replace(dtype_name="float32")),
+                bound=f"max abs err <= {XLSTM_FP32_LOGITS_ATOL}")
+    reduced = {}
+    for dtype in ("float32", "bfloat16"):
+        rcfg = cfg.reduced(dtype_name=dtype)
+        rtoks = torch.randint(1, rcfg.vocab, (2, 64), generator=gen,
+                              device="cuda")
+        reduced[dtype] = _forward_identity(
+            T.init(rcfg, seed=0, device="cuda"), rcfg, rtoks)
+    reduced.update(reference_tol=XLSTM_IDENTITY_TOL,
+                   bound=XLSTM_IDENTITY_ATOL)
+    result = dict(forward_ms=t_fwd * 1e3, forward_shape=[b, s],
+                  forward_launches=dict(mlstm_parallel=counts[
+                      "mlstm_parallel"], slstm=counts["slstm"]),
+                  forward_bf16_vs_plain=bf16, bf16_cut_vs_plain=bf16_cut,
+                  fp32_vs_plain=fp32,
+                  identity_full_width=identity_full_width,
+                  identity_reduced=reduced)
+    print(f"[{label}-model] " + json.dumps(result), flush=True)
+    off = [f"{name} {k}" for name, got, atol in (
+               ("bf16 cut", bf16_cut, LOGITS_ATOL),
+               ("fp32", fp32, XLSTM_FP32_LOGITS_ATOL))
+           for k in ("prefill", "forward")
+           if not got[k]["max_abs_err"] <= atol]
+    off += [f"reduced {dtype} identity" for dtype, atol
+            in XLSTM_IDENTITY_ATOL.items()
+            if not max(reduced[dtype]["prefill_max_abs"],
+                       reduced[dtype]["decode_max_abs"]) <= atol]
+    if off:
+        raise AssertionError(f"xLSTM-350M through the kernels: beyond its "
+                             f"bound in {off}: {result}")
+    return result
+
+
+def run_serve_xlstm(label="serve-xlstm"):
+    """xLSTM-350M at full width and depth (24 layers: 21 mLSTM, 3 sLSTM)
+    through the static engine by :func:`_serve_static` (greedy twice,
+    bitwise; the mLSTM recurrence and the sLSTM once a layer in the prefill
+    and in each decode step; prefill ms, decode tok/s, peak memory; its
+    prefill logits against the plain mixers', a reading: the bf16 model is
+    gated at ``XLSTM_CUT`` in :func:`_xlstm_model_checks`, which follows);
+    ``launch.serve --engine continuous`` with xLSTM must raise the paged
+    engine's refusal (its states are unpaged)."""
+    _free_device_memory()
+    with torch.inference_mode():
+        out, vs_plain = _serve_static(SERVE_XLSTM)
+        out.update(vs_plain())
+    print(f"[{label}] " + json.dumps(out), flush=True)
+    if not out["logits_finite"]:
+        raise AssertionError("xLSTM-350M's prefill logits are not finite")
+    _free_device_memory()
+    out.update(_xlstm_model_checks(label))
+    out["launches"] = dict(out["xlstm_launches"])
+    _free_device_memory()
+    argv = ["--engine", "continuous", "--arch", SERVE_XLSTM["arch"],
+            "--reduced"]
+    try:
+        launch_serve.main(argv)
+    except NotImplementedError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError(f"launch.serve {' '.join(argv)} served an "
+                             f"xLSTM arch on the paged engine")
+    print(f"[{label}-refusal] " + json.dumps(dict(
+        entry="repro_torch.launch.serve.main " + " ".join(argv),
+        refusal=refusal)), flush=True)
+    if "SSM states are unpaged" not in refusal:
+        raise AssertionError(f"the paged engine refused with {refusal!r}")
+    return out
+
+
 def library_m_invariance():
     """A finding, not a check: whether ``torch.matmul`` (bf16, and fp32 as
     the training path's ``layers.dot`` calls it), ``F.layer_norm`` and
@@ -4411,6 +4946,8 @@ def _main(t0, tune_root):
     lap("kernel-check fingerprint")
     scan_check = check_scan()
     lap("kernel-check scan")
+    xlstm_check = check_xlstm()
+    lap("kernel-check xlstm")
     library_m_invariance()
     serve = run_slice()
     serve_window = run_slice(SLICE_WINDOW, "slice-window")
@@ -4432,6 +4969,8 @@ def _main(t0, tune_root):
     lap("serve-nemotron")
     serve_jamba = run_serve_jamba()
     lap("serve-jamba")
+    serve_xlstm = run_serve_xlstm()
+    lap("serve-xlstm")
     _tune_cache(tune_root, "train")
     train = run_train()
     lap("train")
@@ -4470,6 +5009,7 @@ def _main(t0, tune_root):
     kernels += time_masks(mask_check, window_launches)
     kernels += time_serve(continuous, paged_check, gemm_check, rows_check)
     kernels += time_scan(scan_check, train_jamba["launches_per_step"])
+    kernels += time_xlstm(xlstm_check, serve_xlstm)
     lap("timing")
     kernels.append(dict(
         name="fingerprint", route="cuda",
@@ -4514,6 +5054,9 @@ def _main(t0, tune_root):
           f"bitwise ({serve_jamba['scan_launches']} scan launches) and "
           f"trained {train_jamba['layers']} twice to one digest chain at "
           f"{train_jamba['steady_step_ms']:.1f} ms a step; "
+          f"{serve_xlstm['arch']} served {serve_xlstm['layers']} layers "
+          f"bitwise ({serve_xlstm['launches']}) at "
+          f"{serve_xlstm['decode_tok_per_s']:.1f} tok/s; "
           f"{time.perf_counter() - t0:.1f}s in all",
           flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -2,11 +2,11 @@
 
 The port's counterpart of ``repro.configs.base.ModelConfig``, holding the
 fields of the features the port implements so far (decoder-only stacks of
-attention, mixture-of-experts and Mamba blocks); fields for other families
-arrive with them. Two changes from the reference: ``dtype`` is a torch dtype, and
-``attention_impl`` names the port's implementations — ``"torch"`` (plain
-PyTorch attention, counterpart of ``"xla"``) and ``"cuda"`` (the
-hand-written DASH kernels, counterpart of ``"pallas"``).
+attention, mixture-of-experts, Mamba and xLSTM blocks); fields for other
+families arrive with them. Two changes from the reference: ``dtype`` is a
+torch dtype, and ``attention_impl`` names the port's implementations —
+``"torch"`` (plain PyTorch attention, counterpart of ``"xla"``) and
+``"cuda"`` (the hand-written DASH kernels, counterpart of ``"pallas"``).
 """
 from __future__ import annotations
 
@@ -19,8 +19,8 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | moe | hybrid (the families ported
-                                   # so far)
+    family: str                    # dense | moe | ssm | hybrid (the
+                                   # families ported so far)
     n_layers: int
     d_model: int
     n_heads: int

@@ -15,6 +15,7 @@ ARCHS = [
     "phi3_5_moe",
     "llama4_scout",
     "jamba_1_5_large",
+    "xlstm_350m",
     "dash_paper",
 ]
 
@@ -26,6 +27,7 @@ ALIASES = {
     "phi3.5-moe-42b-a6.6b": "phi3_5_moe",
     "llama4-scout-17b-a16e": "llama4_scout",
     "jamba-1.5-large-398b": "jamba_1_5_large",
+    "xlstm-350m": "xlstm_350m",
     "dash-paper": "dash_paper",
 }
 

@@ -1,0 +1,217 @@
+"""The mLSTM mixer's two forms: plain versions, CUDA kernels, dispatch.
+
+Counterpart of the core of ``repro.models.xlstm.apply_mlstm``, which XLA
+computes as a quadratic parallel form without a state (``:57-69``) and as a
+``lax.scan`` of the ``(C, n, m)`` recurrence with one (``:70-89``). For q,
+k, v (B, S, H, hd) in the model dtype (k already divided by sqrt(hd)) and
+the log input and forget gates ig, fg (B, S, H) fp32:
+
+* parallel form (:func:`mlstm_parallel`): with F = cumsum(fg) over S and
+  D_ij = (F_i - F_j) + ig_j for j <= i, m_i = max_j D_ij and S_ij = (q_i .
+  k_j) exp(D_ij - m_i), ``out_i = sum_j S_ij v_j / max(max(|sum_j S_ij|,
+  exp(-m_i)), 1e-6)``;
+* recurrence (:func:`mlstm_recurrent`): from the carried C (B, H, hd, hd),
+  n (B, H, hd), m (B, H) fp32, per step m' = max(f + m, i), C = fi C + ii
+  v k^T, n = fi n + ii k, ``out = C q / max(|q . n|, exp(-m'))``; no
+  ``1e-6`` clamp, and the model's initial m is 0.
+
+Both return ``out`` (B, S, H, hd) fp32 (the recurrence also the new
+state). ``csrc/mlstm.cu`` holds both kernels; it takes hd 32 (the reduced
+configs) and 256 (xLSTM-350M). The dispatchers take the plain version for
+CPU tensors and launch the kernel for CUDA tensors (raising for anything it
+does not take), never one in place of the other. On the card each kernel
+runs inside a ``torch.autograd.Function`` whose backward raises: the
+backward kernels come with xLSTM training (ROADMAP A8). The plain versions
+are differentiable by autograd.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+
+F32 = torch.float32
+NEG = -1e30
+HEAD_DIMS = (32, 256)            # the head dims the kernels take
+DTYPES = (torch.bfloat16, F32)   # q, k, v dtypes the kernels take
+TRAINING = ("the mLSTM kernels have no backward yet: it comes with xLSTM "
+            "training (ROADMAP A8, 'xLSTM training')")
+
+# launches of each CUDA kernel; the wrappers add one per launch and nothing
+# else touches them
+launches_parallel = 0
+launches_recurrent = 0
+
+
+def mlstm_parallel_plain(q, k, v, ig, fg):
+    """The parallel form as the reference writes it: the (B, S, S, H) gate
+    decay, weights and scores in full."""
+    s = q.shape[1]
+    F = torch.cumsum(fg, 1)
+    Dm = F[:, :, None, :] - F[:, None, :, :] + ig[:, None, :, :]
+    tri = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    Dm = torch.where(tri[None, :, :, None], Dm, NEG)
+    m = Dm.amax(2, keepdim=True)
+    w = torch.exp(Dm - m)
+    scores = torch.einsum("bihe,bjhe->bijh", q.to(F32), k.to(F32)) * w
+    norm = torch.maximum(scores.sum(2).abs(), torch.exp(-m[:, :, 0]))
+    out = torch.einsum("bijh,bjhe->bihe", scores, v.to(F32))
+    return out / torch.clamp_min(norm[..., None], 1e-6)
+
+
+def mlstm_recurrent_plain(q, k, v, ig, fg, C, n, m):
+    """The recurrence one step at a time: returns ``(out, (C, n, m))``."""
+    outs = []
+    for t in range(q.shape[1]):
+        qt, kt, vt = q[:, t], k[:, t], v[:, t]
+        it, ft = ig[:, t], fg[:, t]
+        m_new = torch.maximum(ft + m, it)
+        fi = torch.exp(ft + m - m_new)[..., None, None]
+        ii = torch.exp(it - m_new)[..., None, None]
+        C = fi * C + ii * (vt[..., :, None] * kt[..., None, :])
+        n = fi[..., 0] * n + ii[..., 0] * kt
+        num = torch.einsum("bhe,bhve->bhv", qt.to(F32), C)
+        den = torch.maximum(torch.abs(torch.sum(qt.to(F32) * n, -1)),
+                            torch.exp(-m_new))
+        outs.append(num / den[..., None])
+        m = m_new
+    return torch.stack(outs, 1), (C, n, m)
+
+
+# --------------------------------------------------------------------------- #
+# CUDA kernels (csrc/mlstm.cu)
+# --------------------------------------------------------------------------- #
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = build.load("mlstm")
+    lib.dash_mlstm_parallel.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.dash_mlstm_recurrent.argtypes = [ctypes.c_void_p] * 12 + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p]
+    for fn in (lib.dash_mlstm_parallel, lib.dash_mlstm_recurrent):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _stream(device):
+    with torch.cuda.device(device):
+        return torch.cuda.current_stream().cuda_stream
+
+
+def _check(q, k, v, ig, fg, state=()):
+    """Raise for operands the kernels do not take."""
+    b, s, h, hd = q.shape if q.dim() == 4 else (0,) * 4
+    tensors = (q, k, v, ig, fg, *state)
+    if not all(t.is_cuda and t.device == q.device for t in tensors):
+        raise ValueError("the mLSTM kernels need every operand on one CUDA "
+                         "device")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"the mLSTM kernels take q, k, v of one dtype in "
+                        f"{DTYPES}; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if any(t.dtype != F32 for t in (ig, fg, *state)):
+        raise TypeError("the mLSTM kernels take fp32 gates and state")
+    want = {"q": (q.shape, (b, s, h, hd)), "k": (k.shape, (b, s, h, hd)),
+            "v": (v.shape, (b, s, h, hd)), "ig": (ig.shape, (b, s, h)),
+            "fg": (fg.shape, (b, s, h))}
+    if state:
+        want.update(C=(state[0].shape, (b, h, hd, hd)),
+                    n=(state[1].shape, (b, h, hd)), m=(state[2].shape, (b, h)))
+    bad = {k_: tuple(g) for k_, (g, w) in want.items() if tuple(g) != w}
+    if bad or hd not in HEAD_DIMS or s < 1 or b < 1:
+        raise ValueError(f"the mLSTM kernels take q, k, v (B, S, H, hd) with "
+                         f"hd in {HEAD_DIMS}, gates (B, S, H), state (B, H, "
+                         f"hd, hd), (B, H, hd), (B, H); got q "
+                         f"{tuple(q.shape)}, mismatched {bad}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the mLSTM kernels need contiguous operands")
+
+
+def mlstm_parallel_cuda(q, k, v, ig, fg):
+    """Launch the parallel kernel; ``F = cumsum(fg)`` is ``torch.cumsum``
+    here, as the plain version takes it."""
+    global launches_parallel
+    _check(q, k, v, ig, fg)
+    b, s, h, hd = q.shape
+    F = torch.cumsum(fg, 1)
+    out = torch.empty((b, s, h, hd), dtype=F32, device=q.device)
+    err = _lib().dash_mlstm_parallel(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), F.data_ptr(),
+        ig.data_ptr(), out.data_ptr(), b, s, h, hd,
+        int(q.dtype == torch.bfloat16), _stream(q.device))
+    if err:
+        raise RuntimeError(f"mLSTM parallel kernel failed to launch: "
+                           f"cudaError {err}")
+    launches_parallel += 1
+    return out
+
+
+def mlstm_recurrent_cuda(q, k, v, ig, fg, C, n, m):
+    """Launch the recurrence from ``(C, n, m)``: returns ``(out, (C', n',
+    m'))``, the new state in new tensors."""
+    global launches_recurrent
+    _check(q, k, v, ig, fg, (C, n, m))
+    b, s, h, hd = q.shape
+    out = torch.empty((b, s, h, hd), dtype=F32, device=q.device)
+    C1, n1, m1 = (torch.empty_like(t) for t in (C, n, m))
+    err = _lib().dash_mlstm_recurrent(
+        *(t.data_ptr() for t in (q, k, v, ig, fg, C, n, m, out, C1, n1, m1)),
+        b, s, h, hd, int(q.dtype == torch.bfloat16), _stream(q.device))
+    if err:
+        raise RuntimeError(f"mLSTM recurrent kernel failed to launch: "
+                           f"cudaError {err}")
+    launches_recurrent += 1
+    return out, (C1, n1, m1)
+
+
+class _ParallelFn(torch.autograd.Function):
+    """The parallel kernel; its backward raises (ROADMAP A8)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, ig, fg):
+        return mlstm_parallel_cuda(q, k, v, ig, fg)
+
+    @staticmethod
+    def backward(ctx, dout):
+        raise NotImplementedError(TRAINING)
+
+
+class _RecurrentFn(torch.autograd.Function):
+    """The recurrent kernel; its backward raises (ROADMAP A8)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, ig, fg, C, n, m):
+        out, state = mlstm_recurrent_cuda(q, k, v, ig, fg, C, n, m)
+        return (out, *state)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(TRAINING)
+
+
+def _on_cpu(name, tensors):
+    if any(t.device.type != "cpu" for t in tensors):
+        raise ValueError(f"{name} runs on CUDA or CPU tensors, not "
+                         f"{sorted({str(t.device) for t in tensors})}")
+
+
+def mlstm_parallel(q, k, v, ig, fg):
+    """``out`` of the parallel form (module docstring): the CUDA kernel for
+    CUDA tensors, :func:`mlstm_parallel_plain` for CPU tensors."""
+    if q.is_cuda:
+        return _ParallelFn.apply(q, k, v, ig, fg)
+    _on_cpu("mlstm_parallel", (q, k, v, ig, fg))
+    return mlstm_parallel_plain(q, k, v, ig, fg)
+
+
+def mlstm_recurrent(q, k, v, ig, fg, C, n, m):
+    """``(out, (C, n, m))`` of the recurrence (module docstring): the CUDA
+    kernel for CUDA tensors, :func:`mlstm_recurrent_plain` for CPU
+    tensors."""
+    if q.is_cuda:
+        out, *state = _RecurrentFn.apply(q, k, v, ig, fg, C, n, m)
+        return out, tuple(state)
+    _on_cpu("mlstm_recurrent", (q, k, v, ig, fg, C, n, m))
+    return mlstm_recurrent_plain(q, k, v, ig, fg, C, n, m)

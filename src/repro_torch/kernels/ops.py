@@ -31,8 +31,10 @@ from repro_torch.core.schedules import cached_schedule
 from repro_torch.kernels import flash_bwd as FB
 from repro_torch.kernels import fingerprint as FP
 from repro_torch.kernels import flash_fwd as FF
+from repro_torch.kernels import mlstm as ML
 from repro_torch.kernels import ref as ref_mod
 from repro_torch.kernels import scan as SC
+from repro_torch.kernels import slstm as SL
 from repro_torch.kernels.flash_bwd import flash_bwd
 from repro_torch.kernels.flash_fwd import flash_fwd
 from repro_torch.kernels.gqa import validate_group
@@ -49,7 +51,9 @@ def launch_counts():
                 fwd_mask=FF.launches_mask, bwd_worker=FB.launches_worker,
                 bwd_serial=FB.launches_serial, fold=FB.launches_fold,
                 fingerprint=FP.launches, scan_fwd=SC.launches_fwd,
-                scan_bwd=SC.launches_bwd, scan_fold=SC.launches_fold)
+                scan_bwd=SC.launches_bwd, scan_fold=SC.launches_fold,
+                mlstm_parallel=ML.launches_parallel,
+                mlstm_recurrent=ML.launches_recurrent, slstm=SL.launches)
 
 
 def _flatten(x):  # (B, H, S, D) -> (BH, S, D)

@@ -18,15 +18,19 @@ KV, on the card.
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch jamba-1.5-large-398b --reduced --device cpu --prompt-len 128 \
         --gen 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \
+        --batch 4 --prompt-len 512 --gen 32
 
 ``--arch`` takes every ported arch (``configs/registry.py``). The
 mixture-of-experts archs (``phi3.5-moe-42b-a6.6b``,
-``llama4-scout-17b-a16e``) and Jamba (``jamba-1.5-large-398b``) serve on
-the static engine only: with ``--engine continuous`` they raise the paged
-engine's refusal before any weights are made, as in the reference
-(capacity routing couples the rows of a batch; SSM states are unpaged).
-On the card Jamba's scan runs ``csrc/selective_scan.cu``, in the prefill
-and in every decode step (S = 1, the carried state).
+``llama4-scout-17b-a16e``), Jamba (``jamba-1.5-large-398b``) and xLSTM
+(``xlstm-350m``) serve on the static engine only: with ``--engine
+continuous`` they raise the paged engine's refusal before any weights are
+made, as in the reference (capacity routing couples the rows of a batch;
+SSM and xLSTM states are unpaged). On the card Jamba's scan runs
+``csrc/selective_scan.cu``, and xLSTM's mixers ``csrc/mlstm.cu`` (the
+recurrence) and ``csrc/slstm.cu``, in the prefill and in every decode step
+(S = 1, the carried state).
 
 Weights are random, from ``--seed``. On the card the prefill attention is
 the causal DASH forward kernel (``attention_impl="cuda"``), or with

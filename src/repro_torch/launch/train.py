@@ -28,7 +28,10 @@
 mixture-of-experts ones too (their aux loss enters the objective, weighted
 by ``moe_aux_weight``, and is logged as ``aux``), and Jamba's hybrid of
 Mamba, MoE and attention blocks (on the card its scan runs
-``csrc/selective_scan.cu``). ``--layers`` cuts the depth and keeps the
+``csrc/selective_scan.cu``). ``xlstm-350m`` trains on the CPU (the plain
+mLSTM and sLSTM versions under autograd); on the card it raises before
+anything is allocated, as the xLSTM kernels have no backward yet (ROADMAP
+A8, "xLSTM training"). ``--layers`` cuts the depth and keeps the
 widths: ``N`` (a multiple of the block pattern's length) keeps the first N
 layers; a comma-separated list of positions in the pattern keeps one layer
 of each of those kinds, in order (``0,4``: Jamba's first ``mamba`` and its
@@ -116,6 +119,7 @@ from repro_torch.faults import FaultPlan, Injector, armed_checkpoint
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_fwd import BLOCK
 from repro_torch.kernels.ops import launch_counts
+from repro_torch.models import transformer as T
 from repro_torch.obs import (CompositeTracker, DivergenceAlarm, MemoryTracker,
                              Profiler, StepMeter, open_tracker,
                              record_state_digests)
@@ -147,6 +151,18 @@ def cut_layers(cfg, spec: str):
                          f"{len(pattern)}): got {pos}")
     return cfg.replace(n_layers=len(pos),
                        block_pattern=tuple(pattern[i] for i in pos))
+
+
+def refuse_untrainable(cfg, device) -> None:
+    """Raise, before anything is allocated, for a config the card cannot
+    train yet: xLSTM's kernels have no backward (ROADMAP A8, "xLSTM
+    training"). On the CPU the plain versions train it."""
+    if device.type == "cuda" and any(k in T.XLSTM_KINDS
+                                     for k in cfg.block_pattern):
+        raise NotImplementedError(
+            f"{cfg.name}: the mLSTM and sLSTM kernels have no backward yet, "
+            f"so xLSTM trains on the CPU only (ROADMAP A8, 'xLSTM "
+            f"training')")
 
 
 def configure(argv=None):
@@ -251,6 +267,7 @@ def configure(argv=None):
             cfg = cut_layers(cfg, args.layers)
         except ValueError as e:
             ap.error(str(e))
+    refuse_untrainable(cfg, device)
     cfg = cfg.replace(attention_impl="cuda" if device.type == "cuda"
                       else "torch")
     if args.attn_window is not None:

@@ -1,5 +1,5 @@
-"""Model assembly for decoder-only LMs of ``attn``, ``attn_moe``, ``mamba``
-and ``mamba_moe`` blocks.
+"""Model assembly for decoder-only LMs of ``attn``, ``attn_moe``, ``mamba``,
+``mamba_moe``, ``mlstm`` and ``slstm`` blocks.
 
 Counterpart of ``repro.models.transformer``. Parameters keep the reference's
 tree: per pattern position ``b{i}_{kind}`` a stack of ``(n_repeats, ...)``
@@ -9,8 +9,10 @@ mixture-of-experts FFN (``models/moe.py``, ``cfg.moe_impl``) in place of the
 MLP, plus a shared MLP on the same normed input when
 ``cfg.n_shared_experts`` (Llama-4). A ``mamba`` block is the selective SSM
 (``models/mamba.py``) then an MLP, ``mamba_moe`` the SSM then the
-mixture-of-experts FFN (Jamba). The blocks' aux losses are summed in fp32
-in pattern-then-repeat order, as the reference's scan carry sums them.
+mixture-of-experts FFN (Jamba). An ``mlstm`` or ``slstm`` block is a norm
+then the xLSTM mixer (``models/xlstm.py``), with no second norm and no MLP
+(xLSTM-350M). The blocks' aux losses are summed in fp32 in
+pattern-then-repeat order, as the reference's scan carry sums them.
 
 Entry modes:
   forward:      full-sequence logits (train/prefill), each layer optionally
@@ -19,15 +21,17 @@ Entry modes:
                 ``remat_policy``);
   loss_fn:      next-token cross-entropy over ``forward``;
   prefill_step: prompt processing that also fills the caches (KV for
-                attention, the conv and SSM states for Mamba);
+                attention, the conv and SSM states for Mamba, the
+                recurrent states for xLSTM: mLSTM runs its recurrence over
+                the prompt here, its parallel form in ``forward``);
   decode_step:  one-token step over the caches (updated in place);
   paged_step:   the continuous engine's step over paged KV pools (a prefill
                 chunk or a batched one-token decode), always under the
                 canonical reduction scope (``dist/fold.py``); attention-only
                 patterns, as in the reference (MoE capacity routing couples
-                the rows of a batch).
-Other block kinds (xLSTM, cross-attention) and learned position
-embeddings raise ``NotImplementedError``.
+                the rows of a batch; SSM and xLSTM states are unpaged).
+Other block kinds (cross-attention) and learned position embeddings raise
+``NotImplementedError``.
 
 ``cfg.canonical_reductions = N`` runs ``forward`` in serve-canonical mode:
 the paged attention walk over N-token pages and the canonical folds, so its
@@ -49,7 +53,9 @@ recomputed under every policy: with ``remat`` a train step launches the
 attention forward twice a layer for ``"none"``, ``"dots"`` and ``"names"``
 alike (once without remat), the backward kernels once. The selective scan
 (``kernels/scan.py``) is such a Function too: its forward twice a Mamba
-layer, its backward and fold once.
+layer, its backward and fold once. The xLSTM kernels' Functions have no
+backward yet (ROADMAP A8, "xLSTM training"): on the card xLSTM runs
+without a gradient.
 """
 from __future__ import annotations
 
@@ -62,12 +68,14 @@ from repro_torch.dist import fold
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as MB
 from repro_torch.models import moe as MOE
+from repro_torch.models import xlstm as X
 from repro_torch.models.module import init_tree, stacked, tree_paths
 
 F32 = torch.float32
 
 
-BLOCK_KINDS = ("attn", "attn_moe", "mamba", "mamba_moe")
+BLOCK_KINDS = ("attn", "attn_moe", "mamba", "mamba_moe", "mlstm", "slstm")
+XLSTM_KINDS = ("mlstm", "slstm")
 POS_EMBEDS = ("rope", "none")
 
 
@@ -85,6 +93,9 @@ def check_supported(cfg) -> None:
 
 
 def _block_defs(cfg, kind: str):
+    if kind in XLSTM_KINDS:
+        mixer = X.mlstm_defs(cfg) if kind == "mlstm" else X.slstm_defs(cfg)
+        return {"ln1": L.norm_defs(cfg), kind: mixer}
     if kind.startswith("mamba"):
         d = {"ln1": L.norm_defs(cfg), "mamba": MB.mamba_defs(cfg),
              "ln2": L.norm_defs(cfg)}
@@ -194,8 +205,17 @@ def _apply_block(p, x, cfg, *, positions, cache=None, cache_pos=None,
                  segment_ids=None, name=_identity_name, paged=None):
     """One block of any kind in ``BLOCK_KINDS`` (told apart by its
     parameters). ``cache``: the layer's (k, v) cache for attention, its
-    (conv_state, ssm_state) for Mamba, each updated in place. Returns (x,
-    aux): the MoE's aux loss, or None for an MLP block."""
+    (conv_state, ssm_state) for Mamba, its (C, n, m) for mLSTM and (c, n,
+    h, m) for sLSTM, each updated in place. Returns (x, aux): the MoE's aux
+    loss, or None for a block without one."""
+    for kind, apply in (("mlstm", X.apply_mlstm), ("slstm", X.apply_slstm)):
+        if kind in p:
+            h, new_state = apply(p[kind], L.apply_norm(p["ln1"], x, cfg), cfg,
+                                 state=cache)
+            if cache is not None:
+                for leaf, new in zip(cache, new_state):
+                    leaf.copy_(new)
+            return x + h, None
     if "mamba" in p:
         h, new_state = MB.apply_mamba(p["mamba"],
                                       L.apply_norm(p["ln1"], x, cfg), cfg,
@@ -251,8 +271,8 @@ def _apply_stack(params, x, cfg, *, positions, caches=None, cache_pos=None,
             else:
                 cache = None
                 if caches is not None:
-                    a_all, b_all = next(iter(caches[key].values()))
-                    cache = (a_all[i], b_all[i])
+                    leaves = next(iter(caches[key].values()))
+                    cache = tuple(leaf[i] for leaf in leaves)
                 x, aux = _apply_block(p, x, cfg, positions=positions,
                                       cache=cache, cache_pos=cache_pos,
                                       segment_ids=segment_ids, paged=paged)
@@ -336,13 +356,22 @@ def init_cache(cfg, batch_size: int, max_seq: int, device):
     """Caches per pattern position, as the reference's: an ``attn*`` block
     {"attn": (k, v)}, each (n_repeats, B, max_seq, Hk, D) in cfg.dtype; a
     ``mamba*`` block {"mamba": (conv_state (n_repeats, B, k-1, Din) in
-    cfg.dtype, ssm_state (n_repeats, B, Din, N) fp32)}, all zeros."""
+    cfg.dtype, ssm_state (n_repeats, B, Din, N) fp32)}, all zeros; an
+    ``mlstm`` block {"mlstm": (C (n_repeats, B, H, hd, hd), n (n_repeats, B,
+    H, hd), m (n_repeats, B, H))}, all zeros; an ``slstm`` block {"slstm":
+    (c, n, h, m)}, each (n_repeats, B, H, hd), m at -1e30 and the others
+    zeros (the xLSTM states fp32)."""
     check_supported(cfg)
     n_rep = cfg.n_layers // len(cfg.block_pattern)
     d_in, _, d_state, k_conv = MB.mamba_dims(cfg)
     caches = {}
+    init_state = {"mlstm": X.mlstm_init_state, "slstm": X.slstm_init_state}
     for i, kind in enumerate(cfg.block_pattern):
-        if kind.startswith("mamba"):
+        if kind in XLSTM_KINDS:
+            caches[f"b{i}_{kind}"] = {kind: tuple(
+                leaf.expand((n_rep,) + leaf.shape).clone()
+                for leaf in init_state[kind](cfg, batch_size, device))}
+        elif kind.startswith("mamba"):
             caches[f"b{i}_{kind}"] = {"mamba": (
                 torch.zeros((n_rep, batch_size, k_conv - 1, d_in),
                             dtype=cfg.dtype, device=device),

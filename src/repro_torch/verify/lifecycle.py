@@ -25,8 +25,8 @@ same prompts; it is conformant iff the two digests are equal for every arch.
 Not ported: the ``elastic`` scenario (re-sharding onto another mesh,
 ``dist/sharding.py``, ROADMAP A9) raises ``NotImplementedError``; so do
 arches whose model families wait for ROADMAP A8 (``registry.get``). The
-parity cell over an MoE or Mamba arch raises the paged engine's refusal,
-as the reference's does.
+parity cell over an MoE, Mamba or xLSTM arch raises the paged engine's
+refusal, as the reference's does.
 
 Every driver takes ``device=`` (the card by default; ``"cpu"`` runs the
 plain path). Runnable as a module:

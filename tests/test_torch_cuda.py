@@ -965,3 +965,121 @@ def test_scan_redesign_results_do_not_depend_on_chunk():
                                                   dh_last))
     for other in results[1:]:
         assert all(torch.equal(a, c) for a, c in zip(results[0], other))
+
+
+# ------------------------------------------ the xLSTM kernels (mlstm, slstm)
+# |kernel - plain| <= tol * max(1, max |plain|): both compute in fp32 from
+# the same inputs and differ by the order of their sums
+XLSTM_TOL = 1e-4
+
+
+def _xlstm_err(got, want):
+    return float((got.float() - want.float()).abs().max()) / max(
+        1.0, float(want.float().abs().max()))
+
+
+def _xlstm_operands(b, s, h, hd, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    mlstm = (r(b, s, h, hd).to(dtype), (r(b, s, h, hd) / hd ** 0.5).to(dtype),
+             r(b, s, h, hd).to(dtype), r(b, s, h),
+             torch.nn.functional.logsigmoid(r(b, s, h) + 1.0))
+    m_state = (0.1 * r(b, h, hd, hd), 0.1 * r(b, h, hd), r(b, h).tanh())
+    z = tuple(r(b, s, h, hd) for _ in range(4))
+    rr = tuple((r(h, hd, hd) / hd ** 0.5).to(dtype) for _ in range(4))
+    s_state = (0.3 * r(b, h, hd), 1.0 + r(b, h, hd).abs(),
+               0.3 * r(b, h, hd), r(b, h, hd).tanh())
+    return mlstm, m_state, (z, rr, s_state)
+
+
+def _halves(args, t):
+    return (tuple(a[:, :t].contiguous() for a in args),
+            tuple(a[:, t:].contiguous() for a in args))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,h,hd", [(2, 300, 4, 256), (2, 77, 4, 32),
+                                      (1, 1, 4, 256)])
+@torch.no_grad()
+def test_xlstm_kernels_match_plain_and_hold_their_bits(b, s, h, hd, dtype):
+    """csrc/mlstm.cu (parallel form, recurrence) and csrc/slstm.cu against
+    their plain versions (ragged S, hd 256 and 32, the decode step S = 1),
+    each launch repeated bitwise, each recurrence split in two launches
+    bitwise one launch."""
+    _card()
+    from repro_torch.kernels import mlstm as ML
+    from repro_torch.kernels import slstm as SL
+    margs, mst, (z, rr, sst) = _xlstm_operands(b, s, h, hd, dtype, seed=s)
+    out = ML.mlstm_parallel_cuda(*margs)
+    assert _xlstm_err(out, ML.mlstm_parallel_plain(*margs)) <= XLSTM_TOL
+    assert torch.equal(out, ML.mlstm_parallel_cuda(*margs))
+    runs = {"mlstm": (lambda a, st: ML.mlstm_recurrent_cuda(*a, *st),
+                      lambda a, st: ML.mlstm_recurrent_plain(*a, *st),
+                      margs, mst),
+            "slstm": (lambda a, st: SL.slstm_cuda(a, rr, st),
+                      lambda a, st: SL.slstm_plain(a, rr, st), z, sst)}
+    for name, (run, plain, args, st) in runs.items():
+        got, want = run(args, st), plain(args, st)
+        for g, w in zip((got[0], *got[1]), (want[0], *want[1])):
+            assert _xlstm_err(g, w) <= XLSTM_TOL, name
+        again = run(args, st)
+        assert all(torch.equal(g, a) for g, a in
+                   zip((got[0], *got[1]), (again[0], *again[1]))), name
+        if s > 1:
+            first, second = _halves(args, s // 2)
+            o1, st1 = run(first, st)
+            o2, st2 = run(second, st1)
+            assert torch.equal(torch.cat([o1, o2], 1), got[0]), name
+            assert all(torch.equal(x, y) for x, y in zip(st2, got[1])), name
+
+
+def test_xlstm_kernels_raise_on_what_they_do_not_take():
+    _card()
+    from repro_torch.kernels import mlstm as ML
+    from repro_torch.kernels import slstm as SL
+    margs, mst, (z, rr, sst) = _xlstm_operands(1, 8, 4, 64, torch.bfloat16,
+                                               seed=0)
+    with pytest.raises(ValueError, match="hd in"):
+        ML.mlstm_parallel_cuda(*margs)
+    with pytest.raises(ValueError, match="hd in"):
+        ML.mlstm_recurrent_cuda(*margs, *mst)
+    with pytest.raises(ValueError, match="hd in"):
+        SL.slstm_cuda(z, rr, sst)
+    margs, _, _ = _xlstm_operands(1, 8, 4, 32, torch.float16, seed=0)
+    with pytest.raises(TypeError):
+        ML.mlstm_parallel_cuda(*margs)
+
+
+@torch.inference_mode()
+def test_reduced_xlstm_serves_on_the_kernels():
+    """The reduced xLSTM-350M (hd 32) on the card: the static engine's
+    prefill through the recurrent kernels against the plain mixers, and
+    forward (the parallel kernel) equal to prefill + decode within the
+    reference's 5e-2 (fp32)."""
+    _card()
+    from repro_torch.kernels import mlstm as ML
+    from repro_torch.kernels import slstm as SL
+    cfg = registry.get("xlstm-350m").reduced(dtype_name="float32")
+    params = T.init(cfg, seed=0, device="cuda")
+    toks = torch.randint(1, cfg.vocab, (2, 64), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(0))
+    before = ops.launch_counts()
+    full, _ = T.forward(params, {"tokens": toks}, cfg)
+    last, caches = T.prefill_step(params, {"tokens": toks[:, :-1]}, cfg,
+                                  max_seq=64)
+    step, _ = T.decode_step(params, caches, toks[:, -1:], 63, cfg)
+    after = ops.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]
+            } == dict(mlstm_parallel=7, mlstm_recurrent=14, slstm=3)
+    torch.testing.assert_close(last[:, 0], full[:, -2], atol=5e-2, rtol=5e-2)
+    torch.testing.assert_close(step[:, 0], full[:, -1], atol=5e-2, rtol=5e-2)
+    saved = (ML.mlstm_recurrent, SL.slstm)
+    ML.mlstm_recurrent, SL.slstm = ML.mlstm_recurrent_plain, SL.slstm_plain
+    try:
+        plain, _ = T.prefill_step(params, {"tokens": toks[:, :-1]}, cfg,
+                                  max_seq=64)
+    finally:
+        ML.mlstm_recurrent, SL.slstm = saved
+    torch.testing.assert_close(last, plain, atol=1e-4, rtol=1e-4)

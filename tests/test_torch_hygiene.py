@@ -92,3 +92,13 @@ def test_chip_smoke_refuses_to_run_without_a_card():
                           timeout=300)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_build_sources_are_the_cuda_sources():
+    """``kernels/build.py``'s SOURCES name every ``csrc/*.cu`` and nothing
+    else, so ``build.build()`` (chip_smoke.py's build phase) compiles each
+    kernel of the port, the xLSTM ones included."""
+    from repro_torch.kernels import build
+    on_disk = sorted(p.stem for p in (PORT / "kernels" / "csrc").glob("*.cu"))
+    assert sorted(build.SOURCES) == on_disk
+    assert {"mlstm", "slstm", "selective_scan"} <= set(build.SOURCES)

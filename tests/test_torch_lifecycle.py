@@ -69,8 +69,6 @@ def test_token_stream_digest_invariant_to_host_split(cell):
 @pytest.mark.parametrize("call,item", [
     (lambda: L.run_train_serve_parity(archs=("whisper-base",),
                                       device="cpu"), "A8"),
-    (lambda: L.run_train_serve_parity(archs=("xlstm-350m",),
-                                      device="cpu"), "A8"),
     (lambda: L.run_cell("base", scenarios=("straight", "elastic"),
                         device="cpu"), "A9"),
     (lambda: L.run_elastic_reshard(L.MATRIX["base"], "d", 2), "A9"),
@@ -102,6 +100,17 @@ def test_parity_cell_refuses_jamba_with_the_paged_reason():
     with pytest.raises(NotImplementedError, match="SSM states are unpaged"):
         L.run_train_serve_parity(archs=("jamba-1.5-large-398b",),
                                  device="cpu")
+
+
+def test_parity_cell_refuses_xlstm_with_the_paged_reason():
+    """xLSTM is ported but has no paged path (its states are unpaged): the
+    parity cell raises the paged engine's refusal, not ROADMAP A8, as the
+    reference's engine refuses it."""
+    from repro.verify import lifecycle as JL
+    with pytest.raises(AssertionError, match="attention-only"):
+        JL.run_train_serve_parity(archs=("xlstm-350m",))
+    with pytest.raises(NotImplementedError, match="SSM states are unpaged"):
+        L.run_train_serve_parity(archs=("xlstm-350m",), device="cpu")
 
 
 def test_run_cell_report_and_cli(tmp_path, capsys):

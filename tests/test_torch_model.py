@@ -151,10 +151,10 @@ def test_learned_position_embeddings_raise_naming_a8():
 def test_unported_configs_raise():
     _, tcfg = _cfgs("float32", "torch", 4)
     with pytest.raises(NotImplementedError, match="not ported"):
-        TT.param_defs(tcfg.replace(block_pattern=("attn", "slstm")))
+        TT.param_defs(tcfg.replace(block_pattern=("attn", "attn_cross")))
     with pytest.raises(NotImplementedError, match="not ported"):
         TT.forward(TT.init(tcfg, device="cpu"),
                    {"tokens": torch.zeros((1, 128), dtype=torch.long)},
-                   tcfg.replace(block_pattern=("mlstm",)))
+                   tcfg.replace(block_pattern=("attn_cross",)))
     with pytest.raises(NotImplementedError, match="not ported"):
-        tregistry.get("xlstm-350m")
+        tregistry.get("whisper-base")
