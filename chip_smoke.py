@@ -68,7 +68,10 @@ Phases, each reported on its own line:
                ragged S, fp32 and hd=32; each recurrence also at the decode
                step (S=1) from the state its prefill leaves; 10 repetitions
                of each bitwise, and each recurrence split at 3/5 of S and at
-               S-1 bitwise one launch;
+               S-1 bitwise one launch; at each recurrence case and decode
+               step both recurrences also against their first designs
+               (``csrc/mlstm_v1.cu``, ``csrc/slstm_v1.cu``; ``[kernel-check]
+               xlstm v1``): every output and state leaf ``torch.equal``;
                and the GQA groups of this slice's models (``[kernel-check]
                gqa``: 40/8 and 48/8 at D=128, S=1024): the causal forward,
                the worker backward with its dQ and dK/dV group folds (each
@@ -284,7 +287,10 @@ Phases, each reported on its own line:
                (a spill fails the run); the three xLSTM kernels at the
                serve slice's shapes (the recurrences also at the decode
                step) beside their plain versions and bounds, their
-               launches those of ``[serve-xlstm]``; the fingerprint's entry
+               launches those of ``[serve-xlstm]``, the recurrences and
+               their decode steps beside their first designs in turns
+               (``v1_ms``) with the clock64() share of each phase of a step
+               (``[phases]``); the fingerprint's entry
                is timed in its kernel check, at the full-width train
                state.
 The line before the last is ``{"kernels": [...]}``; the last is
@@ -707,11 +713,38 @@ def scan_resources(built=None):
     return out
 
 
+# the builds beside build.SOURCES: the xLSTM recurrences with their
+# clock64() stamps (time_xlstm's [phases])
+STAMPED = (("mlstm", ("DASH_STAMPS",)), ("slstm", ("DASH_STAMPS",)))
+
+
+def xlstm_resources(ptxas):
+    """Per xLSTM recurrence instantiation in an ``-Xptxas -v`` log
+    (``csrc/mlstm.cu``'s recurrence, ``csrc/slstm.cu`` and their first
+    designs): head dim, rows of C a warp (the mLSTM redesign's
+    instantiations), registers and spilled bytes."""
+    def classify(name):
+        found = re.search(r"(mlstm_recurrent|slstm)_kernel", name)
+        if found is None:
+            return None
+        dims = [int(x) for x in re.findall(r"Li(\d+)E", name)]
+        entry = dict(kernel=found.group(1),
+                     dtype="bfloat16" if "bfloat16" in name else "float32",
+                     head_dim=dims[0])
+        if len(dims) > 1:
+            entry["warp_rows"] = dims[1]
+        return entry
+    return _ptxas_entries(ptxas, classify)
+
+
 def phase_build():
     t0 = time.perf_counter()
-    built = build.build()
-    for name, info in built.items():
-        print(f"[build] {name}: {info['path'].relative_to(ROOT)} "
+    variants = build.build_variants([(name, ()) for name in build.SOURCES]
+                                    + list(STAMPED))
+    built = {name: variants[(name, ())] for name in build.SOURCES}
+    for (name, defines), info in variants.items():
+        tag = "".join(f" -D{d}" for d in defines)
+        print(f"[build] {name}{tag}: {info['path'].relative_to(ROOT)} "
               f"({info['seconds']:.1f}s)")
         for line in info["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
@@ -726,6 +759,10 @@ def phase_build():
         print("[ptxas] " + json.dumps(k), flush=True)
     for k in scan_resources(built):
         print("[ptxas] " + json.dumps(k), flush=True)
+    for source in ("mlstm", "slstm", "mlstm_v1", "slstm_v1"):
+        for k in xlstm_resources(built[source]["ptxas"]):
+            print("[ptxas] " + json.dumps(dict(k, source=source)),
+                  flush=True)
     budget = {d: (FF.kernel_smem_bytes(d, torch.bfloat16),
                   FF.fwd_smem_bytes(d, FF.fwd_stages(d)))
               for d in FF.HEAD_DIMS}
@@ -1147,7 +1184,33 @@ def _timed(fn):
 
 
 @torch.inference_mode()
-def _serve_static(slice_):
+def _profiled(fn, top=6):
+    """One call of ``fn`` under torch.profiler (CUPTI): ``(summary, ops)``,
+    the summary its wall ms (host clock, synchronised, the profiler's
+    overhead included), the device's busy ms (the sum of the device ops'
+    own time), the busy share and the ``top`` device ops that took the
+    most; ``ops`` the profiler's device ops."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ops_ = [a for a in prof.key_averages()
+            if a.device_type == DeviceType.CUDA]
+    busy_ms = sum(a.self_device_time_total for a in ops_) / 1e3
+    most = [dict(ms=a.self_device_time_total / 1e3, count=a.count,
+                 name=a.key[:80])
+            for a in sorted(ops_,
+                            key=lambda a: -a.self_device_time_total)[:top]]
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                busy_share=busy_ms / wall_ms, top=most), ops_
+
+
+def _serve_static(slice_, profile_prefill=False):
     """The static engine at full width and depth (or the slice's
     ``layers``): greedy, twice (bitwise equal tokens), the generate's
     launches (the prefill's attention forward, causal or block-sparse under
@@ -1157,7 +1220,8 @@ def _serve_static(slice_):
     runs the timed prefill again on the plain attention and mixers (over an
     MoE model with the router's choices pinned to the kernel run's:
     :class:`_PinnedRouting`) and gives its logits' errors against the
-    kernels'."""
+    kernels'. ``profile_prefill``: one more prefill under the profiler
+    (``prefill_profile``: its device-busy ms beside the host's)."""
     cfg = registry.get(slice_["arch"]).replace(attention_impl="cuda",
                                                attn_window=slice_["window"])
     if "layers" in slice_:
@@ -1206,6 +1270,9 @@ def _serve_static(slice_):
             tok = torch.argmax(out[:, -1], -1)[:, None].to(torch.int32)
         return tok
     _, t_decode = _timed(decode_all)
+    profile = (_profiled(lambda: T.prefill_step(params, batch, cfg,
+                                                max_seq=s + n))[0]
+               if profile_prefill else None)
 
     def vs_plain():
         plain_cfg = cfg.replace(attention_impl="torch")
@@ -1234,6 +1301,8 @@ def _serve_static(slice_):
         run_s=t_run, prefill_ms=t_prefill * 1e3,
         decode_tok_per_s=b * (n - 1) / t_decode, peak_mem_gb=peak_gb,
         tokens_bitwise_equal=True, tokens_row0=tokens[0, :8].tolist())
+    if profile is not None:
+        result["prefill_profile"] = profile
     return result, vs_plain
 
 
@@ -3469,7 +3538,10 @@ def check_xlstm():
     decode step at the serve shape): every output within ``XLSTM_TOL``, 10
     repeated launches bitwise, and each recurrence split at two points
     (3/5 of S, and S - 1: a prefill then a one-step decode) bitwise one
-    launch. One ``[kernel-check] xlstm`` line a case; raises on any
+    launch. One ``[kernel-check] xlstm`` line a case; and one
+    ``[kernel-check] xlstm v1`` line a recurrence case and decode step:
+    every output and state leaf ``torch.equal`` to the first design's
+    (``mlstm_recurrent_v1_cuda``, ``slstm_v1_cuda``). Raises on any
     failure. Returns the lines and the serve shapes' max abs errors."""
     lines = []
 
@@ -3488,6 +3560,20 @@ def check_xlstm():
 
     def reps10(run, first):
         return all(_same(run(), first) for _ in range(10))
+
+    v1_lines = []
+
+    def report_v1(kernel, case, run_v1, args, state, got, names):
+        """Every output and state leaf of the redesign ``torch.equal`` to
+        the first design's on the same inputs."""
+        old = _flat_tensors(run_v1(args, state))
+        equal = {name: bool(torch.equal(g, o)) for name, g, o in
+                 zip(names, _flat_tensors(got), old)}
+        line = dict(kernel=kernel, case=case,
+                    shape=list(args[0].shape), equal=equal,
+                    ok=len(old) == len(names) and all(equal.values()))
+        print("[kernel-check] xlstm v1 " + json.dumps(line), flush=True)
+        return line
 
     for case, b, s, hd, dtype in XLSTM_PAR_CASES:
         args, _ = _mlstm_inputs(b, s, hd, dtype, seed=s + hd)
@@ -3514,14 +3600,20 @@ def check_xlstm():
                 args, state = _mlstm_inputs(b, s, hd, dtype, seed, carried)
                 run, plain = mlstm_run, (
                     lambda a, st: MLSTM.mlstm_recurrent_plain(*a, *st))
+                run_v1 = (
+                    lambda a, st: MLSTM.mlstm_recurrent_v1_cuda(*a, *st))
             else:
                 args, rr, state = _slstm_inputs(b, s, hd, dtype, seed,
                                                 carried)
                 run = functools.partial(slstm_run, rr=rr)
                 plain = functools.partial(
                     lambda a, st, rr: SLSTM.slstm_plain(a, rr, st), rr=rr)
+                run_v1 = functools.partial(
+                    lambda a, st, rr: SLSTM.slstm_v1_cuda(a, rr, st), rr=rr)
             got = run(args, state)
             want = plain(args, state)
+            v1_lines.append(report_v1(kernel, case, run_v1, args, state,
+                                      got, names))
             pairs = dict(zip(names, zip(_flat_tensors(got),
                                         _flat_tensors(want))))
             bitwise = dict(
@@ -3539,6 +3631,8 @@ def check_xlstm():
                 dstate = tuple(_flat_tensors(got)[1:])
                 dgot = run(dargs, dstate)
                 dwant = plain(dargs, dstate)
+                v1_lines.append(report_v1(kernel, "serve_decode", run_v1,
+                                          dargs, dstate, dgot, names))
                 report(kernel, "serve_decode", (b, 1, XLSTM_HEADS, hd),
                        dtype, dict(zip(names, zip(_flat_tensors(dgot),
                                                   _flat_tensors(dwant)))),
@@ -3546,10 +3640,13 @@ def check_xlstm():
             del args, state, got, want
     _free_device_memory()
     failed = [f"{x['kernel']}/{x['case']}" for x in lines if not x["ok"]]
-    if failed:
-        raise AssertionError(f"xLSTM kernels vs plain failed: {failed}")
+    not_v1 = [f"{x['kernel']}/{x['case']}" for x in v1_lines if not x["ok"]]
+    if failed or not_v1:
+        raise AssertionError(f"xLSTM kernels vs plain failed: {failed}; "
+                             f"recurrences not bitwise their first designs: "
+                             f"{not_v1}")
     by = {(x["kernel"], x["case"]): x["max_abs_err"] for x in lines}
-    return dict(lines=lines, max_abs_err=dict(
+    return dict(lines=lines, v1_lines=v1_lines, max_abs_err=dict(
         mlstm_parallel=by[("mlstm_parallel", "serve")],
         mlstm_recurrent=max(by[("mlstm_recurrent", "serve_prefill")],
                             by[("mlstm_recurrent", "serve_decode")]),
@@ -3592,7 +3689,10 @@ def time_xlstm(xlstm_check, serve):
     512; the recurrences also at the decode step, S = 1), each beside its
     plain version and its bound — the ``{"kernels": ...}`` entries, whose
     launches are ``[serve-xlstm]``'s: the static engine's generate for the
-    recurrences, its ``forward`` for the parallel form."""
+    recurrences, its ``forward`` for the parallel form. The recurrences and
+    their decode steps also beside their first designs in turns
+    (``v1_ms``, ``decode_v1_ms``), with the clock64() share of each phase
+    of a step at the prefill shape (``[phases]``)."""
     b, s = SERVE_XLSTM["batch"], SERVE_XLSTM["prompt"]
     hd, dtype = registry.get(SERVE_XLSTM["arch"]).head_dim, torch.bfloat16
     args, _ = _mlstm_inputs(b, s, hd, dtype, seed=31)
@@ -3600,15 +3700,30 @@ def time_xlstm(xlstm_check, serve):
     dargs, dstate = _mlstm_inputs(b, 1, hd, dtype, seed=32)
     z, rr, st0 = _slstm_inputs(b, s, hd, dtype, seed=33, carried=False)
     dz, _, dst = _slstm_inputs(b, 1, hd, dtype, seed=34)
-    ms = dict(
-        mlstm_parallel=_ms(lambda: MLSTM.mlstm_parallel_cuda(*args),
-                           reps=20),
-        mlstm_recurrent=_ms(lambda: MLSTM.mlstm_recurrent_cuda(
-            *args, *zero), reps=10),
-        mlstm_recurrent_decode=_queued_ms(
-            lambda: MLSTM.mlstm_recurrent_cuda(*dargs, *dstate)),
-        slstm=_ms(lambda: SLSTM.slstm_cuda(z, rr, st0), reps=5),
-        slstm_decode=_queued_ms(lambda: SLSTM.slstm_cuda(dz, rr, dst)))
+    ms = dict(mlstm_parallel=_ms(lambda: MLSTM.mlstm_parallel_cuda(*args),
+                                 reps=20))
+    v1_ms = {}
+    # the recurrences and their decode steps in turns with their first
+    # designs (new, old, old, new), the calls queued behind a spin kernel
+    for name, new_fn, old_fn, reps in (
+            ("mlstm_recurrent",
+             lambda: MLSTM.mlstm_recurrent_cuda(*args, *zero),
+             lambda: MLSTM.mlstm_recurrent_v1_cuda(*args, *zero), 20),
+            ("mlstm_recurrent_decode",
+             lambda: MLSTM.mlstm_recurrent_cuda(*dargs, *dstate),
+             lambda: MLSTM.mlstm_recurrent_v1_cuda(*dargs, *dstate), 50),
+            ("slstm", lambda: SLSTM.slstm_cuda(z, rr, st0),
+             lambda: SLSTM.slstm_v1_cuda(z, rr, st0), 20),
+            ("slstm_decode", lambda: SLSTM.slstm_cuda(dz, rr, dst),
+             lambda: SLSTM.slstm_v1_cuda(dz, rr, dst), 50)):
+        ms[name], v1_ms[name] = _turns_ms(new_fn, old_fn, reps=reps)
+    phases = dict(mlstm_recurrent=_xlstm_phase_shares(
+        MLSTM.recurrent_phases(*args, *zero), XLSTM_MLSTM_PHASES),
+        slstm=_xlstm_phase_shares(SLSTM.slstm_phases(z, rr, st0),
+                                  XLSTM_SLSTM_PHASES))
+    for name, share in phases.items():
+        print(f"[phases] {name} (B={b}, S={s}): " + json.dumps(share),
+              flush=True)
     plain = dict(
         mlstm_parallel=_ms(lambda: MLSTM.mlstm_parallel_plain(*args),
                            reps=3),
@@ -3659,20 +3774,56 @@ def time_xlstm(xlstm_check, serve):
             "cores' rate")
     for k in kernels[1:]:
         name = k["name"]
-        k.update(decode_ms=ms[f"{name}_decode"],
+        k.update(v1_ms=v1_ms[name], decode_ms=ms[f"{name}_decode"],
+                 decode_v1_ms=v1_ms[f"{name}_decode"],
                  decode_plain_ms=plain[f"{name}_decode"],
                  decode_bound_ms=decode_bounds[name][0],
-                 decode_bound_by=decode_bounds[name][1])
+                 decode_bound_by=decode_bounds[name][1],
+                 phases=phases[name])
         print(f"[timing] {name} decode step (B={b}, S=1): kernel "
               f"{k['decode_ms']:.4f} ms, plain {k['decode_plain_ms']:.4f} "
               f"ms, bound {k['decode_bound_ms']:.4f} ms "
               f"({k['decode_bound_by']})", flush=True)
+        _vs_v1(f"{name} ({b}, {s})", k["ms"], k["v1_ms"])
+        _vs_v1(f"{name} decode step ({b}, 1)", k["decode_ms"],
+               k["decode_v1_ms"])
     kernels[2]["bound_note"] += (
-        f"; latency-paced instead: {s} dependent steps, each four (hd x hd) "
-        f"matrix-vector products over shared memory and a cluster barrier")
+        f"; latency-paced instead: {s} dependent steps, each two chains of "
+        f"hd / 2 dependent multiply-adds, the gates, the state update and "
+        f"an exchange of h across the cluster")
     del args, zero, dargs, dstate, z, rr, st0, dz, dst
     _free_device_memory()
     return kernels
+
+
+# the phases of a step that the recurrences' clock64() stamps split a
+# warp's clocks into (kernels/mlstm.py::recurrent_phases,
+# kernels/slstm.py::slstm_phases), per group of warps: (warps, names)
+XLSTM_MLSTM_PHASES = {
+    "consumer": (slice(0, -1), MLSTM.CONSUMER_PHASES),
+    "scalar": (slice(-1, None), MLSTM.SCALAR_PHASES)}
+
+
+# the sLSTM's warps by role (warp w the (gate w % 4, half w // 4), each
+# half taking one of the cluster's two batch rows): the gate-i warps that
+# update a row's state (all five phases), the other warps that take a gate
+# (wait, sum, gate)
+XLSTM_SLSTM_PHASES = {
+    "updaters": ([0, 4], SLSTM.PHASES),
+    "gates": ([1, 2, 3, 5, 6, 7], SLSTM.PHASES[:3])}
+
+
+def _xlstm_phase_shares(stamps, groups):
+    """The median share of each phase in a warp's clocks over the CTAs'
+    warps of each group, and the group's median clocks in all, from
+    ``stamps`` (CTAs, warps, phases + 1)."""
+    out = {}
+    for group, (warps, names) in groups.items():
+        x = stamps[:, warps].reshape(-1, stamps.shape[-1]).astype(float)
+        out[group] = {name: float(statistics.median(x[:, i] / x[:, -1]))
+                      for i, name in enumerate(names)}
+        out[group]["clocks"] = float(statistics.median(x[:, -1]))
+    return out
 
 
 def _vs_plain(fn):
@@ -3784,14 +3935,15 @@ def run_serve_xlstm(label="serve-xlstm"):
     """xLSTM-350M at full width and depth (24 layers: 21 mLSTM, 3 sLSTM)
     through the static engine by :func:`_serve_static` (greedy twice,
     bitwise; the mLSTM recurrence and the sLSTM once a layer in the prefill
-    and in each decode step; prefill ms, decode tok/s, peak memory; its
+    and in each decode step; prefill ms, decode tok/s, peak memory; one
+    profiled prefill's device-busy ms beside its host ms; its
     prefill logits against the plain mixers', a reading: the bf16 model is
     gated at ``XLSTM_CUT`` in :func:`_xlstm_model_checks`, which follows);
     ``launch.serve --engine continuous`` with xLSTM must raise the paged
     engine's refusal (its states are unpaged)."""
     _free_device_memory()
     with torch.inference_mode():
-        out, vs_plain = _serve_static(SERVE_XLSTM)
+        out, vs_plain = _serve_static(SERVE_XLSTM, profile_prefill=True)
         out.update(vs_plain())
     print(f"[{label}] " + json.dumps(out), flush=True)
     if not out["logits_finite"]:
@@ -3928,21 +4080,9 @@ def run_serve_continuous(label="serve-continuous"):
     per_decode = _serve_counts()
     want_decode = _step_launches(cfg)
     # the busy share of one profiled decode step
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        probe.step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    ops_ = [a for a in prof.key_averages()
-            if a.device_type == DeviceType.CUDA]
-    busy_ms = sum(a.self_device_time_total for a in ops_) / 1e3
-    top = [dict(ms=a.self_device_time_total / 1e3, count=a.count,
-                name=a.key[:80])
-           for a in sorted(ops_, key=lambda a: -a.self_device_time_total)[:8]]
+    prof, ops_ = _profiled(probe.step, top=8)
+    wall_ms, busy_ms = prof["wall_ms"], prof["device_busy_ms"]
+    top = prof["top"]
     # unprofiled decode steps of the probe, and prefill chunks alone
     decode_ms = [s * 1e3 for s in eng.decode_s]
     table = torch.from_numpy(probe.cache.page_table[[SERVE_SLOTS - 1]]).cuda()

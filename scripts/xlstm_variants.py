@@ -1,0 +1,360 @@
+"""Time variants of the two xLSTM recurrences (``csrc/mlstm.cu``'s (C, n, m)
+recurrence and ``csrc/slstm.cu``) beside their first designs on one card,
+to see what sets their speed.
+
+    python3 scripts/xlstm_variants.py [--out FILE] [--only NAME,...]
+
+Each variant is a copy of the kernel's source changed by text substitutions
+(the script stops if the source no longer holds the text), built into
+``build/xlstm_variants/``:
+
+  mlstm_wr4              4 rows of C a consumer warp (``REC_WROWS``)
+                         instead of 2 at S > 8: 8 consumer warps a CTA,
+                         not 16, and 8 steps a stage, not 16 (rows x steps
+                         = 32 sums a reduce-scatter);
+  mlstm_dec4, mlstm_dec2 4 or 2 rows a warp at S <= 8
+                         (``REC_WROWS_DECODE``) instead of 8: the decode
+                         step's shape;
+  mlstm_cta16            16 rows of C a CTA (``REC_CTA_ROWS``) instead of
+                         32 at S > 8: two CTAs an SM, each with its own
+                         scalar warp;
+  mlstm_dcta32           32 rows of C a CTA at S <= 8
+                         (``REC_CTA_ROWS_DECODE``) instead of 16;
+  mlstm_look1            one stage of copies in flight (``REC_LOOK``)
+                         instead of 2;
+  mlstm_ns3              a ring of 3 prepared stages (``REC_NS``), not 2;
+  slstm_sync             the first design's exchange: h stored into every
+                         CTA of the cluster, then one cluster barrier a
+                         step, against st.async onto each CTA's mbarrier;
+  slstm_push1            each lane pushes its own h into every CTA (8
+                         4-byte st.async) instead of two 16-byte pieces
+                         into one;
+  slstm_spin             the wait for h spins on mbarrier.test_wait
+                         instead of try_wait;
+  slstm_z2               z prefetched 2 steps ahead (``ZD``), not 8;
+  slstm_rows1            1 batch row a cluster (``RB``), not 2: a (b, h) a
+                         cluster as in the first design, the half-1 warps
+                         handing their sums to the half-0 warps;
+  slstm_pd1, slstm_pd8   h loaded 1 or 8 float4s ahead of its multiply-
+                         adds (``PD``), not 4;
+
+and the kernels built with ``-DDASH_STAMPS`` (``phases``), whose
+``clock64()`` stamps give the share of each warp's clocks in each phase
+of the recurrence (``mlstm.recurrent_phases``, ``slstm.slstm_phases``).
+
+For the kernels, the first designs (``v1``: ``csrc/mlstm_v1.cu``,
+``csrc/slstm_v1.cu``) and every variant it prints ptxas' registers and
+spills; checks each variant's outputs and states bitwise against the first
+design at small shapes (``CHECKS``: hd 256 and 32, bf16 and fp32, S = 1,
+a carried state and the model's initial one); then times each at the
+serve slice's prefill (B = 4, S = 512, 4 heads of 256, bf16) and decode
+step (S = 1), in turns (kernel, v1, the variants, then the same in
+reverse) with the calls queued behind a spin kernel. Imports nothing of
+JAX; needs a card.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as CS  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import mlstm as ML  # noqa: E402
+from repro_torch.kernels import slstm as SL  # noqa: E402
+
+OUT_DIR = build.BUILD_DIR.parent / "xlstm_variants"
+
+
+def _const(name, old, new):
+    """One substitution: ``constexpr int name = old;`` becomes ``new``."""
+    return (f"constexpr int {name} = {old};", f"constexpr int {name} = {new};",
+            1)
+
+
+# csrc/slstm.cu's wait for a step's h and its push of the new h
+SLSTM_WAIT = (
+    "      mbar_wait(smem_u32(&mb[buf]), ((t - 1) >> 1) & 1);\n"
+    "      // re-armed for step t + 2 only after this thread saw step t's h\n"
+    "      if (tid == 0) mbar_expect_tx(smem_u32(&mb[buf]), STEP_BYTES);\n")
+SLSTM_PUSH = (
+    "      const int q = 4 * (lane & 3);\n"
+    "      float x0[4], x1[4];\n"
+    "#pragma unroll\n"
+    "      for (int i = 0; i < 4; ++i) {\n"
+    "        x0[i] = __shfl_sync(0xffffffffu, hv, q + i);\n"
+    "        x1[i] = __shfl_sync(0xffffffffu, hv, q + 16 + i);\n"
+    "      }\n"
+    "      if (peer < CL) {\n"
+    "        const uint32_t dst = push_dst[nb] + row * 2 * HD * 4;\n"
+    "        st_async_v4(dst, x0[0], x0[1], x0[2], x0[3], push_bar[nb]);\n"
+    "        st_async_v4(dst + 64, x1[0], x1[1], x1[2], x1[3], "
+    "push_bar[nb]);\n"
+    "      }\n")
+# helpers the exchange variants add before the kernel
+SLSTM_HELPERS_AT = ("template <typename T, int HD>\n"
+                    "constexpr size_t slstm_smem()")
+ST_ASYNC_F32 = (
+    "__device__ __forceinline__ void st_async_f32(uint32_t dst, float a,\n"
+    "                                             uint32_t bar) {\n"
+    "  asm volatile(\n"
+    "      \"st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 "
+    "[%0], %1, \"\n"
+    "      \"[%2];\\n\" ::\"r\"(dst),\n"
+    "      \"r\"(__float_as_uint(a)), \"r\"(bar)\n"
+    "      : \"memory\");\n}\n\n")
+MBAR_TEST_WAIT = (
+    "__device__ __forceinline__ bool mbar_test_wait(uint32_t bar,\n"
+    "                                               uint32_t parity) {\n"
+    "  uint32_t done;\n"
+    "  asm volatile(\n"
+    "      \"{\\n.reg .pred p;\\n\"\n"
+    "      \"mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\\n\"\n"
+    "      \"selp.u32 %0, 1, 0, p;\\n}\\n\"\n"
+    "      : \"=r\"(done)\n"
+    "      : \"r\"(bar), \"r\"(parity)\n"
+    "      : \"memory\");\n"
+    "  return done != 0;\n}\n\n")
+PUSH_SETUP_AT = ("  // every CTA's barriers exist before any CTA pushes to "
+                 "them\n")
+PUSH1_SETUP = (
+    "  uint32_t one_dst[2][CL], one_bar[2][CL];\n"
+    "#pragma unroll\n"
+    "  for (int p = 0; p < 2; ++p)\n"
+    "#pragma unroll\n"
+    "    for (int r = 0; r < CL; ++r) {\n"
+    "      one_dst[p][r] = cluster_addr(hbuf + p * HD + v0 + lane, r);\n"
+    "      one_bar[p][r] = cluster_addr(&mb[p], r);\n"
+    "    }\n")
+SLSTM_SWAP = (
+    "    part[((1 - half) * GATES + g) * OUTS + lane] =\n"
+    "        half == 0 ? acc[1] : acc[0];\n"
+    "    named_sync(1 + g, 64);\n"
+    "    const float other = part[(half * GATES + g) * OUTS + lane];\n"
+    "    const float lo = half == 0 ? acc[0] : other;\n"
+    "    const float hi = half == 0 ? other : acc[1];\n")
+ROWS1_SWAP = (
+    "    if (half == 1) {\n"
+    "      part[g * OUTS + lane] = acc[0];\n"
+    "      named_arrive(1 + g, 64);\n"
+    "      STAMP(2)\n"
+    "      continue;\n"
+    "    }\n"
+    "    named_sync(1 + g, 64);\n"
+    "    const float lo = acc[0];\n"
+    "    const float hi = part[g * OUTS + lane];\n")
+Z_FILL = "  for (int t = 0; t < ZD - 1; ++t) z_issue(t);\n"
+Z_NEXT = "    z_issue(t + ZD - 1);\n"
+ROLES = "  const int row = half;\n  const bool updater = g == 0;\n"
+
+# name: (source, [(old text, new text, times the source holds it)])
+VARIANTS = {
+    "mlstm_wr4": ("mlstm", [_const("REC_WROWS", 2, 4)]),
+    "mlstm_dec4": ("mlstm", [_const("REC_WROWS_DECODE", 8, 4)]),
+    "mlstm_dec2": ("mlstm", [_const("REC_WROWS_DECODE", 8, 2)]),
+    "mlstm_cta16": ("mlstm", [_const("REC_CTA_ROWS", 32, 16)]),
+    "mlstm_dcta32": ("mlstm", [_const("REC_CTA_ROWS_DECODE", 16, 32)]),
+    "mlstm_look1": ("mlstm", [_const("REC_LOOK", 2, 1)]),
+    "mlstm_ns3": ("mlstm", [_const("REC_NS", 2, 3)]),
+    "slstm_sync": ("slstm", [
+        (SLSTM_WAIT, "      cg::this_cluster().sync();\n", 1),
+        (SLSTM_PUSH,
+         "      float* next = hbuf + (row * 2 + nb) * HD + v0 + lane;\n"
+         "#pragma unroll\n"
+         "      for (int p = 0; p < CL; ++p)\n"
+         "        *cg::this_cluster().map_shared_rank(next, p) = hv;\n", 1)]),
+    "slstm_push1": ("slstm", [
+        (SLSTM_HELPERS_AT, ST_ASYNC_F32 + SLSTM_HELPERS_AT, 1),
+        (PUSH_SETUP_AT, PUSH1_SETUP + PUSH_SETUP_AT, 1),
+        (SLSTM_PUSH,
+         "#pragma unroll\n"
+         "      for (int p = 0; p < CL; ++p)\n"
+         "        st_async_f32(one_dst[nb][p] + row * 2 * HD * 4, hv, "
+         "one_bar[nb][p]);\n", 1)]),
+    "slstm_spin": ("slstm", [
+        (SLSTM_HELPERS_AT, MBAR_TEST_WAIT + SLSTM_HELPERS_AT, 1),
+        ("      mbar_wait(smem_u32(&mb[buf]), ((t - 1) >> 1) & 1);\n",
+         "      while (!mbar_test_wait(smem_u32(&mb[buf]), "
+         "((t - 1) >> 1) & 1)) {\n      }\n", 1)]),
+    "slstm_z2": ("slstm", [_const("ZD", 8, 2)]),
+    "slstm_rows1": ("slstm", [
+        _const("RB", 2, 1),
+        (ROLES, "  const int row = 0;\n  const bool active = half == 0;\n"
+                "  const bool updater = active && g == 0;\n", 1),
+        (Z_FILL, "  if (active)\n  " + Z_FILL, 1),
+        (Z_NEXT, "    if (active) z_issue(t + ZD - 1);\n", 1),
+        (SLSTM_SWAP, ROWS1_SWAP, 1)]),
+    "slstm_pd1": ("slstm", [_const("PD", 4, 1)]),
+    "slstm_pd8": ("slstm", [_const("PD", 4, 8)]),
+}
+# (case, B, S, hd, dtype, carried)
+CHECKS = [("hd256_bf16", 2, 77, 256, torch.bfloat16, True),
+          ("hd256_fp32_init", 3, 40, 256, torch.float32, False),
+          ("hd32_fp32", 2, 100, 32, torch.float32, True),
+          ("hd32_bf16", 2, 33, 32, torch.bfloat16, True),
+          ("decode", 1, 1, 256, torch.bfloat16, True)]
+PREFILL = (4, 512)
+DECODE = (4, 1)
+
+
+def build_variants(names):
+    """Start nvcc for each named variant, all at once; returns
+    ``{name: (library path, process)}``."""
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        source, edits = VARIANTS[name]
+        text = (build.CSRC / f"{source}.cu").read_text()
+        for old, new, count in edits:
+            if text.count(old) != count:
+                raise SystemExit(f"{name}: {source}.cu no longer holds "
+                                 f"{old[:60]!r} {count} times")
+            text = text.replace(old, new)
+        text = text.replace('#include "', f'#include "{build.CSRC}/')
+        cu = OUT_DIR / f"{name}.cu"
+        cu.write_text(text)
+        out = OUT_DIR / f"lib{name}.so"
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(out), str(cu)]
+        procs[name] = (out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def _bind(kernel, lib):
+    if kernel == "mlstm":
+        fn = ML._bind_recurrent(lib.dash_mlstm_recurrent)
+        return lambda a, st: ML._recurrent(lambda: fn, *a, *st)
+    fn = SL._bind(lib.dash_slstm)
+    return lambda a, st, rr: SL._launch(lambda: fn, a, rr, st)
+
+
+def _inputs(kernel, b, s, hd, dtype, seed, carried=True):
+    if kernel == "mlstm":
+        args, state = CS._mlstm_inputs(b, s, hd, dtype, seed, carried)
+        return args, state, None
+    z, rr, state = CS._slstm_inputs(b, s, hd, dtype, seed, carried)
+    return z, state, rr
+
+
+def _call(kernel, fn, args, state, rr):
+    return fn(args, state) if kernel == "mlstm" else fn(args, state, rr)
+
+
+def check(kernel, fn, ref):
+    """``fn``'s outputs and states against the first design's at CHECKS,
+    each bitwise."""
+    out = {}
+    for case, b, s, hd, dtype, carried in CHECKS:
+        args, state, rr = _inputs(kernel, b, s, hd, dtype, seed=s + hd,
+                                  carried=carried)
+        got = _call(kernel, fn, args, state, rr)
+        want = _call(kernel, ref, args, state, rr)
+        out[case] = CS._same(got, want)
+    return out
+
+
+def in_turns(calls, reps):
+    """``_queued_ms`` of each call in turns (forward, then reversed): the
+    mean of each call's two readings."""
+    times = {c: [] for c in calls}
+    order = list(calls)
+    for name in order + order[::-1]:
+        times[name].append(CS._queued_ms(calls[name], reps=reps, rounds=3))
+    return {c: statistics.mean(t) for c, t in times.items()}
+
+
+def phase_shares(kernel, args, state, rr):
+    """The median share of each phase in a warp's clocks, per group of
+    warps, at these inputs (``chip_smoke._xlstm_phase_shares``)."""
+    if kernel == "mlstm":
+        return CS._xlstm_phase_shares(ML.recurrent_phases(*args, *state),
+                                      CS.XLSTM_MLSTM_PHASES)
+    return CS._xlstm_phase_shares(SL.slstm_phases(args, rr, state),
+                                  CS.XLSTM_SLSTM_PHASES)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default=None, help="write the results as JSON")
+    ap.add_argument("--only", default=",".join(VARIANTS),
+                    help="comma-separated variants to build (default all)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("xlstm_variants: no CUDA device", file=sys.stderr)
+        return 2
+    card = CS.phase_device()
+    names = [n for n in args.only.split(",") if n]
+    procs = build_variants(names)
+    built = build.build_variants(
+        [("mlstm", ()), ("mlstm_v1", ()), ("slstm", ()), ("slstm_v1", ()),
+         ("mlstm", ("DASH_STAMPS",)), ("slstm", ("DASH_STAMPS",))])
+    variant_libs = {}
+    for name, (out, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"nvcc failed for {name}:\n{log[-4000:]}")
+        variant_libs[name] = (ctypes.CDLL(str(out)), log)
+    result = dict(card=card, variants={}, layout=ML.recurrent_layout())
+    calls = {}
+    for kernel in ("mlstm", "slstm"):
+        if kernel == "mlstm":
+            ref = (lambda a, st: ML.mlstm_recurrent_v1_cuda(*a, *st))
+        else:
+            ref = (lambda a, st, rr: SL.slstm_v1_cuda(a, rr, st))
+        members = {"kernel": (_bind(kernel, build.load(kernel)),
+                              built[(kernel, ())]["ptxas"]),
+                   "v1": (ref, built[(f"{kernel}_v1", ())]["ptxas"])}
+        members.update({n: (_bind(kernel, lib), log)
+                        for n, (lib, log) in variant_libs.items()
+                        if VARIANTS[n][0] == kernel})
+        calls[kernel] = {}
+        for name, (fn, ptxas) in members.items():
+            calls[kernel][name] = fn
+            row = dict(ptxas=CS.xlstm_resources(ptxas))
+            if name != "v1":
+                row["bitwise_v1"] = check(kernel, fn, ref)
+            result["variants"][f"{kernel}/{name}"] = row
+            print(f"[variant] {kernel}/{name} " + json.dumps(row),
+                  flush=True)
+    torch.cuda.synchronize()
+    hd = 256
+    with torch.no_grad():
+        for kernel, fns in calls.items():
+            for label, (b, s), reps in (("prefill", PREFILL, 10),
+                                        ("decode", DECODE, 50)):
+                a, st, rr = _inputs(kernel, b, s, hd, torch.bfloat16,
+                                    seed=31, carried=s == 1)
+                timed = {n: (lambda fn=fn: _call(kernel, fn, a, st, rr))
+                         for n, fn in fns.items()}
+                key = f"{kernel}_{label}_ms"
+                result[key] = in_turns(timed, reps=reps)
+                print(f"[timing] {key} " + json.dumps(result[key]),
+                      flush=True)
+            a, st, rr = _inputs(kernel, *PREFILL, hd, torch.bfloat16,
+                                seed=31, carried=False)
+            result[f"{kernel}_phases"] = phase_shares(kernel, a, st, rr)
+            print(f"[phases] {kernel} " + json.dumps(
+                result[f"{kernel}_phases"]), flush=True)
+    result["sm_clock_after"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(result, indent=1))
+    print(json.dumps(result))
+    return 0 if all(all(v.get("bitwise_v1", {}).values())
+                    for v in result["variants"].values()) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -17,9 +17,12 @@ the log input and forget gates ig, fg (B, S, H) fp32:
 
 Both return ``out`` (B, S, H, hd) fp32 (the recurrence also the new
 state). ``csrc/mlstm.cu`` holds both kernels; it takes hd 32 (the reduced
-configs) and 256 (xLSTM-350M). The dispatchers take the plain version for
-CPU tensors and launch the kernel for CUDA tensors (raising for anything it
-does not take), never one in place of the other. On the card each kernel
+configs) and 256 (xLSTM-350M). The recurrence's first design,
+``csrc/mlstm_v1.cu`` (:func:`mlstm_recurrent_v1_cuda`), is kept as its bit
+oracle: the redesign returns its ``out``, C', n' and m' bitwise. The
+dispatchers take the plain version for CPU tensors and launch the kernel
+for CUDA tensors (raising for anything it does not take), never one in
+place of the other. On the card each kernel
 runs inside a ``torch.autograd.Function`` whose backward raises: the
 backward kernels come with xLSTM training (ROADMAP A8). The plain versions
 are differentiable by autograd.
@@ -29,6 +32,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
@@ -37,6 +41,7 @@ F32 = torch.float32
 NEG = -1e30
 HEAD_DIMS = (32, 256)            # the head dims the kernels take
 DTYPES = (torch.bfloat16, F32)   # q, k, v dtypes the kernels take
+ALIGN = 16                       # bytes the recurrence's 16-byte copies need
 TRAINING = ("the mLSTM kernels have no backward yet: it comes with xLSTM "
             "training (ROADMAP A8, 'xLSTM training')")
 
@@ -84,16 +89,26 @@ def mlstm_recurrent_plain(q, k, v, ig, fg, C, n, m):
 # --------------------------------------------------------------------------- #
 # CUDA kernels (csrc/mlstm.cu)
 # --------------------------------------------------------------------------- #
+def _bind_recurrent(fn):
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = build.load("mlstm")
     lib.dash_mlstm_parallel.argtypes = [ctypes.c_void_p] * 6 + [
         ctypes.c_int] * 5 + [ctypes.c_void_p]
-    lib.dash_mlstm_recurrent.argtypes = [ctypes.c_void_p] * 12 + [
-        ctypes.c_int] * 5 + [ctypes.c_void_p]
-    for fn in (lib.dash_mlstm_parallel, lib.dash_mlstm_recurrent):
-        fn.restype = ctypes.c_int
+    lib.dash_mlstm_parallel.restype = ctypes.c_int
+    _bind_recurrent(lib.dash_mlstm_recurrent)
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _recurrent_v1():
+    return _bind_recurrent(build.load("mlstm_v1").dash_mlstm_recurrent_v1)
 
 
 def _stream(device):
@@ -127,6 +142,9 @@ def _check(q, k, v, ig, fg, state=()):
                          f"{tuple(q.shape)}, mismatched {bad}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the mLSTM kernels need contiguous operands")
+    if any(t.data_ptr() % ALIGN for t in (q, k, v)):
+        raise ValueError(f"the mLSTM kernels need q, k, v aligned to {ALIGN} "
+                         f"bytes")
 
 
 def mlstm_parallel_cuda(q, k, v, ig, fg):
@@ -148,22 +166,81 @@ def mlstm_parallel_cuda(q, k, v, ig, fg):
     return out
 
 
-def mlstm_recurrent_cuda(q, k, v, ig, fg, C, n, m):
-    """Launch the recurrence from ``(C, n, m)``: returns ``(out, (C', n',
-    m'))``, the new state in new tensors."""
-    global launches_recurrent
+def _recurrent(lib_fn, q, k, v, ig, fg, C, n, m):
+    """Check the operands, then launch ``lib_fn()`` (the entry point, built
+    at first use)."""
     _check(q, k, v, ig, fg, (C, n, m))
     b, s, h, hd = q.shape
     out = torch.empty((b, s, h, hd), dtype=F32, device=q.device)
     C1, n1, m1 = (torch.empty_like(t) for t in (C, n, m))
-    err = _lib().dash_mlstm_recurrent(
-        *(t.data_ptr() for t in (q, k, v, ig, fg, C, n, m, out, C1, n1, m1)),
-        b, s, h, hd, int(q.dtype == torch.bfloat16), _stream(q.device))
+    err = lib_fn()(*(t.data_ptr() for t in (q, k, v, ig, fg, C, n, m, out,
+                                            C1, n1, m1)),
+                   b, s, h, hd, int(q.dtype == torch.bfloat16),
+                   _stream(q.device))
     if err:
         raise RuntimeError(f"mLSTM recurrent kernel failed to launch: "
                            f"cudaError {err}")
-    launches_recurrent += 1
     return out, (C1, n1, m1)
+
+
+def mlstm_recurrent_cuda(q, k, v, ig, fg, C, n, m):
+    """Launch the recurrence from ``(C, n, m)``: returns ``(out, (C', n',
+    m'))``, the new state in new tensors."""
+    global launches_recurrent
+    result = _recurrent(lambda: _lib().dash_mlstm_recurrent, q, k, v, ig, fg,
+                        C, n, m)
+    launches_recurrent += 1
+    return result
+
+
+def mlstm_recurrent_v1_cuda(q, k, v, ig, fg, C, n, m):
+    """The recurrence's first design (``csrc/mlstm_v1.cu``), kept as its bit
+    oracle: :func:`mlstm_recurrent_cuda` must return these bits. Only the
+    checks, the gpu-marked tests and ``scripts/xlstm_variants.py`` call it;
+    it counts in no launch counter."""
+    return _recurrent(_recurrent_v1, q, k, v, ig, fg, C, n, m)
+
+
+LAYOUT_KEYS = ("warp_rows", "decode_warp_rows", "decode_max_s", "cta_rows",
+               "decode_cta_rows", "threads", "decode_threads", "lookahead",
+               "stages", "smem_bf16", "smem_fp32")
+# the phases of recurrent_phases: a consumer warp's, the scalar warp's
+CONSUMER_PHASES = ("wait", "prepare", "update", "reduce", "wait_den")
+SCALAR_PHASES = ("wait", "chain", "n", "reduce")
+
+
+def recurrent_layout(lib=None):
+    """The recurrence's build (``csrc/mlstm.cu``): rows of C a consumer
+    warp and a CTA, threads a CTA (each also at S <= ``decode_max_s``),
+    stages of copies in flight, prepared stages, dynamic shared memory
+    (bytes, hd = 256)."""
+    out = (ctypes.c_int * len(LAYOUT_KEYS))()
+    (lib or _lib()).dash_mlstm_recurrent_layout(out)
+    return dict(zip(LAYOUT_KEYS, out))
+
+
+def recurrent_phases(q, k, v, ig, fg, C, n, m):
+    """One launch of the recurrence built with ``-DDASH_STAMPS`` (its
+    ``clock64()`` stamps; counted nowhere) at S > ``decode_max_s``: per CTA
+    and warp (the consumer warps, then the scalar warp) the clocks in each
+    phase and in all, an int64 array (CTAs, warps, 6). A consumer's phases
+    (:data:`CONSUMER_PHASES`): waiting for the stage's layout and fi, ii;
+    laying the next stage out (with its copies); the update; the
+    reduce-scatter; waiting for the denominators (then the store). The
+    scalar warp's (:data:`SCALAR_PHASES`): waiting, the stabilizer's chain,
+    n and q . n, the reduce-scatter and denominators."""
+    lib = build.load("mlstm", ("DASH_STAMPS",))
+    _recurrent(lambda: _bind_recurrent(lib.dash_mlstm_recurrent), q, k, v,
+               ig, fg, C, n, m)
+    torch.cuda.synchronize(q.device)
+    b, _, h, hd = q.shape
+    layout = recurrent_layout(lib)
+    warps, per = layout["threads"] // 32, len(CONSUMER_PHASES) + 1
+    ctas = b * h * (hd // layout["cta_rows"])
+    buf = (ctypes.c_longlong * (ctas * warps * per))()
+    if lib.dash_mlstm_stamps(buf, len(buf)):
+        raise RuntimeError("reading the mLSTM recurrence's stamps failed")
+    return np.frombuffer(buf, dtype=np.int64).reshape(ctas, warps, per).copy()
 
 
 class _ParallelFn(torch.autograd.Function):

@@ -13,24 +13,28 @@ fp32, per step, with ``h r_g`` the sum over e of h[e] r_g[e, v]:
     h = sigmoid(z_o + h r_o) c / max(n, 1e-6)
 
 returning every step's h (B, S, H, hd) fp32 and the last state.
-``csrc/slstm.cu`` runs all S steps in one launch, a (b, h) on a cluster of
-hd / 32 CTAs (hd 32 or 256). :func:`slstm` takes the plain version for CPU
-tensors and launches the kernel for CUDA tensors (raising for anything it
-does not take), never one in place of the other; on the card the kernel
-runs inside a ``torch.autograd.Function`` whose backward raises (the
-backward kernel comes with xLSTM training, ROADMAP A8). The plain version
-is differentiable by autograd.
+``csrc/slstm.cu`` runs all S steps in one launch, a head's two batch rows
+on a cluster of hd / 32 CTAs (hd 32 or 256); its first design,
+``csrc/slstm_v1.cu`` (a (b, h) a cluster, :func:`slstm_v1_cuda`), is kept
+as its bit oracle: the redesign returns its h_all and state bitwise.
+:func:`slstm` takes the plain version for CPU tensors and launches the
+kernel for CUDA tensors (raising for anything it does not take), never one
+in place of the other; on the card the kernel runs inside a
+``torch.autograd.Function`` whose backward raises (the backward kernel
+comes with xLSTM training, ROADMAP A8). The plain version is
+differentiable by autograd.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
-from repro_torch.kernels.mlstm import DTYPES, HEAD_DIMS
+from repro_torch.kernels.mlstm import ALIGN, DTYPES, HEAD_DIMS
 
 F32 = torch.float32
 TRAINING = ("the sLSTM kernel has no backward yet: it comes with xLSTM "
@@ -68,13 +72,21 @@ def slstm_plain(z, r, state):
 # --------------------------------------------------------------------------- #
 # CUDA kernel (csrc/slstm.cu)
 # --------------------------------------------------------------------------- #
+def _bind(fn):
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
-    lib = build.load("slstm")
-    lib.dash_slstm.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
-    lib.dash_slstm.restype = ctypes.c_int
-    return lib
+    return _bind(build.load("slstm").dash_slstm)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_v1():
+    return _bind(build.load("slstm_v1").dash_slstm_v1)
 
 
 def _check(z, r, state):
@@ -100,25 +112,76 @@ def _check(z, r, state):
                          f"got z {tuple(zi.shape)}, mismatched {bad}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the sLSTM kernel needs contiguous operands")
+    if any(t.data_ptr() % ALIGN for t in r):
+        raise ValueError(f"the sLSTM kernel needs r_i, r_f, r_z, r_o aligned "
+                         f"to {ALIGN} bytes")
 
 
-def slstm_cuda(z, r, state):
-    """Launch the kernel: returns ``(h_all, (c, n, h, m))``, the new state
-    in new tensors."""
-    global launches
+def _launch(lib_fn, z, r, state):
+    """Check the operands, then launch ``lib_fn()`` (the entry point, built
+    at first use)."""
     _check(z, r, state)
     b, s, h, hd = z[0].shape
     out = torch.empty((b, s, h, hd), dtype=F32, device=z[0].device)
     new = tuple(torch.empty_like(t) for t in state)
     with torch.cuda.device(z[0].device):
         stream = torch.cuda.current_stream().cuda_stream
-    err = _lib().dash_slstm(
-        *(t.data_ptr() for t in (*z, *r, *state, out, *new)), b, s, h, hd,
-        int(r[0].dtype == torch.bfloat16), stream)
+    err = lib_fn()(*(t.data_ptr() for t in (*z, *r, *state, out, *new)), b,
+                   s, h, hd, int(r[0].dtype == torch.bfloat16), stream)
     if err:
         raise RuntimeError(f"sLSTM kernel failed to launch: cudaError {err}")
-    launches += 1
     return out, new
+
+
+def slstm_cuda(z, r, state):
+    """Launch the kernel: returns ``(h_all, (c, n, h, m))``, the new state
+    in new tensors."""
+    global launches
+    result = _launch(_lib, z, r, state)
+    launches += 1
+    return result
+
+
+def slstm_v1_cuda(z, r, state):
+    """The first design (``csrc/slstm_v1.cu``), kept as the bit oracle:
+    :func:`slstm_cuda` must return these bits. Only the checks, the
+    gpu-marked tests and ``scripts/xlstm_variants.py`` call it; it counts in
+    no launch counter."""
+    return _launch(_lib_v1, z, r, state)
+
+
+PHASES = ("wait", "sum", "gate", "update", "push")
+LAYOUT_KEYS = ("rows", "z_depth", "threads", "smem_bf16", "smem_fp32")
+
+
+def layout(lib=None):
+    """The kernel's build (``csrc/slstm.cu``): batch rows a cluster, steps
+    of z in flight, threads a CTA, dynamic shared memory (bytes, hd =
+    256)."""
+    out = (ctypes.c_int * len(LAYOUT_KEYS))()
+    (lib or build.load("slstm")).dash_slstm_layout(out)
+    return dict(zip(LAYOUT_KEYS, out))
+
+
+def slstm_phases(z, r, state):
+    """One launch of the kernel built with ``-DDASH_STAMPS`` (its
+    ``clock64()`` stamps; counted nowhere): per CTA and warp (warp w the
+    (gate w % 4, half w // 4)) the clocks in each of :data:`PHASES` and in
+    all, an int64 array (CTAs, 8, 6). The phases: waiting for the step's h,
+    the sum over e, the gate (the halves, z and its nonlinearity, with the
+    barriers), and in the warps that update a row (warps 0 and 4, the gate-i
+    warp of each half) the state update and the push of h into the
+    cluster."""
+    lib = build.load("slstm", ("DASH_STAMPS",))
+    _launch(lambda: _bind(lib.dash_slstm), z, r, state)
+    torch.cuda.synchronize(z[0].device)
+    b, _, h, hd = z[0].shape
+    rows = layout(lib)["rows"]
+    ctas, per = -(-b // rows) * h * (hd // 32), len(PHASES) + 1
+    buf = (ctypes.c_longlong * (ctas * 8 * per))()
+    if lib.dash_slstm_stamps(buf, len(buf)):
+        raise RuntimeError("reading the sLSTM stamps failed")
+    return np.frombuffer(buf, dtype=np.int64).reshape(ctas, 8, per).copy()
 
 
 class _SLSTMFn(torch.autograd.Function):

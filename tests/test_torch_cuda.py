@@ -1035,6 +1035,80 @@ def test_xlstm_kernels_match_plain_and_hold_their_bits(b, s, h, hd, dtype):
             assert all(torch.equal(x, y) for x, y in zip(st2, got[1])), name
 
 
+def _xlstm_initial(mst, sst, carried):
+    """The carried states, or the model's initial ones (mLSTM zeros; sLSTM
+    zeros with m = -1e30)."""
+    if carried:
+        return mst, sst
+    m0 = tuple(torch.zeros_like(x) for x in mst)
+    s0 = tuple(torch.zeros_like(x) for x in sst[:3]) + (
+        torch.full_like(sst[3], -1e30),)
+    return m0, s0
+
+
+def _xlstm_recurrences(rr):
+    """(redesign, first design) of each recurrence, as run(args, state)."""
+    from repro_torch.kernels import mlstm as ML
+    from repro_torch.kernels import slstm as SL
+    return {"mlstm": (lambda a, st: ML.mlstm_recurrent_cuda(*a, *st),
+                      lambda a, st: ML.mlstm_recurrent_v1_cuda(*a, *st)),
+            "slstm": (lambda a, st: SL.slstm_cuda(a, rr, st),
+                      lambda a, st: SL.slstm_v1_cuda(a, rr, st))}
+
+
+def _leaves(result):
+    out, state = result
+    return (out, *state)
+
+
+@pytest.mark.parametrize("carried", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,h,hd", [(2, 300, 4, 256), (2, 77, 4, 32),
+                                      (1, 1, 4, 256), (3, 45, 4, 256)])
+@torch.no_grad()
+def test_xlstm_redesigns_keep_their_first_designs_bits(b, s, h, hd, dtype,
+                                                       carried):
+    """csrc/mlstm.cu's recurrence and csrc/slstm.cu against their first
+    designs (csrc/mlstm_v1.cu, csrc/slstm_v1.cu) on the same inputs: every
+    output and state leaf bitwise, from carried states and from the
+    model's initial ones, at a ragged S, hd 256 and 32, the decode step
+    S = 1 and an odd B."""
+    _card()
+    margs, mst, (z, rr, sst) = _xlstm_operands(b, s, h, hd, dtype,
+                                               seed=s + b)
+    mst, sst = _xlstm_initial(mst, sst, carried)
+    inputs = {"mlstm": (margs, mst), "slstm": (z, sst)}
+    for name, (new, old) in _xlstm_recurrences(rr).items():
+        args, st = inputs[name]
+        got, want = _leaves(new(args, st)), _leaves(old(args, st))
+        assert len(got) == len(want)
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert torch.equal(g, w), (name, i)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@torch.no_grad()
+def test_xlstm_redesigns_repeat_and_split_bitwise(dtype):
+    """Ten launches of each redesigned recurrence give the same bits, and a
+    recurrence split at S - 1 (a prefill, then a one-step decode from its
+    state) gives the bits of one launch."""
+    _card()
+    b, s, h, hd = 2, 130, 4, 256
+    margs, mst, (z, rr, sst) = _xlstm_operands(b, s, h, hd, dtype, seed=7)
+    inputs = {"mlstm": (margs, mst), "slstm": (z, sst)}
+    for name, (new, _) in _xlstm_recurrences(rr).items():
+        args, st = inputs[name]
+        first = _leaves(new(args, st))
+        for _ in range(10):
+            again = _leaves(new(args, st))
+            assert all(torch.equal(x, y) for x, y in zip(first, again)), name
+        head, tail = _halves(args, s - 1)
+        o1, st1 = new(head, st)
+        o2, st2 = new(tail, st1)
+        assert torch.equal(torch.cat([o1, o2], 1), first[0]), name
+        assert all(torch.equal(x, y) for x, y in zip(st2, first[1:])), name
+
+
 def test_xlstm_kernels_raise_on_what_they_do_not_take():
     _card()
     from repro_torch.kernels import mlstm as ML
