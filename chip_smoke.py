@@ -72,6 +72,9 @@ Phases, each reported on its own line:
                step both recurrences also against their first designs
                (``csrc/mlstm_v1.cu``, ``csrc/slstm_v1.cu``; ``[kernel-check]
                xlstm v1``): every output and state leaf ``torch.equal``;
+               at each parallel-form case the parallel form against its
+               first design (``csrc/mlstm_parallel_v1.cu``): fp32
+               ``torch.equal``, bf16 within ``XLSTM_TOL``;
                and the GQA groups of this slice's models (``[kernel-check]
                gqa``: 40/8 and 48/8 at D=128, S=1024): the causal forward,
                the worker backward with its dQ and dK/dV group folds (each
@@ -287,10 +290,12 @@ Phases, each reported on its own line:
                (a spill fails the run); the three xLSTM kernels at the
                serve slice's shapes (the recurrences also at the decode
                step) beside their plain versions and bounds, their
-               launches those of ``[serve-xlstm]``, the recurrences and
-               their decode steps beside their first designs in turns
-               (``v1_ms``) with the clock64() share of each phase of a step
-               (``[phases]``); the fingerprint's entry
+               launches those of ``[serve-xlstm]``, each beside its first
+               design in turns (``v1_ms``; the recurrences also at their
+               decode steps) with the clock64() share of each phase of a
+               recurrence's step (``[phases]``), the parallel form's wrapper
+               split into its launch and its ``F = cumsum(fg)``
+               (``launch_ms``, ``cumsum_ms``); the fingerprint's entry
                is timed in its kernel check, at the full-width train
                state.
 The line before the last is ``{"kernels": [...]}``; the last is
@@ -719,12 +724,13 @@ STAMPED = (("mlstm", ("DASH_STAMPS",)), ("slstm", ("DASH_STAMPS",)))
 
 
 def xlstm_resources(ptxas):
-    """Per xLSTM recurrence instantiation in an ``-Xptxas -v`` log
-    (``csrc/mlstm.cu``'s recurrence, ``csrc/slstm.cu`` and their first
-    designs): head dim, rows of C a warp (the mLSTM redesign's
-    instantiations), registers and spilled bytes."""
+    """Per xLSTM kernel instantiation in an ``-Xptxas -v`` log
+    (``csrc/mlstm.cu``'s parallel form and recurrence, ``csrc/slstm.cu``
+    and their first designs): head dim, rows of C a warp (the mLSTM
+    recurrence's instantiations), registers and spilled bytes."""
     def classify(name):
-        found = re.search(r"(mlstm_recurrent|slstm)_kernel", name)
+        found = re.search(r"(mlstm_parallel|mlstm_recurrent|slstm)_kernel",
+                          name)
         if found is None:
             return None
         dims = [int(x) for x in re.findall(r"Li(\d+)E", name)]
@@ -759,7 +765,8 @@ def phase_build():
         print("[ptxas] " + json.dumps(k), flush=True)
     for k in scan_resources(built):
         print("[ptxas] " + json.dumps(k), flush=True)
-    for source in ("mlstm", "slstm", "mlstm_v1", "slstm_v1"):
+    for source in ("mlstm", "slstm", "mlstm_v1", "slstm_v1",
+                   "mlstm_parallel_v1"):
         for k in xlstm_resources(built[source]["ptxas"]):
             print("[ptxas] " + json.dumps(dict(k, source=source)),
                   flush=True)
@@ -3539,10 +3546,14 @@ def check_xlstm():
     repeated launches bitwise, and each recurrence split at two points
     (3/5 of S, and S - 1: a prefill then a one-step decode) bitwise one
     launch. One ``[kernel-check] xlstm`` line a case; and one
-    ``[kernel-check] xlstm v1`` line a recurrence case and decode step:
-    every output and state leaf ``torch.equal`` to the first design's
-    (``mlstm_recurrent_v1_cuda``, ``slstm_v1_cuda``). Raises on any
-    failure. Returns the lines and the serve shapes' max abs errors."""
+    ``[kernel-check] xlstm v1`` line a case: the recurrences' every output
+    and state leaf ``torch.equal`` to the first design's
+    (``mlstm_recurrent_v1_cuda``, ``slstm_v1_cuda``, also at each decode
+    step), the parallel form's output ``torch.equal`` to
+    ``mlstm_parallel_v1_cuda``'s for fp32 operands and within
+    ``XLSTM_TOL`` of it for bf16 ones (whose q . k the redesign sums on the
+    tensor cores; max abs diff printed). Raises on any failure. Returns the
+    lines and the serve shapes' max abs errors."""
     lines = []
 
     def report(kernel, case, shape, dtype, pairs, bitwise):
@@ -3583,7 +3594,20 @@ def check_xlstm():
                {"out": (out, want)},
                {"reps10": reps10(lambda: MLSTM.mlstm_parallel_cuda(*args),
                                  out)})
-        del args, out, want
+        old = MLSTM.mlstm_parallel_v1_cuda(*args)
+        line = dict(kernel="mlstm_parallel", case=case,
+                    shape=list(args[0].shape),
+                    dtype=str(dtype).split(".")[-1],
+                    max_abs_diff=float((out - old).abs().max()))
+        if dtype == torch.float32:
+            line.update(equal={"out": bool(torch.equal(out, old))})
+            line["ok"] = line["equal"]["out"]
+        else:
+            line.update(err=_scan_err(out, old), tol=XLSTM_TOL)
+            line["ok"] = line["err"] <= XLSTM_TOL
+        print("[kernel-check] xlstm v1 " + json.dumps(line), flush=True)
+        v1_lines.append(line)
+        del args, out, want, old
 
     def mlstm_run(args, state):
         return MLSTM.mlstm_recurrent_cuda(*args, *state)
@@ -3643,8 +3667,8 @@ def check_xlstm():
     not_v1 = [f"{x['kernel']}/{x['case']}" for x in v1_lines if not x["ok"]]
     if failed or not_v1:
         raise AssertionError(f"xLSTM kernels vs plain failed: {failed}; "
-                             f"recurrences not bitwise their first designs: "
-                             f"{not_v1}")
+                             f"not their first designs' bits (tolerance "
+                             f"for the parallel form's bf16): {not_v1}")
     by = {(x["kernel"], x["case"]): x["max_abs_err"] for x in lines}
     return dict(lines=lines, v1_lines=v1_lines, max_abs_err=dict(
         mlstm_parallel=by[("mlstm_parallel", "serve")],
@@ -3683,16 +3707,36 @@ def _xlstm_bounds(b, s, hd, elt):
                      torch.float32, exps=5 * tok))
 
 
+def _parallel_split_ms(q, k, v, ig, fg):
+    """The parallel form's wrapper split in two, each ``_queued_ms`` alone:
+    its kernel's launch on a precomputed F (``launch_ms``) and the
+    wrapper's ``F = torch.cumsum(fg, 1)`` (``cumsum_ms``)."""
+    b, s, h, hd = q.shape
+    F_ = torch.cumsum(fg, 1)
+    out = torch.empty((b, s, h, hd), dtype=torch.float32, device=q.device)
+    lib, stream = MLSTM._lib(), torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        lib.dash_mlstm_parallel(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                F_.data_ptr(), ig.data_ptr(), out.data_ptr(),
+                                b, s, h, hd, int(q.dtype == torch.bfloat16),
+                                stream)
+    return dict(launch_ms=_queued_ms(launch, reps=20),
+                cumsum_ms=_queued_ms(lambda: torch.cumsum(fg, 1), reps=20))
+
+
 @torch.no_grad()
 def time_xlstm(xlstm_check, serve):
     """The three xLSTM kernels at the serve slice's shapes (B = 4, prompt
     512; the recurrences also at the decode step, S = 1), each beside its
     plain version and its bound — the ``{"kernels": ...}`` entries, whose
     launches are ``[serve-xlstm]``'s: the static engine's generate for the
-    recurrences, its ``forward`` for the parallel form. The recurrences and
-    their decode steps also beside their first designs in turns
-    (``v1_ms``, ``decode_v1_ms``), with the clock64() share of each phase
-    of a step at the prefill shape (``[phases]``)."""
+    recurrences, its ``forward`` for the parallel form. Each kernel also
+    beside its first design in turns (``v1_ms``; the recurrences'
+    decode steps ``decode_v1_ms``), with the clock64() share of each phase
+    of a recurrence's step at the prefill shape (``[phases]``). The
+    parallel form's ``ms`` is its wrapper's, ``F = cumsum(fg)`` included;
+    ``launch_ms`` and ``cumsum_ms`` split it (each queued alone)."""
     b, s = SERVE_XLSTM["batch"], SERVE_XLSTM["prompt"]
     hd, dtype = registry.get(SERVE_XLSTM["arch"]).head_dim, torch.bfloat16
     args, _ = _mlstm_inputs(b, s, hd, dtype, seed=31)
@@ -3700,12 +3744,13 @@ def time_xlstm(xlstm_check, serve):
     dargs, dstate = _mlstm_inputs(b, 1, hd, dtype, seed=32)
     z, rr, st0 = _slstm_inputs(b, s, hd, dtype, seed=33, carried=False)
     dz, _, dst = _slstm_inputs(b, 1, hd, dtype, seed=34)
-    ms = dict(mlstm_parallel=_ms(lambda: MLSTM.mlstm_parallel_cuda(*args),
-                                 reps=20))
-    v1_ms = {}
-    # the recurrences and their decode steps in turns with their first
-    # designs (new, old, old, new), the calls queued behind a spin kernel
+    ms, v1_ms = {}, {}
+    # each kernel (and the recurrences' decode steps) in turns with its
+    # first design (new, old, old, new), the calls queued behind a spin
+    # kernel
     for name, new_fn, old_fn, reps in (
+            ("mlstm_parallel", lambda: MLSTM.mlstm_parallel_cuda(*args),
+             lambda: MLSTM.mlstm_parallel_v1_cuda(*args), 20),
             ("mlstm_recurrent",
              lambda: MLSTM.mlstm_recurrent_cuda(*args, *zero),
              lambda: MLSTM.mlstm_recurrent_v1_cuda(*args, *zero), 20),
@@ -3717,6 +3762,7 @@ def time_xlstm(xlstm_check, serve):
             ("slstm_decode", lambda: SLSTM.slstm_cuda(dz, rr, dst),
              lambda: SLSTM.slstm_v1_cuda(dz, rr, dst), 50)):
         ms[name], v1_ms[name] = _turns_ms(new_fn, old_fn, reps=reps)
+    split = _parallel_split_ms(*args)
     phases = dict(mlstm_recurrent=_xlstm_phase_shares(
         MLSTM.recurrent_phases(*args, *zero), XLSTM_MLSTM_PHASES),
         slstm=_xlstm_phase_shares(SLSTM.slstm_phases(z, rr, st0),
@@ -3772,6 +3818,12 @@ def time_xlstm(xlstm_check, serve):
                 "operations: q k^T (bf16 operands, fp32 sums) at the bf16 "
             "tensor cores' rate plus S v (fp32 scores) at the fp32 CUDA "
             "cores' rate")
+    kernels[0].update(v1_ms=v1_ms["mlstm_parallel"], **split)
+    _vs_v1(f"mlstm_parallel ({b}, {s})", kernels[0]["ms"],
+           kernels[0]["v1_ms"])
+    print(f"[timing] mlstm_parallel ({b}, {s}): launch alone "
+          f"{split['launch_ms']:.4f} ms, F = cumsum(fg) alone "
+          f"{split['cumsum_ms']:.4f} ms", flush=True)
     for k in kernels[1:]:
         name = k["name"]
         k.update(v1_ms=v1_ms[name], decode_ms=ms[f"{name}_decode"],

@@ -1,6 +1,6 @@
-"""Time variants of the two xLSTM recurrences (``csrc/mlstm.cu``'s (C, n, m)
-recurrence and ``csrc/slstm.cu``) beside their first designs on one card,
-to see what sets their speed.
+"""Time variants of the three xLSTM kernels (``csrc/mlstm.cu``'s parallel
+form and (C, n, m) recurrence, ``csrc/slstm.cu``) beside their first
+designs on one card, to see what sets their speed.
 
     python3 scripts/xlstm_variants.py [--out FILE] [--only NAME,...]
 
@@ -37,20 +37,36 @@ Each variant is a copy of the kernel's source changed by text substitutions
                          handing their sums to the half-0 warps;
   slstm_pd1, slstm_pd8   h loaded 1 or 8 float4s ahead of its multiply-
                          adds (``PD``), not 4;
+  par_unpaired           the parallel form without its causal pairs: a
+                         CTA a query tile, the longest first (tile n - 1 -
+                         blockIdx.x), n CTAs a (b, h) instead of ceil(n / 2);
+  par_bq64               64 queries a tile (``BQ``) with 512 threads a CTA
+                         (``THREADS``), S.v's micro-tile unchanged;
+  par_sv4x8              S.v's micro-tile 4 rows x 8 columns a thread, 4
+                         lanes across (``SV_TR``, ``SV_TC``, ``SV_WC``)
+                         instead of 8 x 4, 8;
+  par_t512               512 threads a CTA with 4 x 4 micro-tiles (four
+                         warps a scheduler instead of two);
 
 and the kernels built with ``-DDASH_STAMPS`` (``phases``), whose
 ``clock64()`` stamps give the share of each warp's clocks in each phase
-of the recurrence (``mlstm.recurrent_phases``, ``slstm.slstm_phases``).
+of the recurrence (``mlstm.recurrent_phases``, ``slstm.slstm_phases``);
+for the parallel form, a copy with ``clock64()`` stamps added by text
+substitution (``PAR_PHASES``: warp 0's and the last warp's clocks a CTA
+in each phase, ``PAR_PHASE_NAMES``, at the prefill shape).
 
 For the kernels, the first designs (``v1``: ``csrc/mlstm_v1.cu``,
-``csrc/slstm_v1.cu``) and every variant it prints ptxas' registers and
-spills; checks each variant's outputs and states bitwise against the first
-design at small shapes (``CHECKS``: hd 256 and 32, bf16 and fp32, S = 1,
-a carried state and the model's initial one); then times each at the
-serve slice's prefill (B = 4, S = 512, 4 heads of 256, bf16) and decode
-step (S = 1), in turns (kernel, v1, the variants, then the same in
-reverse) with the calls queued behind a spin kernel. Imports nothing of
-JAX; needs a card.
+``csrc/slstm_v1.cu``, ``csrc/mlstm_parallel_v1.cu``) and every variant it
+prints ptxas' registers and spills; checks each recurrence variant's
+outputs and states bitwise against the first design at small shapes
+(``CHECKS``: hd 256 and 32, bf16 and fp32, S = 1, a carried state and the
+model's initial one), and each parallel-form variant against its first
+design at ``PAR_CHECKS`` (fp32 bitwise, bf16 within ``XLSTM_TOL``); then
+times each at the serve slice's prefill (B = 4, S = 512, 4 heads of 256,
+bf16) and the recurrences' decode step (S = 1), the parallel form also at
+S = 2048, in turns (kernel, v1, the variants, then the same in reverse)
+with the calls queued behind a spin kernel. Imports nothing of JAX; needs
+a card.
 """
 from __future__ import annotations
 
@@ -80,6 +96,11 @@ def _const(name, old, new):
     """One substitution: ``constexpr int name = old;`` becomes ``new``."""
     return (f"constexpr int {name} = {old};", f"constexpr int {name} = {new};",
             1)
+
+
+def _kind(name):
+    """The kernel a variant is of: "mlstm_parallel", "mlstm" or "slstm"."""
+    return "mlstm_parallel" if name in PARALLEL else VARIANTS[name][0]
 
 
 # csrc/slstm.cu's wait for a step's h and its push of the new h
@@ -196,7 +217,82 @@ VARIANTS = {
         (SLSTM_SWAP, ROWS1_SWAP, 1)]),
     "slstm_pd1": ("slstm", [_const("PD", 4, 1)]),
     "slstm_pd8": ("slstm", [_const("PD", 4, 8)]),
+    "par_unpaired": ("mlstm", [
+        ("  if (p != last) {  // the pair's short tile",
+         "  if (false) {  // the pair's short tile", 1),
+        ("  const int pairs = ((S + BQ - 1) / BQ + 1) / 2;  // CTAs a (b, h)",
+         "  const int pairs = (S + BQ - 1) / BQ;  // CTAs a (b, h)", 1)]),
+    "par_bq64": ("mlstm", [_const("BQ", 32, 64), _const("THREADS", 256, 512)]),
+    "par_sv4x8": ("mlstm", [_const("SV_TR", 8, 4), _const("SV_TC", 4, 8),
+                            _const("SV_WC", 8, 4)]),
+    "par_t512": ("mlstm", [_const("THREADS", 256, 512),
+                           _const("SV_TR", 8, 4)]),
 }
+# the variants of the parallel form (the others are recurrences')
+PARALLEL = {"par_unpaired", "par_bq64", "par_sv4x8", "par_t512"}
+
+
+def _stamp(i):
+    """Add the clocks since the last stamp to phase i."""
+    return (f"    {{ const long long u_ = clock64(); ck[{i}] += u_ - tt; "
+            f"tt = u_; }}\n")
+
+
+# the parallel form's phases, in the order of PAR_PHASES' stamps
+PAR_PHASE_NAMES = ("stabilizer", "first_wait", "first_qk", "barrier",
+                   "issue", "s_v_loop", "v_wait", "epilogue")
+_NP = len(PAR_PHASE_NAMES)
+_LOOP_TOP = ("                      // tile kt - 1's reads are done\n"
+             "    const int g = g0 + kt;\n")
+# csrc/mlstm.cu with clock64() stamps in the parallel form: per CTA, the
+# clocks of warp 0 (thread 0) and of the last warp in each phase, summed
+# over the CTA's query tiles (one writer a slot: no atomics)
+PAR_PHASES = [
+    ("// query tile [i0, i0 + BQ) of (b, h)",
+     f"__device__ long long g_par[8192 * 2 * {_NP}];\n"
+     "// query tile [i0, i0 + BQ) of (b, h)", 1),
+    ("  float* Rs = Mq + BQ;\n  const uint32_t qbar",
+     f"  float* Rs = Mq + BQ;\n  long long ck[{_NP}] = {{0}};\n"
+     "  long long tt = clock64();\n  const uint32_t qbar", 1),
+    ("  // key tile 0's scores\n  cp_async_wait<1>();\n",
+     "  // key tile 0's scores\n" + _stamp(0) + "  cp_async_wait<1>();\n",
+     1),
+    ("  mbar_wait(kbar(g0), (g0 / 2) & 1);\n",
+     "  mbar_wait(kbar(g0), (g0 / 2) & 1);\n" + _stamp(1), 1),
+    ("  // S.v: this thread's rows row0 + x",
+     "  __syncwarp();\n" + _stamp(2) + "  // S.v: this thread's rows row0 + x",
+     1),
+    ("    cp_async_wait<0>();\n",
+     "    tt = clock64();\n    cp_async_wait<0>();\n", 1),
+    (_LOOP_TOP, _LOOP_TOP + _stamp(3), 1),
+    ("    const bool next = kt + 1 < tiles, qk_next = next && mma_warp;\n",
+     _stamp(4) +
+     "    const bool next = kt + 1 < tiles, qk_next = next && mma_warp;\n",
+     1),
+    ("    const float* Sc = St + (g % 2) * BK * P::LDS;\n",
+     _stamp(6) + "    const float* Sc = St + (g % 2) * BK * P::LDS;\n", 1),
+    ("    if (qk_next && P::STEPS == BK * P::SPK) qk.mul(P::STEPS - 1);\n",
+     _stamp(5) +
+     "    if (qk_next && P::STEPS == BK * P::SPK) qk.mul(P::STEPS - 1);\n",
+     1),
+    ("  if (sums) Rs[tid - P::RS] = rs;\n",
+     "  tt = clock64();\n  if (sums) Rs[tid - P::RS] = rs;\n", 1),
+    ("              make_float2(acc[x][y] / den, acc[x][y + 1] / den);\n"
+     "      }\n    }\n  }\n}\n",
+     "              make_float2(acc[x][y] / den, acc[x][y + 1] / den);\n"
+     "      }\n    }\n  }\n" + _stamp(7) +
+     "  const int cta = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +\n"
+     "                  blockIdx.x;\n"
+     "  if (cta < 8192 && (tid == 0 || tid == THREADS - 32))\n"
+     f"    for (int i = 0; i < {_NP}; ++i)\n"
+     f"      g_par[(2 * cta + (tid != 0)) * {_NP} + i] += ck[i];\n}}\n", 1),
+    ('extern "C" int dash_mlstm_parallel(',
+     'extern "C" int dash_par_phases(void* out, int n) {\n'
+     "  return static_cast<int>(\n"
+     "      cudaMemcpyFromSymbol(out, g_par, n * sizeof(long long)));\n}\n"
+     'extern "C" int dash_mlstm_parallel(', 1),
+]
+VARIANTS["par_phases"] = ("mlstm", PAR_PHASES)
 # (case, B, S, hd, dtype, carried)
 CHECKS = [("hd256_bf16", 2, 77, 256, torch.bfloat16, True),
           ("hd256_fp32_init", 3, 40, 256, torch.float32, False),
@@ -205,6 +301,13 @@ CHECKS = [("hd256_bf16", 2, 77, 256, torch.bfloat16, True),
           ("decode", 1, 1, 256, torch.bfloat16, True)]
 PREFILL = (4, 512)
 DECODE = (4, 1)
+# the parallel form's checks (case, B, S, hd, dtype) and its long shape
+PAR_CHECKS = [("hd256_bf16", 2, 300, 256, torch.bfloat16),
+              ("hd256_fp32", 1, 200, 256, torch.float32),
+              ("hd32_bf16", 2, 77, 32, torch.bfloat16),
+              ("hd32_fp32", 2, 100, 32, torch.float32),
+              ("s1", 1, 1, 256, torch.bfloat16)]
+LONG = (4, 2048)
 
 
 def build_variants(names):
@@ -231,6 +334,9 @@ def build_variants(names):
 
 
 def _bind(kernel, lib):
+    if kernel == "mlstm_parallel":
+        fn = ML._bind_parallel(lib.dash_mlstm_parallel)
+        return lambda a: ML._parallel(lambda: fn, *a)
     if kernel == "mlstm":
         fn = ML._bind_recurrent(lib.dash_mlstm_recurrent)
         return lambda a, st: ML._recurrent(lambda: fn, *a, *st)
@@ -248,6 +354,46 @@ def _inputs(kernel, b, s, hd, dtype, seed, carried=True):
 
 def _call(kernel, fn, args, state, rr):
     return fn(args, state) if kernel == "mlstm" else fn(args, state, rr)
+
+
+def parallel_phases(lib, b, s):
+    """One launch of the stamped parallel form (``par_phases``) at (b, s,
+    4 heads of 256, bf16): the median share of each phase
+    (``PAR_PHASE_NAMES``) in warp 0's and the last warp's clocks over the
+    CTAs, and their median clocks a CTA."""
+    fn = ML._bind_parallel(lib.dash_mlstm_parallel)
+    args, _ = CS._mlstm_inputs(b, s, 256, torch.bfloat16, seed=31)
+    ctas = b * CS.XLSTM_HEADS * ((-(-s // 32) + 1) // 2)
+    n = ctas * 2 * _NP
+    before = (ctypes.c_longlong * n)()
+    lib.dash_par_phases(before, n)
+    ML._parallel(lambda: fn, *args)
+    torch.cuda.synchronize()
+    after = (ctypes.c_longlong * n)()
+    lib.dash_par_phases(after, n)
+    clocks = [[after[(2 * c + w) * _NP + i] - before[(2 * c + w) * _NP + i]
+               for i in range(_NP)] for c in range(ctas) for w in (0, 1)]
+    out = {}
+    for w, name in ((0, "warp0"), (1, "last_warp")):
+        rows = clocks[w::2]
+        out[name] = {p: statistics.median(r[i] / sum(r) for r in rows)
+                     for i, p in enumerate(PAR_PHASE_NAMES)}
+        out[name]["clocks"] = statistics.median(sum(r) for r in rows)
+    return out
+
+
+def check_parallel(fn):
+    """``fn``'s output against the first design's at PAR_CHECKS: fp32
+    bitwise, bf16 within ``XLSTM_TOL`` (relative to max(1, max |v1|))."""
+    out = {}
+    for case, b, s, hd, dtype in PAR_CHECKS:
+        args, _ = CS._mlstm_inputs(b, s, hd, dtype, seed=s + hd)
+        got, want = fn(args), ML.mlstm_parallel_v1_cuda(*args)
+        if dtype == torch.float32:
+            out[case] = bool(torch.equal(got, want))
+        else:
+            out[case] = CS._scan_err(got, want) <= CS.XLSTM_TOL
+    return out
 
 
 def check(kernel, fn, ref):
@@ -297,31 +443,42 @@ def main(argv=None):
     procs = build_variants(names)
     built = build.build_variants(
         [("mlstm", ()), ("mlstm_v1", ()), ("slstm", ()), ("slstm_v1", ()),
-         ("mlstm", ("DASH_STAMPS",)), ("slstm", ("DASH_STAMPS",))])
-    variant_libs = {}
+         ("mlstm_parallel_v1", ()), ("mlstm", ("DASH_STAMPS",)),
+         ("slstm", ("DASH_STAMPS",))])
+    variant_libs, stamped = {}, None
     for name, (out, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"nvcc failed for {name}:\n{log[-4000:]}")
+        if name == "par_phases":
+            stamped = ctypes.CDLL(str(out))
+            continue
         variant_libs[name] = (ctypes.CDLL(str(out)), log)
     result = dict(card=card, variants={}, layout=ML.recurrent_layout())
     calls = {}
-    for kernel in ("mlstm", "slstm"):
+    for kernel in ("mlstm", "slstm", "mlstm_parallel"):
         if kernel == "mlstm":
             ref = (lambda a, st: ML.mlstm_recurrent_v1_cuda(*a, *st))
-        else:
+        elif kernel == "slstm":
             ref = (lambda a, st, rr: SL.slstm_v1_cuda(a, rr, st))
-        members = {"kernel": (_bind(kernel, build.load(kernel)),
-                              built[(kernel, ())]["ptxas"]),
+        else:
+            ref = (lambda a: ML.mlstm_parallel_v1_cuda(*a))
+        source = "mlstm" if kernel == "mlstm_parallel" else kernel
+        members = {"kernel": (_bind(kernel, build.load(source)),
+                              built[(source, ())]["ptxas"]),
                    "v1": (ref, built[(f"{kernel}_v1", ())]["ptxas"])}
         members.update({n: (_bind(kernel, lib), log)
                         for n, (lib, log) in variant_libs.items()
-                        if VARIANTS[n][0] == kernel})
+                        if _kind(n) == kernel})
         calls[kernel] = {}
         for name, (fn, ptxas) in members.items():
             calls[kernel][name] = fn
-            row = dict(ptxas=CS.xlstm_resources(ptxas))
-            if name != "v1":
+            row = dict(ptxas=[r for r in CS.xlstm_resources(ptxas)
+                              if (r["kernel"] == "mlstm_parallel")
+                              == (kernel == "mlstm_parallel")])
+            if name != "v1" and kernel == "mlstm_parallel":
+                row["matches_v1"] = check_parallel(fn)
+            elif name != "v1":
                 row["bitwise_v1"] = check(kernel, fn, ref)
             result["variants"][f"{kernel}/{name}"] = row
             print(f"[variant] {kernel}/{name} " + json.dumps(row),
@@ -329,6 +486,20 @@ def main(argv=None):
     torch.cuda.synchronize()
     hd = 256
     with torch.no_grad():
+        parallel = calls.pop("mlstm_parallel")
+        for label, (b, s), reps in (("prefill", PREFILL, 20),
+                                    ("long", LONG, 5)):
+            a, _ = CS._mlstm_inputs(b, s, hd, torch.bfloat16, seed=31)
+            key = f"mlstm_parallel_{label}_ms"
+            result[key] = in_turns(
+                {n: (lambda fn=fn: fn(a)) for n, fn in parallel.items()},
+                reps=reps)
+            print(f"[timing] {key} " + json.dumps(result[key]), flush=True)
+        if stamped is not None:
+            result["mlstm_parallel_phases"] = parallel_phases(stamped,
+                                                              *PREFILL)
+            print("[phases] mlstm_parallel " + json.dumps(
+                result["mlstm_parallel_phases"]), flush=True)
         for kernel, fns in calls.items():
             for label, (b, s), reps in (("prefill", PREFILL, 10),
                                         ("decode", DECODE, 50)):
@@ -353,6 +524,7 @@ def main(argv=None):
         Path(args.out).write_text(json.dumps(result, indent=1))
     print(json.dumps(result))
     return 0 if all(all(v.get("bitwise_v1", {}).values())
+                    and all(v.get("matches_v1", {}).values())
                     for v in result["variants"].values()) else 1
 
 

@@ -15,20 +15,49 @@
 //   S_ij = (q_i . k_j) * exp(D_ij - m_i)
 //   out_i = sum_j S_ij v_j / max(max(|sum_j S_ij|, exp(-m_i)), 1e-6)
 //
-// A CTA takes a (b, h, tile of BQ = 32 queries). It first takes each
-// row's stabilizer m_i as the reference does, the max of the rounded D_ij
-// over j <= i: O(S) scalar adds a row against the O(S hd) multiply-adds
-// of its products, and exact (a max has no rounding). The online form
-// F_i + max_j (ig_j - F_j) would differ from it in the last bits. Then it
-// walks the key tiles j <= i (BK = 32 keys each, staged in shared memory
-// as fp32), computes the tile's S_ij, adds them to the signed row sums
-// (one thread a row, keys ascending) and S_ij v_j to the output (one
-// thread a column, keys ascending). The masked D_ij (j > i) give exactly 0
-// in the reference and are skipped here. What bounds it on this card: the
-// 2 S^2 hd / 2 fp32 multiply-adds a (b, h) of the two products (q.k and
-// S.v; the scores are fp32, so the tensor cores' fp32 path, tf32, is not
-// used), against q, k, v read and out written once. This simple design
-// reads its operands from shared memory for every multiply-add.
+// Each query row takes its stabilizer m_i as the reference does, the max
+// of the rounded D_ij over j <= i (exact: a max has no rounding; the online
+// form F_i + max_j (ig_j - F_j) would differ in the last bits), then walks
+// the key tiles j <= i. The masked D_ij (j > i) give exactly 0 in the
+// reference and add nothing here.
+//
+// What bounds it on this card: S.v, 2 hd fp32 operations a live (i, j)
+// (the scores are fp32, and the tensor cores' fp32 path is tf32), ~0.018
+// ms at full FFMA issue at B = 4, S = 512, 4 heads of 256; q.k's bf16
+// products are exact in fp32, so it runs on the tensor cores (mma.sync
+// m16n8k16, fp32 sums), ~1/15 of that. The first design
+// (csrc/mlstm_parallel_v1.cu, kept as the oracle) ran both products on
+// the CUDA cores from fp32 tiles in shared memory, two shared loads a
+// multiply-add, three barriers a key tile, 32 query rows a CTA: 3.5 % of
+// the bound. Here:
+//  * a CTA takes the causal pair of query tiles n - 1 - p and p of a
+//    (b, h) (n = ceil(S / BQ)), so every CTA walks n + 1 key tiles: one
+//    wave of 128 CTAs at (4, 512) (unpaired, longest tile first: ~1.4x
+//    the time, scripts/xlstm_variants.py);
+//  * q, k and v tiles (BQ = BK = 32 rows) come by TMA into 128-byte
+//    swizzled rows as given (bf16 stays bf16), k two key tiles ahead and v
+//    one, on mbarriers, the gates by 4-byte cp.async; one __syncthreads a
+//    key tile;
+//  * S.v is register-tiled, 8 rows x 4 columns a thread (256 threads): a
+//    key costs two 16-byte loads of scores and one 8-byte load of 4 bf16
+//    v, converted in registers, for 32 fmaf; a thread's operands are
+//    loaded a key ahead;
+//  * the next key tile's q.k runs inside this tile's S.v loop, a k-step a
+//    key, its scores a key after the last step, with the query tile's
+//    mma fragments held in registers; a warp's row sums ride along.
+// Kept bit for bit from the first design: the stabilizer, the scores
+// (dot * exp(d - m_i)), the signed row sums (plain adds from 0, keys
+// ascending), each output's one fmaf chain over the keys ascending, the
+// epilogue; fp32 q.k is one fmaf chain over hd ascending, so fp32 operands
+// give the first design's bits, and bf16 ones differ only by the order of
+// q.k's sum over hd. What is left (scripts/xlstm_variants.py's clock64
+// phases at B = 4, S = 512): the S.v loop takes ~2/3 of a CTA's clocks,
+// about twice its fmaf issue time with two warps a scheduler (four did not
+// help); the copies' issue, the epilogue's IEEE divisions and the
+// stabilizers most of the rest. BQ = BK = 32 with 8 x 4 tiles on 256
+// threads is the fastest shape the same script times at (4, 512): 64
+// query rows a CTA ~1.6x the time (64 CTAs on 132 SMs), 4 x 8
+// tiles ~2 % more, 512 threads of 4 x 4 ~1.2x.
 //
 // Recurrence. From the carried (C (B, H, hd, hd), n (B, H, hd), m (B, H)),
 // per step t (the reference's expressions, evaluated in its order):
@@ -72,15 +101,22 @@
 #include <type_traits>
 
 #include "hopper.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
 using namespace dash_sm90;
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;           // threads a CTA (parallel form)
 constexpr int WARPS = THREADS / 32;
-constexpr int BQ = 32;                 // queries a CTA (parallel form)
+constexpr int BQ = 32;                 // queries a tile (parallel form)
 constexpr int BK = 32;                 // keys a tile (parallel form)
+// S.v's micro-tile at hd = 256: SV_TR rows x SV_TC columns of out a
+// thread, SV_WC lanes of a warp across the columns (hd = 32: 2 columns,
+// 16 lanes across)
+constexpr int SV_TR = 8;
+constexpr int SV_TC = 4;
+constexpr int SV_WC = 8;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -94,126 +130,568 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// ------------------------------------------------------------ parallel form
-// grid (ceil(S / BQ), H, B), THREADS threads; dynamic shared memory
-// parallel_smem<HD>() bytes
-template <int HD>
-constexpr size_t parallel_smem() {
-  return sizeof(float) *
-         (BQ * HD + BK * (HD + 1) + BK * HD + BQ * (BK + 1) + 3 * BQ + 2 * BK);
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ------------------------------------------------------------ parallel form
+// grid (ceil(ceil(S / BQ) / 2), H, B), THREADS threads; dynamic shared
+// memory Par<T, HD>::SMEM bytes. CTA p of a (b, h) takes the causal pair
+// of query tiles n - 1 - p and p (n = ceil(S / BQ); the middle tile alone
+// when n is odd): n + 1 key tiles whichever p, one wave of 128 CTAs at
+// B = 4, S = 512, H = 4. A tile's rows have the bits they would have in
+// any CTA.
+
+// the box of the 4-D tensor map `map` at (c0, c1, c2, c3) into shared
+// memory at `dst`, its bytes counted on the mbarrier `bar`
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// 4 bytes device -> shared; zeros instead when !live (src is then not
+// read, but must be a valid address)
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src,
+                                                bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(live ? 4 : 0)
+               : "memory");
+}
+
+// N consecutive floats of shared memory, as 16-byte (N % 4 == 0), 8-byte
+// (N == 2) or 4-byte loads
+template <int N>
+__device__ __forceinline__ void lds(float (&x)[N], const float* p) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      const float4 t = reinterpret_cast<const float4*>(p)[i];
+      x[4 * i] = t.x;
+      x[4 * i + 1] = t.y;
+      x[4 * i + 2] = t.z;
+      x[4 * i + 3] = t.w;
+    }
+  } else if constexpr (N == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    x[0] = t.x;
+    x[1] = t.y;
+  } else {
+    static_assert(N == 1, "1, 2 or a multiple of 4 floats");
+    x[0] = *p;
+  }
+}
+
+// a bf16 pair's two values as floats (exact)
+__device__ __forceinline__ float bf_lo(uint32_t p) {
+  return __uint_as_float(p << 16);
+}
+__device__ __forceinline__ float bf_hi(uint32_t p) {
+  return __uint_as_float(p & 0xffff0000u);
+}
+
+// N consecutive elements of v from shared memory as floats: fp32 by lds,
+// bf16 (N = 4 or 2) by one 8- or 4-byte load, converted in registers
+template <int N>
+__device__ __forceinline__ void ldv(float (&x)[N], const float* p) {
+  lds(x, p);
+}
+template <int N>
+__device__ __forceinline__ void ldv(float (&x)[N], const __nv_bfloat16* p) {
+  if constexpr (N == 4) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    x[0] = bf_lo(u.x);
+    x[1] = bf_hi(u.x);
+    x[2] = bf_lo(u.y);
+    x[3] = bf_hi(u.y);
+  } else {
+    static_assert(N == 2, "4 or 2 bf16");
+    const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
+    x[0] = bf_lo(u);
+    x[1] = bf_hi(u);
+  }
+}
+
+// the parallel form's tiling and shared memory at (T, HD)
 template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS)
-    mlstm_parallel_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v,
-                          const float* __restrict__ F,
-                          const float* __restrict__ ig,
-                          float* __restrict__ out, int S, int H) {
-  constexpr int RG = THREADS / HD;     // row groups of the output
-  constexpr int RPT = BQ / RG;         // output rows a thread
-  extern __shared__ float smem[];
-  float* Qs = smem;                    // [BQ][HD]
-  float* Ks = Qs + BQ * HD;            // [BK][HD + 1]
-  float* Vs = Ks + BK * (HD + 1);      // [BK][HD]
-  float* Ss = Vs + BK * HD;            // [BQ][BK + 1]
-  float* Fq = Ss + BQ * (BK + 1);      // [BQ]
-  float* Mq = Fq + BQ;                 // [BQ]
-  float* rowsum = Mq + BQ;             // [BQ]
-  float* Fk = rowsum + BQ;             // [BK]
-  float* Ik = Fk + BK;                 // [BK]
+struct Par {
+  static constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
+  // S.v: TR rows x TC columns of out a thread, WC lanes of a warp across
+  // the columns; a thread's columns are NG groups of VEC, HD / NG apart
+  static constexpr int TR = HD == 32 ? BQ * HD / (THREADS * 2) : SV_TR;
+  static constexpr int TC = HD == 32 ? 2 : SV_TC;
+  static constexpr int WC = HD == 32 ? 16 : SV_WC;
+  static constexpr int WR = 32 / WC;             // row groups a warp
+  static constexpr int CW = HD / (TC * WC);      // warps across the columns
+  static constexpr int VEC = TC < 4 ? TC : 4;
+  static constexpr int NG = TC / VEC;
+  static_assert(CW >= 1 && WARPS % CW == 0 &&
+                    (WARPS / CW) * WR * TR == BQ && CW * WC * TC == HD,
+                "S.v's micro-tiles cover the query tile");
+  // q.k in STEPS steps: on the tensor cores (bf16) 32 columns of hd a
+  // step by the first MMA warps, MW down the rows (16 each), the others
+  // across the keys (NT n-tiles of 8 keys a warp); on the CUDA cores
+  // (fp32) 4 columns a step, QR rows BQ / QR apart x QK keys BK / QK
+  // apart a thread
+  static constexpr int MMA = (BQ / 16) * (BK / 8) < WARPS
+                                 ? (BQ / 16) * (BK / 8) : WARPS;
+  static constexpr int MW = BQ / 16;
+  static constexpr int NT = BK / (MMA / MW) / 8;
+  static constexpr int QK = 2;
+  static constexpr int QR = BQ * BK / (THREADS * QK);
+  static_assert(MMA % MW == 0 && NT >= 1 && HD % 32 == 0, "q.k's mma");
+  static_assert(QR >= 1 && QR * QK * THREADS == BQ * BK, "q.k's tiles");
+  // the threads RS .. RS + BQ - 1 keep the rows' signed sums
+  static constexpr int RS = THREADS - BQ;
+  static constexpr int STEPS = BF16 ? HD / 32 : HD / 4;
+  static constexpr int SPK = (STEPS + BK - 1) / BK;  // steps a key of S.v
+  // the key of S.v at which the next tile's scores are taken (a key after
+  // its last step's product), BK: after the loop
+  static constexpr int SCORE_AT =
+      STEPS / SPK + 1 < BK ? STEPS / SPK + 1 : BK;
+  // q, k and v tiles as the copy engine writes them (in the model dtype):
+  // NBOX boxes of BOX columns, a tile's rows one after another in each
+  // box, ROWB bytes a row; 128-byte rows swizzled (16-byte chunk c of row
+  // r at c ^ (r % 8)), so that ldmatrix and the rows' loads meet no bank
+  // conflict (at hd = 32 in bf16, 64-byte rows, unswizzled)
+  static constexpr int BOX = 128 / sizeof(T) < HD ? 128 / sizeof(T) : HD;
+  static constexpr int ROWB = BOX * sizeof(T);
+  static constexpr bool SWZ = ROWB == 128;
+  static constexpr int NBOX = HD / BOX;
+  static constexpr uint32_t QBYTES = sizeof(T) * BQ * HD;  // a Q tile
+  static constexpr uint32_t KBYTES = sizeof(T) * BK * HD;  // a k or v tile
+  static constexpr int LDS = BQ + 4;                       // a key's scores
+  // byte offsets from the 1024-byte aligned base: Q; rings of 2 key
+  // tiles' k and of 2 tiles' v; 2 tiles' scores; 2 tiles' gates; the
+  // rows' F, m and signed sums; the copies' barriers (Q, k of ring slots 0
+  // and 1, v of slots 0 and 1)
+  static constexpr size_t Q = 0;
+  static constexpr size_t K = Q + QBYTES;
+  static constexpr size_t V = K + 2 * KBYTES;
+  static constexpr size_t ST = V + 2 * KBYTES;
+  static constexpr size_t G = ST + sizeof(float) * 2 * BK * LDS;
+  static constexpr size_t ROW = G + sizeof(float) * 2 * 2 * BK;
+  static constexpr size_t BAR = ROW + sizeof(float) * 3 * BQ;
+  static constexpr size_t SMEM = BAR + 5 * sizeof(uint64_t) + 1024;
+  static_assert(QBYTES % 1024 == 0 && KBYTES % 1024 == 0 && BAR % 8 == 0,
+                "the tiles keep the swizzle's 1024-byte alignment");
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+// the byte offset of element (row, col) in a q, k or v tile of `rows` rows
+template <typename P>
+__device__ __forceinline__ uint32_t at(int row, int col, int rows) {
+  constexpr int ELT = P::ROWB / P::BOX;
+  const int cb = (col % P::BOX) * ELT;
+  const int chunk = P::SWZ ? (cb >> 4) ^ (row & 7) : cb >> 4;
+  return ((col / P::BOX) * rows + row) * P::ROWB + (chunk << 4) + (cb & 15);
+}
+
+// q.k of one query tile against one key tile in STEPS steps (fetch(s),
+// then mul(s)), then the scores
+template <typename T, int HD, bool BF16 = Par<T, HD>::BF16>
+struct QKTile;
+
+// bf16: products exact in fp32, summed in fp32 by mma.sync over hd in
+// k-steps of 16; warp w the 16 rows rb and NT n-tiles of 8 keys from kb.
+// The query tile's fragments stay in registers (load_q); fetch(s) loads
+// step s's k fragments, mul(s) multiplies them, so that a step's ldmatrix
+// and mma can be a key of S.v apart
+template <typename T, int HD>
+struct QKTile<T, HD, true> {
+  using P = Par<T, HD>;
+  float c[P::NT][4];
+  uint32_t qf[P::STEPS][2][4], kf[P::NT][4];
+  __device__ __forceinline__ void load_q(const unsigned char* Qs, int warp,
+                                         int lane) {
+    const int row = (warp % P::MW) * 16 + (lane & 15);
+#pragma unroll
+    for (int s = 0; s < P::STEPS; ++s)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        dash_mma::ldsm_x4(qf[s][i], reinterpret_cast<const uint16_t*>(
+                                        Qs + at<P>(row, 32 * s + 16 * i +
+                                                            (lane >> 4) * 8,
+                                                   BQ)));
+  }
+  __device__ __forceinline__ void clear() {
+#pragma unroll
+    for (int nt = 0; nt < P::NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[nt][e] = 0.f;
+  }
+  __device__ __forceinline__ void fetch(int s, const unsigned char* Qs,
+                                        const unsigned char* Kt, int warp,
+                                        int lane) {
+    const int kb = (warp / P::MW) * P::NT * 8;
+#pragma unroll
+    for (int nt = 0; nt < P::NT; ++nt)
+      dash_mma::ldsm_x4(kf[nt], reinterpret_cast<const uint16_t*>(
+                                    Kt + at<P>(kb + 8 * nt + (lane & 7),
+                                               32 * s + (lane >> 3) * 8,
+                                               BK)));
+  }
+  __device__ __forceinline__ void mul(int s) {
+#pragma unroll
+    for (int nt = 0; nt < P::NT; ++nt) {
+      dash_mma::mma_16816(c[nt], qf[s][0], kf[nt]);
+      dash_mma::mma_16816(c[nt], qf[s][1], kf[nt] + 2);
+    }
+  }
+  template <typename F>
+  __device__ __forceinline__ void scores(F&& score, int warp, int lane) {
+    const int rb = (warp % P::MW) * 16, kb = (warp / P::MW) * P::NT * 8;
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int nt = 0; nt < P::NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        score(rb + g + 8 * (e >> 1), kb + 8 * nt + 2 * t + (e & 1),
+              c[nt][e]);
+  }
+};
+
+// fp32: as v1, each sum one fmaf chain over c ascending from 0
+template <typename T, int HD>
+struct QKTile<T, HD, false> {
+  using P = Par<T, HD>;
+  float d[P::QR][P::QK];
+  __device__ __forceinline__ void clear() {
+#pragma unroll
+    for (int x = 0; x < P::QR; ++x)
+#pragma unroll
+      for (int y = 0; y < P::QK; ++y) d[x][y] = 0.f;
+  }
+  __device__ __forceinline__ void fetch(int s, const unsigned char* Qs,
+                                        const unsigned char* Kt, int warp,
+                                        int lane) {
+    const int tid = 32 * warp + lane, c = 4 * s;
+    const int jq = tid % (BK / P::QK), rq = tid / (BK / P::QK);
+    float qv[P::QR][4], kv[P::QK][4];
+#pragma unroll
+    for (int x = 0; x < P::QR; ++x)
+      lds(qv[x], reinterpret_cast<const float*>(
+                     Qs + at<P>(rq + BQ / P::QR * x, c, BQ)));
+#pragma unroll
+    for (int y = 0; y < P::QK; ++y)
+      lds(kv[y], reinterpret_cast<const float*>(
+                     Kt + at<P>(jq + BK / P::QK * y, c, BK)));
+#pragma unroll
+    for (int x = 0; x < P::QR; ++x)
+#pragma unroll
+      for (int y = 0; y < P::QK; ++y)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          d[x][y] = fmaf(qv[x][e], kv[y][e], d[x][y]);
+  }
+  __device__ __forceinline__ void load_q(const unsigned char*, int, int) {}
+  __device__ __forceinline__ void mul(int) {}  // fetch(s) took the step
+  template <typename F>
+  __device__ __forceinline__ void scores(F&& score, int warp, int lane) {
+    const int tid = 32 * warp + lane;
+    const int jq = tid % (BK / P::QK), rq = tid / (BK / P::QK);
+#pragma unroll
+    for (int x = 0; x < P::QR; ++x)
+#pragma unroll
+      for (int y = 0; y < P::QK; ++y)
+        score(rq + BQ / P::QR * x, jq + BK / P::QK * y, d[x][y]);
+  }
+};
+
+// the tensor maps of q, k and v: 4-D (hd, H, S, B), boxes of (BOX, 1, BQ
+// or BK, 1); the rows past S read as zeros
+struct ParMaps {
+  CUtensorMap q, k, v;
+};
+
+// query tile [i0, i0 + BQ) of (b, h) = (blockIdx.z, blockIdx.y), the
+// CTA's query tile u after g0 key tiles. Key tile kt's products run in one
+// loop over its keys with the next tile's q.k (and the row sums), between
+// one __syncthreads and the next: its k and gates are copied two tiles
+// ahead, its v one, so that a tile's copies land while the one before it
+// is computed. Thread 0 issues the q, k and v tiles to the copy engine,
+// each on its ring slot's barrier (the slots and the barriers' phases
+// count the CTA's key tiles, g = g0 + kt); threads 0 .. 2 BK - 1 copy the
+// gates (4-byte cp.async, one commit group a tile)
+template <typename T, int HD>
+__device__ __forceinline__ void parallel_tile(
+    const ParMaps& maps, const float* __restrict__ F,
+    const float* __restrict__ ig, float* __restrict__ out, int S, int H,
+    int i0, int u, int g0, unsigned char* smem) {
+  using P = Par<T, HD>;
+  unsigned char* Qs = smem + P::Q;
+  unsigned char* Kr = smem + P::K;                     // [2][KBYTES]
+  unsigned char* Vr = smem + P::V;                     // [2][KBYTES]
+  float* St = reinterpret_cast<float*>(smem + P::ST);  // [2][BK][LDS]
+  float* G = reinterpret_cast<float*>(smem + P::G);    // [2][F, ig][BK]
+  float* Fq = reinterpret_cast<float*>(smem + P::ROW);
+  float* Mq = Fq + BQ;
+  float* Rs = Mq + BQ;
+  const uint32_t qbar = smem_u32(smem + P::BAR);
+  auto kbar = [&](int g) { return qbar + 8 * (1 + g % 2); };
+  auto vbar = [&](int g) { return qbar + 8 * (3 + g % 2); };
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int i0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.y, b = blockIdx.z;
   const int rows = min(BQ, S - i0);
+  const int tiles = (i0 + rows + BK - 1) / BK;  // key tiles j0 < i0 + rows
   auto row_off = [&](int s) {
     return ((static_cast<size_t>(b) * S + s) * H + h) * HD;
   };
   auto gate_off = [&](int s) {
     return (static_cast<size_t>(b) * S + s) * H + h;
   };
-
-  for (int x = tid; x < BQ * HD; x += THREADS) {
-    const int r = x / HD, e = x % HD;
-    Qs[x] = r < rows ? to_f(q[row_off(i0 + r) + e]) : 0.f;
-  }
-  // the stabilizers: m_i the max over j <= i of the rounded D_ij
-  for (int r = warp; r < BQ; r += WARPS) {
-    float fi = 0.f, mx = 0.f;
-    if (r < rows) {
-      const int i = i0 + r;
-      fi = F[gate_off(i)];
-      mx = -INFINITY;
-      for (int j = lane; j <= i; j += 32)
-        mx = fmaxf(mx, (fi - F[gate_off(j)]) + ig[gate_off(j)]);
-      mx = warp_max(mx);
-    }
-    if (lane == 0) {
-      Fq[r] = fi;
-      Mq[r] = mx;
-      rowsum[r] = 0.f;
-    }
-  }
-
-  const int e = tid % HD;              // this thread's output column
-  const int rg = tid / HD;             // and its first row
-  float acc[RPT];
+  // by thread 0: the tile of n rows from s0 of a map into dst, on barrier
+  // bar (which expects all its bytes: the copy engine writes the zeros
+  // past S too)
+  auto copy_tile = [&](const CUtensorMap* map, unsigned char* dst, int s0,
+                       int n, uint32_t bar) {
+    mbar_expect_tx(bar, n * P::ROWB * P::NBOX);
 #pragma unroll
-  for (int x = 0; x < RPT; ++x) acc[x] = 0.f;
+    for (int x = 0; x < P::NBOX; ++x)
+      tma_load_4d(smem_u32(dst + x * n * P::ROWB), map, bar, x * P::BOX, h,
+                  s0, b);
+  };
+  // key tile kt's k (and its gates, a commit group of their own), or its
+  // v, into ring slot g % 2
+  auto issue_k = [&](int kt) {
+    const int j0 = kt * BK, g = g0 + kt;
+    if (tid == 0)
+      copy_tile(&maps.k, Kr + (g % 2) * P::KBYTES, j0, BK, kbar(g));
+    if (tid < 2 * BK) {
+      const int jj = tid % BK;
+      const bool live = j0 + jj < S;
+      cp_async4_zfill(G + (2 * (g % 2) + tid / BK) * BK + jj,
+                      (tid < BK ? F : ig) + gate_off(live ? j0 + jj : 0),
+                      live);
+    }
+    cp_async_commit();
+  };
+  auto issue_v = [&](int kt) {
+    const int g = g0 + kt;
+    if (tid == 0)
+      copy_tile(&maps.v, Vr + (g % 2) * P::KBYTES, kt * BK, BK, vbar(g));
+  };
+  // S_ij = (q_i . k_j) * exp(D_ij - m_i) as v1, 0 where masked, into the
+  // scores of key tile kt
+  QKTile<T, HD> qk;
+  const bool mma_warp = !P::BF16 || warp < P::MMA;  // takes part in q.k
+  auto scores = [&](int kt) {
+    const int j0 = kt * BK, slot = (g0 + kt) % 2;
+    const float* Fk = G + 2 * slot * BK;
+    const float* Ik = Fk + BK;
+    float* out_s = St + slot * BK * P::LDS;
+    qk.scores(
+        [&](int r, int jj, float dot) {
+          float s = 0.f;
+          if (r < rows && j0 + jj <= i0 + r) {
+            const float d = (Fq[r] - Fk[jj]) + Ik[jj];
+            s = dot * expf(d - Mq[r]);
+          }
+          out_s[jj * P::LDS + r] = s;
+        },
+        warp, lane);
+  };
 
-  const int j_end = i0 + rows;         // keys j < j_end can meet a row
-  for (int j0 = 0; j0 < j_end; j0 += BK) {
-    const int keys = min(BK, j_end - j0);
-    __syncthreads();                   // the last tile's reads are done
-    for (int x = tid; x < BK * HD; x += THREADS) {
-      const int jj = x / HD, c = x % HD;
-      const bool live = jj < keys;
-      Ks[jj * (HD + 1) + c] = live ? to_f(k[row_off(j0 + jj) + c]) : 0.f;
-      Vs[x] = live ? to_f(v[row_off(j0 + jj) + c]) : 0.f;
-    }
-    if (tid < BK) {
-      const bool live = tid < keys;
-      Fk[tid] = live ? F[gate_off(j0 + tid)] : 0.f;
-      Ik[tid] = live ? ig[gate_off(j0 + tid)] : 0.f;
-    }
-    __syncthreads();
-    // S_ij = (q_i . k_j) * exp(D_ij - m_i): a lane a key, a warp its rows
+  // Q and tiles 0 and 1 ahead of the loop, whose step kt copies tile
+  // kt + 2's k and gates and tile kt + 1's v (an empty group of gates past
+  // the last tile)
+  if (tid == 0) copy_tile(&maps.q, Qs, i0, BQ, qbar);
+  issue_k(0);
+  issue_v(0);
+  if (tiles > 1) {
+    issue_k(1);
+  } else {
+    cp_async_commit();
+  }
+
+  // the stabilizers while the copies fly: m_i the max over j <= i of the
+  // rounded D_ij, as v1 (lane l takes keys l + 32 y); warp w takes rows
+  // w + WARPS x, reading each key's gates once for all of them
+  {
+    constexpr int RW = BQ / WARPS;
+    float fi[RW], mx[RW];
+    int jmax = -1;
 #pragma unroll
-    for (int x = 0; x < BQ / WARPS; ++x) {
+    for (int x = 0; x < RW; ++x) {
       const int r = warp + WARPS * x;
-      float s = 0.f;
-      if (r < rows && j0 + lane <= i0 + r) {
-        const float* qr = Qs + r * HD;
-        const float* kj = Ks + lane * (HD + 1);
-        float dot = 0.f;
+      const bool live = r < rows;
+      fi[x] = live ? F[gate_off(i0 + r)] : 0.f;
+      mx[x] = live ? -INFINITY : 0.f;
+      if (live) jmax = i0 + r;
+    }
 #pragma unroll 8
-        for (int c = 0; c < HD; ++c) dot = fmaf(qr[c], kj[c], dot);
-        const float d = (Fq[r] - Fk[lane]) + Ik[lane];
-        s = dot * expf(d - Mq[r]);
-      }
-      Ss[r * (BK + 1) + lane] = s;
-    }
-    __syncthreads();
-    if (tid < BQ) {
-      float rs = rowsum[tid];
-      for (int jj = 0; jj < keys; ++jj) rs += Ss[tid * (BK + 1) + jj];
-      rowsum[tid] = rs;
-    }
-    for (int jj = 0; jj < keys; ++jj) {
-      const float vv = Vs[jj * HD + e];
+    for (int j = lane; j <= jmax; j += 32) {
+      const float fj = F[gate_off(j)], gj = ig[gate_off(j)];
 #pragma unroll
-      for (int x = 0; x < RPT; ++x)
-        acc[x] = fmaf(Ss[(rg + RG * x) * (BK + 1) + jj], vv, acc[x]);
+      for (int x = 0; x < RW; ++x)
+        if (warp + WARPS * x < rows && j <= i0 + warp + WARPS * x)
+          mx[x] = fmaxf(mx[x], (fi[x] - fj) + gj);
+    }
+#pragma unroll
+    for (int x = 0; x < RW; ++x) {
+      const float m = warp_max(mx[x]);
+      if (lane == 0) {
+        Fq[warp + WARPS * x] = fi[x];
+        Mq[warp + WARPS * x] = m;
+      }
     }
   }
+
+  // key tile 0's scores
+  cp_async_wait<1>();
+  __syncthreads();  // tile 0's gates and the stabilizers are in
+  mbar_wait(qbar, u & 1);
+  mbar_wait(kbar(g0), (g0 / 2) & 1);
+  if (mma_warp) {
+    qk.load_q(Qs, warp, lane);
+    qk.clear();
+#pragma unroll
+    for (int s = 0; s < P::STEPS; ++s) {
+      qk.fetch(s, Qs, Kr + (g0 % 2) * P::KBYTES, warp, lane);
+      qk.mul(s);
+    }
+    scores(0);
+  }
+
+  // S.v: this thread's rows row0 + x and columns col0 + (HD / NG) u + e
+  const int row0 = ((warp / P::CW) * P::WR + lane / P::WC) * P::TR;
+  const int col0 = ((warp % P::CW) * P::WC + lane % P::WC) * P::VEC;
+  float acc[P::TR][P::TC];
+#pragma unroll
+  for (int x = 0; x < P::TR; ++x)
+#pragma unroll
+    for (int y = 0; y < P::TC; ++y) acc[x][y] = 0.f;
+  float rs = 0.f;  // row tid - RS's signed sum (tid >= RS)
+  const bool sums = tid >= P::RS;
+
+  for (int kt = 0; kt < tiles; ++kt) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile kt's scores and tile kt + 1's gates are in;
+                      // tile kt - 1's reads are done
+    const int g = g0 + kt;
+    if (kt + 2 < tiles) {
+      issue_k(kt + 2);
+    } else {
+      cp_async_commit();
+    }
+    if (kt + 1 < tiles) issue_v(kt + 1);
+    const bool next = kt + 1 < tiles, qk_next = next && mma_warp;
+    mbar_wait(vbar(g), (g / 2) & 1);
+    if (qk_next) mbar_wait(kbar(g + 1), ((g + 1) / 2) & 1);
+    const float* Sc = St + (g % 2) * BK * P::LDS;
+    const unsigned char* Vt = Vr + (g % 2) * P::KBYTES;
+    const unsigned char* Kn = Kr + ((g + 1) % 2) * P::KBYTES;
+    // S.v's operands of key jj: this thread's scores and v, and row
+    // tid - RS's score for the row sums; loaded a key ahead of their use
+    auto operands = [&](int jj, float (&sx)[P::TR], float (&vx)[P::TC],
+                        float& rx) {
+      lds(sx, Sc + jj * P::LDS + row0);
+#pragma unroll
+      for (int u = 0; u < P::NG; ++u) {
+        float w[P::VEC];
+        ldv(w, reinterpret_cast<const T*>(
+                   Vt + at<P>(jj, u * (HD / P::NG) + col0, BK)));
+#pragma unroll
+        for (int e = 0; e < P::VEC; ++e) vx[u * P::VEC + e] = w[e];
+      }
+      if (sums) rx = Sc[jj * P::LDS + tid - P::RS];
+    };
+    // key jj of S.v from the operands in (s, vv, r), loading key jj + 1's
+    // into (sn, vn, rn); two sets of registers take turns, keys in pairs
+    auto key = [&](int jj, const float (&s)[P::TR], const float (&vv)[P::TC],
+                   float r, float (&sn)[P::TR], float (&vn)[P::TC],
+                   float& rn) {
+      if (jj + 1 < BK) operands(jj + 1, sn, vn, rn);
+      // S.v: each output one fmaf chain from 0 over the keys ascending
+#pragma unroll
+      for (int x = 0; x < P::TR; ++x)
+#pragma unroll
+        for (int y = 0; y < P::TC; ++y)
+          acc[x][y] = fmaf(s[x], vv[y], acc[x][y]);
+      // the signed row sums: plain adds from 0, keys ascending (a masked
+      // score is +0, and a sum from +0 is never -0, so adding it is exact)
+      if (sums) rs += r;
+      // the next tile's q.k, spread over the keys: step s's product a key
+      // after its fetch
+      if (qk_next) {
+#pragma unroll
+        for (int i = 0; i < P::SPK; ++i) {
+          const int step = jj * P::SPK + i;
+          if (step >= 1 && step <= P::STEPS) qk.mul(step - 1);
+          if (step < P::STEPS) qk.fetch(step, Qs, Kn, warp, lane);
+        }
+        if (jj == P::SCORE_AT) scores(kt + 1);
+      }
+    };
+    float s0[P::TR], v0[P::TC], r0 = 0.f, s1[P::TR], v1[P::TC], r1 = 0.f;
+    operands(0, s0, v0, r0);
+    if (qk_next) qk.clear();
+    static_assert(BK % 2 == 0, "keys in pairs");
+#pragma unroll
+    for (int jj = 0; jj < BK; jj += 2) {
+      key(jj, s0, v0, r0, s1, v1, r1);
+      key(jj + 1, s1, v1, r1, s0, v0, r0);
+    }
+    if (qk_next && P::STEPS == BK * P::SPK) qk.mul(P::STEPS - 1);
+    if (qk_next && P::SCORE_AT == BK) scores(kt + 1);
+  }
+  if (sums) Rs[tid - P::RS] = rs;
   __syncthreads();
 #pragma unroll
-  for (int x = 0; x < RPT; ++x) {
-    const int r = rg + RG * x;
+  for (int x = 0; x < P::TR; ++x) {
+    const int r = row0 + x;
     if (r < rows) {
-      const float norm = fmaxf(fabsf(rowsum[r]), expf(-Mq[r]));
-      out[row_off(i0 + r) + e] = acc[x] / fmaxf(norm, 1e-6f);
+      const float norm = fmaxf(fabsf(Rs[r]), expf(-Mq[r]));
+      const float den = fmaxf(norm, 1e-6f);
+#pragma unroll
+      for (int u = 0; u < P::NG; ++u) {
+        float* o = out + row_off(i0 + r) + u * (HD / P::NG) + col0;
+        const int y = u * P::VEC;
+        if constexpr (P::VEC == 4)
+          *reinterpret_cast<float4*>(o) =
+              make_float4(acc[x][y] / den, acc[x][y + 1] / den,
+                          acc[x][y + 2] / den, acc[x][y + 3] / den);
+        else
+          *reinterpret_cast<float2*>(o) =
+              make_float2(acc[x][y] / den, acc[x][y + 1] / den);
+      }
     }
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(THREADS)
+    mlstm_parallel_kernel(const __grid_constant__ ParMaps maps,
+                          const float* __restrict__ F,
+                          const float* __restrict__ ig,
+                          float* __restrict__ out, int S, int H) {
+  using P = Par<T, HD>;
+  extern __shared__ __align__(16) unsigned char par_raw[];
+  unsigned char* smem = par_raw + ((1024 - smem_u32(par_raw) % 1024) % 1024);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 5; ++i) mbar_init(smem_u32(smem + P::BAR + 8 * i), 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  const int n = (S + BQ - 1) / BQ, p = blockIdx.x, last = n - 1 - p;
+  parallel_tile<T, HD>(maps, F, ig, out, S, H, last * BQ, 0, 0, smem);
+  if (p != last) {  // the pair's short tile, after the long one's tiles
+    __syncthreads();  // the long tile's reads of shared memory are done
+    parallel_tile<T, HD>(maps, F, ig, out, S, H, p * BQ, 1,
+                         (min(S, (last + 1) * BQ) + BK - 1) / BK, smem);
   }
 }
 
@@ -322,15 +800,6 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
                    smem_u32(dst)),
                "l"(src)
                : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ uint32_t bits16(__nv_bfloat16 x) {
@@ -795,19 +1264,79 @@ __global__ void __launch_bounds__(RecShape<WR, ROWS>::THREADS)
                  (REC_CW + 1) + warp)
 }
 
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library links no driver library of its own; nullptr if unavailable
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a (B, S, H, hd) row-major array as a 4-D tensor map (hd, H, S, B) of
+// (box, 1, rows, 1) boxes, 128-byte rows swizzled when `swizzle` (steps
+// past S read as zeros)
+bool map4d(CUtensorMap* map, const void* ptr, bool bf16, int hd, int H,
+           int S, int B, int box, int rows, bool swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t elt = bf16 ? 2 : 4;
+  const cuuint64_t dims[4] = {
+      static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(H),
+      static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {dims[0] * elt, dims[0] * dims[1] * elt,
+                                 dims[0] * dims[1] * dims[2] * elt};
+  const cuuint32_t boxes[4] = {static_cast<cuuint32_t>(box), 1,
+                               static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map,
+                bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                4, const_cast<void*>(ptr), dims, strides, boxes, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                swizzle ? CU_TENSOR_MAP_SWIZZLE_128B
+                        : CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <typename T, int HD>
 int launch_parallel(const void* q, const void* k, const void* v,
                     const float* F, const float* ig, float* out, int B,
                     int S, int H, cudaStream_t stream) {
+  using P = Par<T, HD>;
   auto kernel = mlstm_parallel_kernel<T, HD>;
-  constexpr size_t smem = parallel_smem<HD>();
+  constexpr size_t smem = P::SMEM;
+  ParMaps maps;
+  if (!map4d(&maps.q, q, P::BF16, HD, H, S, B, P::BOX, BQ, P::SWZ) ||
+      !map4d(&maps.k, k, P::BF16, HD, H, S, B, P::BOX, BK, P::SWZ) ||
+      !map4d(&maps.v, v, P::BF16, HD, H, S, B, P::BOX, BK, P::SWZ))
+    return static_cast<int>(cudaErrorNotSupported);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<dim3((S + BQ - 1) / BQ, H, B), THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), F, ig, out, S, H);
+  const int pairs = ((S + BQ - 1) / BQ + 1) / 2;  // CTAs a (b, h)
+  kernel<<<dim3(pairs, H, B), THREADS, smem, stream>>>(maps, F, ig, out, S,
+                                                       H);
   return static_cast<int>(cudaGetLastError());
 }
 

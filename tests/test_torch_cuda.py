@@ -1109,6 +1109,35 @@ def test_xlstm_redesigns_repeat_and_split_bitwise(dtype):
         assert all(torch.equal(x, y) for x, y in zip(st2, first[1:])), name
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,h,hd", [(4, 512, 4, 256), (2, 300, 4, 256),
+                                      (2, 77, 4, 32), (1, 1, 4, 256),
+                                      (1, 1, 4, 32), (3, 45, 4, 256)])
+@torch.no_grad()
+def test_xlstm_parallel_redesign_against_its_first_design(b, s, h, hd,
+                                                          dtype):
+    """csrc/mlstm.cu's parallel form against its first design
+    (csrc/mlstm_parallel_v1.cu) on the same inputs: fp32 operands bitwise
+    (q . k on the CUDA cores in v1's order), bf16 ones (q . k on the
+    tensor cores) within XLSTM_TOL of the first design and of the plain
+    version; at the serve shape, a ragged S, hd 32, S = 1 and an odd B;
+    ten launches bitwise, and the first design counts no launches."""
+    _card()
+    from repro_torch.kernels import mlstm as ML
+    margs, _, _ = _xlstm_operands(b, s, h, hd, dtype, seed=s + b + 1)
+    new = ML.mlstm_parallel_cuda(*margs)
+    before = ML.launches_parallel
+    old = ML.mlstm_parallel_v1_cuda(*margs)
+    assert ML.launches_parallel == before
+    if dtype == torch.float32:
+        assert torch.equal(new, old)
+    else:
+        assert _xlstm_err(new, old) <= XLSTM_TOL
+        assert _xlstm_err(new, ML.mlstm_parallel_plain(*margs)) <= XLSTM_TOL
+    assert all(torch.equal(ML.mlstm_parallel_cuda(*margs), new)
+               for _ in range(10))
+
+
 def test_xlstm_kernels_raise_on_what_they_do_not_take():
     _card()
     from repro_torch.kernels import mlstm as ML

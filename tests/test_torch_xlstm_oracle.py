@@ -1,9 +1,13 @@
-"""The xLSTM recurrences' redesigns beside their first designs, on the CPU:
-the first designs' wrappers refuse CPU tensors, all four sources are built
-and exported under distinct names, none names an atomic, and the
-algorithm of the mLSTM's reduce-scatter of 32 row sums gives each sum the
-bits of the first design's butterfly. That the kernels keep the first
-designs' bits is held on the card (``tests/test_torch_cuda.py``)."""
+"""The xLSTM kernels' redesigns beside their first designs, on the CPU:
+the first designs' wrappers refuse CPU tensors, all five sources are built
+and exported under distinct names, none names an atomic, the algorithm of
+the mLSTM's reduce-scatter of 32 row sums gives each sum the bits of the
+first design's butterfly, the redesigned parallel form keeps the first
+design's expressions, its causal pairs of query tiles cover every tile
+once, and summing q . k in the tensor cores' k-steps stays well inside the
+checks' tolerance. That the kernels keep the first designs' bits (or
+tolerance, for the parallel form's bf16 q . k) is held on the card
+(``tests/test_torch_cuda.py``)."""
 import re
 from pathlib import Path
 
@@ -21,7 +25,7 @@ EXPORT = re.compile(r'^extern "C" \w+ (\w+)\(', re.MULTILINE)
 # as tests/test_torch_hygiene.py: CUDA's atomic functions and PTX's atom.* /
 # red.* instructions
 ATOMIC = re.compile(r"atomic|\batom\.|\bred\.", re.IGNORECASE)
-SOURCES = ("mlstm", "mlstm_v1", "slstm", "slstm_v1")
+SOURCES = ("mlstm", "mlstm_v1", "slstm", "slstm_v1", "mlstm_parallel_v1")
 
 
 def _mlstm_operands(b=1, s=3, h=2, hd=32, seed=0):
@@ -39,6 +43,12 @@ def test_mlstm_first_design_refuses_cpu_tensors():
         ML.mlstm_recurrent_v1_cuda(*args, *state)
 
 
+def test_mlstm_parallel_first_design_refuses_cpu_tensors():
+    args, _ = _mlstm_operands()
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ML.mlstm_parallel_v1_cuda(*args)
+
+
 def test_slstm_first_design_refuses_cpu_tensors():
     rng = np.random.default_rng(1)
 
@@ -54,11 +64,14 @@ def test_slstm_first_design_refuses_cpu_tensors():
 def test_first_designs_count_no_launches():
     """A refused first-design call leaves the redesigns' counters alone
     (the first designs count in none)."""
-    before = (ML.launches_recurrent, SL.launches)
+    before = (ML.launches_parallel, ML.launches_recurrent, SL.launches)
     args, state = _mlstm_operands()
     with pytest.raises(ValueError):
         ML.mlstm_recurrent_v1_cuda(*args, *state)
-    assert (ML.launches_recurrent, SL.launches) == before
+    with pytest.raises(ValueError):
+        ML.mlstm_parallel_v1_cuda(*args)
+    assert (ML.launches_parallel, ML.launches_recurrent,
+            SL.launches) == before
 
 
 @pytest.mark.parametrize("name", SOURCES)
@@ -68,14 +81,15 @@ def test_xlstm_sources_are_built(name):
 
 
 def test_first_designs_export_their_own_names():
-    """All four libraries can be loaded into one process: the first
-    designs' entry points are the redesigns' with a ``_v1`` suffix, and the
-    mLSTM's first design leaves out the parallel form."""
+    """All five libraries can be loaded into one process: the first
+    designs' entry points are the redesigns' with a ``_v1`` suffix, the
+    mLSTM's recurrence and parallel form each in a source of its own."""
     names = {n: set(EXPORT.findall((CSRC / f"{n}.cu").read_text()))
              for n in SOURCES}
     assert {"dash_mlstm_parallel", "dash_mlstm_recurrent",
             "dash_mlstm_recurrent_layout"} <= names["mlstm"]
     assert names["mlstm_v1"] == {"dash_mlstm_recurrent_v1"}
+    assert names["mlstm_parallel_v1"] == {"dash_mlstm_parallel_v1"}
     assert "dash_slstm" in names["slstm"]
     assert names["slstm_v1"] == {"dash_slstm_v1"}
     everything = [x for n in SOURCES for x in names[n]]
@@ -158,3 +172,164 @@ def test_variant_builds_are_libraries_of_their_own():
     assert stamped != plain and stamped.parent == plain.parent
     assert build.library_path("mlstm", ("DASH_STAMPS", "NDEBUG")) not in (
         plain, stamped)
+
+
+# ------------------------------------------------------- the parallel form
+def _parallel_section(name):
+    """The parallel form's source: all of csrc/mlstm_parallel_v1.cu, or
+    csrc/mlstm.cu from its parallel-form banner to the recurrence's."""
+    text = (CSRC / f"{name}.cu").read_text()
+    if name == "mlstm_parallel_v1":
+        return text
+    start = text.index("// ---- parallel form".replace("----", "-" * 60))
+    return text[start:text.index("-" * 63 + " recurrence", start)]
+
+
+# (what the first design computes, its expression there, the redesign's)
+KEPT = [
+    ("stabilizer: the max of the rounded (F_i - F_j) + ig_j",
+     "mx = fmaxf(mx, (fi - F[gate_off(j)]) + ig[gate_off(j)]);",
+     "mx[x] = fmaxf(mx[x], (fi[x] - fj) + gj);"),
+    ("the gate decay d = (F_i - F_j) + ig_j",
+     "const float d = (Fq[r] - Fk[lane]) + Ik[lane];",
+     "const float d = (Fq[r] - Fk[jj]) + Ik[jj];"),
+    ("the score s = dot * exp(d - m_i)",
+     "s = dot * expf(d - Mq[r]);", "s = dot * expf(d - Mq[r]);"),
+    ("masking: pairs j > i and rows past S give 0",
+     "if (r < rows && j0 + lane <= i0 + r) {",
+     "if (r < rows && j0 + jj <= i0 + r) {"),
+    ("the signed row sums: plain adds, keys ascending",
+     "for (int jj = 0; jj < keys; ++jj) rs += Ss[tid * (BK + 1) + jj];",
+     "if (sums) rs += r;"),
+    ("S.v: one fmaf chain an output over the keys ascending",
+     "acc[x] = fmaf(Ss[(rg + RG * x) * (BK + 1) + jj], vv, acc[x]);",
+     "acc[x][y] = fmaf(s[x], vv[y], acc[x][y]);"),
+    ("fp32 q.k: one fmaf chain over hd ascending",
+     "for (int c = 0; c < HD; ++c) dot = fmaf(qr[c], kj[c], dot);",
+     "d[x][y] = fmaf(qv[x][e], kv[y][e], d[x][y]);"),
+    ("the normalizer max(|rowsum|, exp(-m_i))",
+     "const float norm = fmaxf(fabsf(rowsum[r]), expf(-Mq[r]));",
+     "const float norm = fmaxf(fabsf(Rs[r]), expf(-Mq[r]));"),
+    ("the epilogue's clamp at 1e-6", "acc[x] / fmaxf(norm, 1e-6f)",
+     "const float den = fmaxf(norm, 1e-6f);"),
+]
+
+
+@pytest.mark.parametrize("what,old,new", KEPT, ids=[k[0] for k in KEPT])
+def test_parallel_redesign_keeps_the_first_designs_expressions(what, old,
+                                                               new):
+    """Each step whose bits the redesign keeps (the stabilizer, scores,
+    masking, row sums, S.v, fp32 q.k and the epilogue) is written with the
+    first design's expression, operands renamed."""
+    assert old in _parallel_section("mlstm_parallel_v1"), what
+    assert new in _parallel_section("mlstm"), what
+
+
+def test_parallel_redesign_sums_from_zero_and_keeps_F_in_the_wrapper():
+    """Every chain starts from +0 (the row sums, S.v and fp32 q.k), the
+    division is IEEE (no reciprocal), and F = cumsum(fg) stays in the
+    wrapper, as in the first design."""
+    src = _parallel_section("mlstm")
+    assert "float rs = 0.f;" in src
+    # the row sums' operand: row tid - RS's score of key jj
+    assert "if (sums) rx = Sc[jj * P::LDS + tid - P::RS];" in src
+    assert "for (int y = 0; y < P::TC; ++y) acc[x][y] = 0.f;" in src
+    assert "for (int y = 0; y < P::QK; ++y) d[x][y] = 0.f;" in src
+    assert "acc[x][y] / den" in src
+    assert not re.search(r"__frcp|__fdividef|rcp\.approx|__expf", src)
+    wrapper = (ROOT / "src" / "repro_torch" / "kernels" / "mlstm.py")
+    assert "F = torch.cumsum(fg, 1)" in wrapper.read_text()
+
+
+def test_parallel_redesign_keeps_fp32_off_the_tensor_cores():
+    """The tensor cores' fp32 path is tf32: the fp32 q.k (the QKTile
+    specialization for fp32 operands) names no mma or ldmatrix, and the
+    bf16 one is the only user of them."""
+    src = _parallel_section("mlstm")
+    fp32 = src[src.index("struct QKTile<T, HD, false>"):
+               src.index("// query tile [i0, i0 + BQ)")]
+    bf16 = src[src.index("struct QKTile<T, HD, true>"):
+               src.index("struct QKTile<T, HD, false>")]
+    assert not re.search(r"mma|ldsm", fp32)
+    assert "mma_16816" in bf16 and "ldsm_x4" in bf16
+    assert len(re.findall(r"mma_16816\(", src)) == 2
+
+
+def _constant(name):
+    found = re.search(rf"^constexpr int {name} = (\d+);",
+                      (CSRC / "mlstm.cu").read_text(), re.MULTILINE)
+    return int(found.group(1))
+
+
+def _pairs(s):
+    """A NumPy model of csrc/mlstm.cu's causal pairing for one (b, h): CTA
+    p of ceil(n / 2) takes query tiles n - 1 - p, then p unless it is the
+    same; each query tile t walks the key tiles j0 < min(S, (t + 1) BQ).
+    Returns the tiles of each CTA and the key tiles each walks."""
+    bq, bk = _constant("BQ"), _constant("BK")
+    n = -(-s // bq)
+    ctas = np.arange((n + 1) // 2)
+    tiles = [sorted({n - 1 - p, p}, reverse=True) for p in ctas]
+    walks = np.array([sum(-(-min(s, (t + 1) * bq) // bk) for t in ts)
+                      for ts in tiles])
+    return n, tiles, walks
+
+
+@pytest.mark.parametrize("b,s,h,hd", [(4, 512, 4, 256), (4, 2048, 4, 256),
+                                      (2, 300, 4, 256), (2, 77, 4, 32),
+                                      (1, 1, 4, 256)])
+def test_causal_pairs_cover_each_query_tile_once(b, s, h, hd):
+    """Every (b, h, query tile) is taken by exactly one CTA, and no CTA
+    walks more than n + 1 key tiles (the pair's n + 1; the middle tile of
+    an odd n its (n + 1) / 2); at (4, 512) the grid is one wave of 128
+    CTAs on the card's 132 SMs. The model's rules are the source's: its
+    launch grid and its pair are checked as text."""
+    src = _parallel_section("mlstm")
+    launch = (CSRC / "mlstm.cu").read_text()
+    assert "const int pairs = ((S + BQ - 1) / BQ + 1) / 2;" in launch
+    assert "kernel<<<dim3(pairs, H, B), THREADS, smem, stream>>>" in launch
+    assert "last = n - 1 - p;" in src and "if (p != last) {" in src
+    n, tiles, walks = _pairs(s)
+    grid = [(bb, hh, t) for bb in range(b) for hh in range(h)
+            for ts in tiles for t in ts]
+    assert sorted(grid) == [(bb, hh, t) for bb in range(b)
+                            for hh in range(h) for t in range(n)]
+    assert walks.max() <= n + 1
+    if n > 1:
+        assert walks.min() >= (n + 1) // 2
+    if (b, s, h) == (4, 512, 4):
+        assert b * h * len(tiles) == 128 and set(walks) == {n + 1}
+
+
+def test_xlstm_tol_budget_for_the_tensor_cores_q_k():
+    """The bf16 q . k on the tensor cores sums each 16-wide k-step, then
+    adds the steps in order. Modelled on the CPU, that order moves the
+    plain form's output by under a tenth of ``XLSTM_TOL`` (relative to
+    max(1, max |out|), as the checks measure) at xLSTM-350M's heads (1,
+    512, 4 heads of 256) on bf16 inputs: the tolerance the card's checks
+    hold the redesign to leaves room for the mma's own rounding inside a
+    step."""
+    tol = float(re.search(r"^XLSTM_TOL = (\S+)$",
+                          (ROOT / "chip_smoke.py").read_text(),
+                          re.MULTILINE).group(1))
+    rng = np.random.default_rng(30)
+    b, s, h, hd = 1, 512, 4, 256
+
+    def bf16(x):
+        return torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
+    q = bf16(rng.standard_normal((b, s, h, hd)))
+    k = bf16(rng.standard_normal((b, s, h, hd)) / hd ** 0.5)
+    v = bf16(rng.standard_normal((b, s, h, hd)))
+    ig = torch.from_numpy(rng.standard_normal((b, s, h)).astype(np.float32))
+    fg = torch.nn.functional.logsigmoid(torch.from_numpy(
+        rng.standard_normal((b, s, h)).astype(np.float32)) + 1.0)
+    with torch.no_grad():
+        want = ML.mlstm_parallel_plain(q, k, v, ig, fg)
+        qk = torch.zeros((b, s, s, h))
+        for c in range(0, hd, 16):
+            qk = qk + torch.einsum("bihe,bjhe->bijh",
+                                   q[..., c:c + 16].float(),
+                                   k[..., c:c + 16].float())
+        got = ML.mlstm_parallel_from_qk(qk, v, ig, fg)
+    err = float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+    assert 0.0 < err <= tol / 10, err
