@@ -74,7 +74,15 @@ Phases, each reported on its own line:
                xlstm v1``): every output and state leaf ``torch.equal``;
                at each parallel-form case the parallel form against its
                first design (``csrc/mlstm_parallel_v1.cu``): fp32
-               ``torch.equal``, bf16 within ``XLSTM_TOL``;
+               ``torch.equal``, bf16 within ``XLSTM_TOL``; the two
+               backward kernels (``csrc/mlstm_parallel_bwd.cu``,
+               ``csrc/slstm_bwd.cu``) at xLSTM-350M's train shape (B=4,
+               S=1024, 4 heads of 256) and at (2, 64, 2 heads of 32), bf16
+               and fp32 operands, against their plain backwards and
+               against autograd of the plain forwards within
+               ``XLSTM_TOL``, 10 repetitions bitwise, and the sLSTM
+               forward with its states kept bitwise its first design's
+               h_all and state;
                and the GQA groups of this slice's models (``[kernel-check]
                gqa``: 40/8 and 48/8 at D=128, S=1024): the causal forward,
                the worker backward with its dQ and dK/dV group folds (each
@@ -252,6 +260,16 @@ Phases, each reported on its own line:
                the attention layer (2 forwards, 1 worker backward, 3
                folds); step 1 at S=1024 against the plain attention and
                plain scan's;
+     train-xlstm — the train phase for xLSTM-350M at full width and depth
+               (24 layers: 21 mLSTM, 3 sLSTM; B=4, S=1024, 3 steps,
+               ``--verify``), twice: equal digest chains and fingerprints;
+               a step launches per mLSTM layer the parallel form's forward
+               twice and its backward's three passes once, per sLSTM layer
+               its forward twice and its backward once, one fingerprint;
+               step 1 against the plain mixers (the bf16 model at 24
+               layers a reading; gated: the fp32 model at 24 layers, loss,
+               grad norm and every mixer leaf's grads per layer, and the
+               bf16 model at layers 0 and 7);
  11. tune    — the tuner (``repro_torch.tune``) in measure mode over every
                legal candidate (schedule family x worker-parallel or
                serialized), the runner one synchronized ``dash_attention``
@@ -295,7 +313,10 @@ Phases, each reported on its own line:
                decode steps) with the clock64() share of each phase of a
                recurrence's step (``[phases]``), the parallel form's wrapper
                split into its launch and its ``F = cumsum(fg)``
-               (``launch_ms``, ``cumsum_ms``); the fingerprint's entry
+               (``launch_ms``, ``cumsum_ms``); the two xLSTM backward
+               kernels at ``[train-xlstm]``'s shape beside their plain
+               backwards and bounds, with that cell's launches a step;
+               the fingerprint's entry
                is timed in its kernel check, at the full-width train
                state.
 The line before the last is ``{"kernels": [...]}``; the last is
@@ -436,8 +457,8 @@ SLICE_WINDOW = dict(arch="stablelm-1.6b", batch=2, prompt=2048, gen=32,
                     window=1024)
 # the train launcher's flags for the train phase (3 steps, warmup 1 so the
 # weights move; cut to 12 of the 24 layers) and for the windowed one (cut
-# to 6), so that the whole run keeps within half its time limit: the host's
-# digests and checkpoints of the state take most of these phases' time
+# to 6) for the run's time limit: the host's digests and checkpoints of
+# the state take most of these phases' time
 TRAIN_ARGV = ["--arch", "stablelm-1.6b", "--layers", "12", "--batch", "4",
               "--seq", "1024", "--steps", "3", "--warmup-steps", "1",
               "--seed", "0", "--log-every", "1", "--verify", "--tune", "sim"]
@@ -487,6 +508,32 @@ TRAIN_JAMBA_ARGV = ["--arch", "jamba-1.5-large-398b", "--layers", "0,4",
                     "--verify"]
 TRAIN_JAMBA_COMPARE_ARGV = [("1024" if a == "4096" else a)
                             for a in TRAIN_JAMBA_ARGV]
+# [train-xlstm]: xLSTM-350M at full width and depth (24 layers: 21 mLSTM,
+# 3 sLSTM; 0.234 B parameters), B=4, S=1024, through the launcher as
+# [train] runs it, on the mLSTM parallel form's and the sLSTM's kernels
+# and their backwards
+TRAIN_XLSTM_ARGV = ["--arch", "xlstm-350m", "--batch", "4", "--seq", "1024",
+                    "--steps", "3", "--warmup-steps", "1", "--seed", "0",
+                    "--log-every", "1", "--verify"]
+# its step 1 against the plain mixers': the loss and grad norm of the fp32
+# model at 24 layers within LOSS_RTOL and GNORM_RTOL, and every mixer
+# leaf's gradient, per layer, |g_kernels - g_plain| / |g_plain| within
+# XLSTM_FP32_GRAD_RTOL in the fp32 model at its first period's 8 layers
+# (7 mLSTM, 1 sLSTM; the kernels read 1.1e-4 there), while at 24 layers
+# rounding alone moves the mLSTM leaves by up to 3.9e-2 (the plain mixers
+# with q . k summed in reverse against the plain mixers, the control
+# [train-xlstm-step1] prints at both depths; H100 80GB HBM3, 700 W), so
+# the 24 layers' leaves are a reading beside that control (bf16 at
+# XLSTM_CUT: ATTN_GRAD_RTOL; bf16 at 24 layers a reading, as the bf16
+# model amplifies one flipped rounding with depth)
+XLSTM_FP32_GRAD_RTOL = 1e-3
+XLSTM_FP32_LEAF_LAYERS = "8"
+# leaves whose exact gradient is 0, so that both runs' grads are rounding
+# noise of their own: h is invariant under a uniform shift of the sLSTM's
+# input gate (c and n scale alike; tests/test_torch_xlstm_train.py holds
+# it in float64). Their difference is held over the norm of their layer's
+# mixer grads instead
+XLSTM_ZERO_GRAD_LEAVES = ("slstm/b_i",)
 # [serve-nemotron]: Nemotron-4-15B at full width, cut to 2 layers (its
 # vocab-256000 embedding and head are 3.15 B of its 3.9 B parameters),
 # through the continuous engine over [serve-continuous]'s traffic, at these
@@ -873,6 +920,7 @@ def _zero_counts():
     FPK.launches = 0
     SCAN.launches_fwd = SCAN.launches_bwd = SCAN.launches_fold = 0
     MLSTM.launches_parallel = MLSTM.launches_recurrent = SLSTM.launches = 0
+    MLSTM.launches_parallel_bwd = SLSTM.launches_bwd = 0
 
 
 def _no_launches():
@@ -1356,12 +1404,16 @@ def _train_launches(cfg, verify):
     forward twice (block-sparse under a window, else causal), the worker
     backward once, and its folds (the dQ partials, and under GQA dK and dV
     over each group); per Mamba layer the scan's forward twice, its
-    backward and fold once; one fingerprint under ``--verify``."""
-    attn, mamba, _, _ = _layer_kinds(cfg)
+    backward and fold once; per mLSTM layer the parallel form's forward
+    twice and its backward's passes once each; per sLSTM layer its forward
+    twice and its backward once; one fingerprint under ``--verify``."""
+    attn, mamba, mlstm, slstm = _layer_kinds(cfg)
     folds = 3 if cfg.n_kv_heads < cfg.n_heads else 1
     want = dict(_no_launches(), bwd_worker=attn, fold=folds * attn,
                 fingerprint=int(verify), scan_fwd=2 * mamba, scan_bwd=mamba,
-                scan_fold=mamba)
+                scan_fold=mamba, mlstm_parallel=2 * mlstm,
+                mlstm_parallel_bwd=len(MLSTM.BWD_PASSES) * mlstm,
+                slstm=2 * slstm, slstm_bwd=slstm)
     want["fwd_mask" if cfg.attn_window else "fwd_causal"] = 2 * attn
     return want
 
@@ -1383,7 +1435,8 @@ def _attn_grads(cfg, params, batch):
     return {p: g for (p, _), g in zip(wanted, grads)}
 
 
-def run_train(argv=TRAIN_ARGV, label="train", compare_argv=None):
+def run_train(argv=TRAIN_ARGV, label="train", compare_argv=None,
+              gate_step1=True):
     """StableLM-1.6B at full width (``TRAIN_ARGV``: 12 of its 24 layers),
     3 AdamW steps through the train launcher
     (``repro_torch.launch.train.main``, the DASH kernels) with the flags
@@ -1393,7 +1446,10 @@ def run_train(argv=TRAIN_ARGV, label="train", compare_argv=None):
     attention); step 3 of the second run under the profiler. With
     ``compare_argv`` (flags that differ in the batch's shape only), step 1
     is held against the plain path on that batch instead, both steps run
-    here: the plain scan's autograd keeps (B, S, Din, N) states."""
+    here: the plain scan's autograd keeps (B, S, Din, N) states. A model
+    without attention has no attention grads to hold; with ``gate_step1``
+    False step 1 against the plain path is a reading, printed and not
+    held to a limit."""
     args, cfg, tcfg, data, device = launch_train.configure(argv)
     want = _train_launches(cfg, args.verify)
     c_args, c_cfg, c_tcfg, c_data, _ = (
@@ -1419,11 +1475,13 @@ def run_train(argv=TRAIN_ARGV, label="train", compare_argv=None):
         with pins[0].replay(), _plain_mixers():
             plain_m = TS.make_train_step(plain_cfg, c_tcfg)(state, batch0)[1]
         plain_m = {k: float(plain_m[k]) for k in ("loss", "grad_norm")}
-        with pins[1].record():
-            ga = _attn_grads(c_cfg, state["params"], batch0)
-        with pins[1].replay(), _plain_mixers():
-            gp = _attn_grads(plain_cfg, state["params"], batch0)
-        attn_leaves = _attn_leaves(state["params"])
+        attn_leaves, ga, gp = (), {}, {}
+        if _layer_kinds(c_cfg)[0]:
+            with pins[1].record():
+                ga = _attn_grads(c_cfg, state["params"], batch0)
+            with pins[1].replay(), _plain_mixers():
+                gp = _attn_grads(plain_cfg, state["params"], batch0)
+            attn_leaves = _attn_leaves(state["params"])
         torch.cuda.synchronize()
         del state
     finally:
@@ -1467,7 +1525,8 @@ def run_train(argv=TRAIN_ARGV, label="train", compare_argv=None):
                          peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                          params_changed=changed[0] if changed else None))
     a, b_ = runs
-    obs = _train_obs(args, track, trace, a, b_)
+    obs = _train_obs(args, track, trace, a, b_,
+                     attn=bool(_layer_kinds(cfg)[0]))
     shutil.rmtree(track_dir, ignore_errors=True)
     for i, c in enumerate(a["launches"] + b_["launches"]):
         if c != want:
@@ -1502,7 +1561,7 @@ def run_train(argv=TRAIN_ARGV, label="train", compare_argv=None):
         peak_mem_gb=a["peak_gb"], step1_vs_plain=first,
         loss_rel_diff=rel_loss, loss_rtol=LOSS_RTOL, gnorm_rel_diff=rel_gn,
         gnorm_rtol=GNORM_RTOL, attn_grad_rel_err=attn_err,
-        attn_grad_rtol=ATTN_GRAD_RTOL,
+        attn_grad_rtol=ATTN_GRAD_RTOL, step1_gated=gate_step1,
         router_choices_flipped_unpinned=[[p.flips, p.choices] for p in pins])
     print(f"[{label}] " + json.dumps(result), flush=True)
     print(f"[{label}-obs] " + json.dumps(obs), flush=True)
@@ -1522,11 +1581,11 @@ def run_train(argv=TRAIN_ARGV, label="train", compare_argv=None):
             k: a["step1"][k] for k in kernel_m}:
         raise AssertionError(f"the pinned kernel step 1 {kernel_m} is not "
                              f"the launcher's {a['step1']}")
-    if rel_loss > LOSS_RTOL or rel_gn > GNORM_RTOL:
+    if gate_step1 and (rel_loss > LOSS_RTOL or rel_gn > GNORM_RTOL):
         raise AssertionError(f"train step 1 vs the plain attention: loss "
                              f"rel. diff {rel_loss} (tol {LOSS_RTOL}), grad "
                              f"norm rel. diff {rel_gn} (tol {GNORM_RTOL})")
-    if max(attn_err.values()) > ATTN_GRAD_RTOL:
+    if attn_err and max(attn_err.values()) > ATTN_GRAD_RTOL:
         raise AssertionError(f"attention grads vs the plain attention: "
                              f"{attn_err} > {ATTN_GRAD_RTOL}")
     if obs["problems"]:
@@ -1534,12 +1593,13 @@ def run_train(argv=TRAIN_ARGV, label="train", compare_argv=None):
     return dict(result, obs=obs)
 
 
-def _train_obs(args, track, trace, a, b_):
+def _train_obs(args, track, trace, a, b_, attn=True):
     """What the two tracked train runs recorded: run 0 with ``--track`` and
     ``--trace-out``, run 1 with ``--track`` against run 0's file. Both must
     report ``fingerprint_ok``, record one equal fingerprint a step, diff
-    clean, and run 0's trace must validate with the modeled and achieved
-    lanes and hold a train_data / train_step / train_digest span a step.
+    clean, and run 0's trace must validate (with the attention schedule's
+    modeled and achieved lanes when the model has ``attn`` layers) and
+    hold a train_data / train_step / train_digest span a step.
     Returns the record with ``problems``, empty when all holds; prints each
     step's utilization against the tuner's modeled attention time."""
     fps = [[(e["step"], e["fingerprint"])
@@ -1550,14 +1610,17 @@ def _train_obs(args, track, trace, a, b_):
     with open(trace) as f:
         obj = json.load(f)
     invalid = OBS_EX.validate_trace(
-        obj, (OBS_EX.PROCESS_MODELED, OBS_EX.PROCESS_ACHIEVED))
+        obj, (OBS_EX.PROCESS_MODELED, OBS_EX.PROCESS_ACHIEVED) if attn
+        else ())
     lanes = {}
     for ev in obj["traceEvents"]:
         if ev.get("pid") == OBS_EX.PID_RUN and ev.get("ph") == "X":
             lanes[ev["cat"]] = lanes.get(ev["cat"], 0) + 1
-    achieved = next(ev["args"]["achieved_s"] for ev in obj["traceEvents"]
-                    if ev.get("pid") == OBS_EX.PID_ACHIEVED
-                    and ev.get("ph") == "X")
+    achieved = next((ev["args"]["achieved_s"] for ev in obj["traceEvents"]
+                     if ev.get("pid") == OBS_EX.PID_ACHIEVED
+                     and ev.get("ph") == "X"), None)
+    if attn and achieved is None:
+        raise AssertionError("the trace has no achieved attention lane")
     want_lanes = {p: args.steps for p in ("train_data", "train_step")}
     if args.verify:
         want_lanes["train_digest"] = args.steps
@@ -3440,6 +3503,14 @@ XLSTM_PAR_CASES = [("serve", 4, 512, 256, torch.bfloat16),
                    ("fp32", 1, 512, 256, torch.float32),
                    ("hd32", 2, 100, 32, torch.float32),
                    ("hd32_bf16", 2, 77, 32, torch.bfloat16)]
+# the backward kernels (csrc/mlstm_parallel_bwd.cu, csrc/slstm_bwd.cu):
+# (case, B, S, H, hd, dtype of q/k/v or r) at xLSTM-350M's train shape
+# ([train-xlstm]: B=4, S=1024, 4 heads of 256) and at a small one, each in
+# bf16 and fp32 operands
+XLSTM_BWD_CASES = [("train", 4, 1024, 4, 256, torch.bfloat16),
+                   ("train_fp32", 4, 1024, 4, 256, torch.float32),
+                   ("small", 2, 64, 2, 32, torch.bfloat16),
+                   ("small_fp32", 2, 64, 2, 32, torch.float32)]
 # the recurrences: the serve prefill from the model's initial state (then
 # its decode step, S = 1, from the state it leaves), and from carried states
 XLSTM_REC_CASES = [("serve_prefill", 4, 512, 256, torch.bfloat16, False),
@@ -3479,12 +3550,13 @@ def _xl_rand(gen):
     return r
 
 
-def _mlstm_inputs(b, s, hd, dtype, seed, carried=True):
-    """q, k (divided by sqrt(hd)), v in ``dtype``; the log input gate
-    ~ N(0, 1) and the log forget gate log_sigmoid(N(1, 1)) (the model's
-    forget bias 1); and a carried (C, n, m), or the model's zeros."""
+def _mlstm_inputs(b, s, hd, dtype, seed, carried=True, h=XLSTM_HEADS):
+    """q, k (divided by sqrt(hd)), v (B, S, h, hd) in ``dtype``; the log
+    input gate ~ N(0, 1) and the log forget gate log_sigmoid(N(1, 1)) (the
+    model's forget bias 1); and a carried (C, n, m), or the model's
+    zeros."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    r, h = _xl_rand(gen), XLSTM_HEADS
+    r = _xl_rand(gen)
     args = (r(b, s, h, hd).to(dtype),
             (r(b, s, h, hd) / math.sqrt(hd)).to(dtype),
             r(b, s, h, hd).to(dtype), r(b, s, h),
@@ -3496,11 +3568,12 @@ def _mlstm_inputs(b, s, hd, dtype, seed, carried=True):
     return args, state
 
 
-def _slstm_inputs(b, s, hd, dtype, seed, carried=True):
-    """The four pre-activations ~ N(0, 1), r_g at their fan-in scale in
-    ``dtype``, and a carried (c, n, h, m) or the model's initial state."""
+def _slstm_inputs(b, s, hd, dtype, seed, carried=True, h=XLSTM_HEADS):
+    """The four pre-activations (B, S, h, hd) ~ N(0, 1), r_g at their
+    fan-in scale in ``dtype``, and a carried (c, n, h, m) or the model's
+    initial state."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    r, h = _xl_rand(gen), XLSTM_HEADS
+    r = _xl_rand(gen)
     z = tuple(r(b, s, h, hd) for _ in range(4))
     rr = tuple((r(h, hd, hd) / math.sqrt(hd)).to(dtype) for _ in range(4))
     if carried:
@@ -3552,8 +3625,10 @@ def check_xlstm():
     step), the parallel form's output ``torch.equal`` to
     ``mlstm_parallel_v1_cuda``'s for fp32 operands and within
     ``XLSTM_TOL`` of it for bf16 ones (whose q . k the redesign sums on the
-    tensor cores; max abs diff printed). Raises on any failure. Returns the
-    lines and the serve shapes' max abs errors."""
+    tensor cores; max abs diff printed). Then the backward kernels at
+    ``XLSTM_BWD_CASES`` (:func:`_check_xlstm_backward`). Raises on any
+    failure. Returns the lines and the serve shapes' max abs errors (the
+    backwards' at the train shape)."""
     lines = []
 
     def report(kernel, case, shape, dtype, pairs, bitwise):
@@ -3663,6 +3738,9 @@ def check_xlstm():
                        dict(reps10=reps10(lambda: run(dargs, dstate), dgot)))
             del args, state, got, want
     _free_device_memory()
+    for case in XLSTM_BWD_CASES:
+        _check_xlstm_backward(case, report, v1_lines)
+        _free_device_memory()
     failed = [f"{x['kernel']}/{x['case']}" for x in lines if not x["ok"]]
     not_v1 = [f"{x['kernel']}/{x['case']}" for x in v1_lines if not x["ok"]]
     if failed or not_v1:
@@ -3675,7 +3753,80 @@ def check_xlstm():
         mlstm_recurrent=max(by[("mlstm_recurrent", "serve_prefill")],
                             by[("mlstm_recurrent", "serve_decode")]),
         slstm=max(by[("slstm", "serve_prefill")],
-                  by[("slstm", "serve_decode")])))
+                  by[("slstm", "serve_decode")]),
+        mlstm_parallel_bwd=by[("mlstm_parallel_bwd", "train")],
+        slstm_bwd=by[("slstm_bwd", "train")]))
+
+
+def _fp32_leaves(tensors):
+    """fp32 leaves of ``tensors`` (bf16 operands are exact in fp32) that
+    take a gradient."""
+    return [t.detach().float().requires_grad_(True) for t in tensors]
+
+
+def _check_xlstm_backward(case, report, v1_lines):
+    """The two backward kernels at one of ``XLSTM_BWD_CASES``, each against
+    its plain backward on the same inputs and against autograd of its plain
+    forward, within ``XLSTM_TOL``, and 10 repeated launches bitwise
+    (``report``'s ``[kernel-check] xlstm`` lines, kernels
+    ``mlstm_parallel_bwd`` and ``slstm_bwd``); the sLSTM's forward with its
+    states kept (``slstm_cuda(keep=True)``, the one the train step runs)
+    bitwise its first design's h_all and state (a ``[kernel-check] xlstm
+    v1`` line, kernel ``slstm_keep``, appended to ``v1_lines``). The
+    sLSTM runs from the model's initial state, as training does; the
+    gradients of every h and of the returned state are random."""
+    name, b, s, h, hd, dtype = case
+    gen = torch.Generator(device="cuda").manual_seed(s + hd + 7)
+    args, _ = _mlstm_inputs(b, s, hd, dtype, seed=s + hd + 5, h=h)
+    out = MLSTM.mlstm_parallel_cuda(*args)
+    dout = torch.randn(out.shape, generator=gen, device="cuda")
+    got = MLSTM.mlstm_parallel_backward_cuda(*args, out, dout)
+    plain = MLSTM.mlstm_parallel_backward_plain(*args, dout)
+    with torch.enable_grad():
+        leaves = _fp32_leaves(args)
+        auto = torch.autograd.grad(MLSTM.mlstm_parallel_plain(*leaves),
+                                   leaves, dout)
+    names = ("dq", "dk", "dv", "dig", "dfg")
+    pairs = dict(zip(names, zip(got, plain)))
+    pairs.update({f"{n}_vs_autograd": (g, a)
+                  for n, g, a in zip(names, got, auto)})
+    report("mlstm_parallel_bwd", name, (b, s, h, hd), dtype, pairs, dict(
+        reps10=all(_same(MLSTM.mlstm_parallel_backward_cuda(*args, out,
+                                                            dout), got)
+                   for _ in range(10))))
+    del args, out, dout, got, plain, auto, leaves, pairs
+
+    z, rr, st = _slstm_inputs(b, s, hd, dtype, seed=s + hd + 6,
+                              carried=False, h=h)
+    h_all, new, kept = SLSTM.slstm_cuda(z, rr, st, keep=True)
+    v1_h, v1_new = SLSTM.slstm_v1_cuda(z, rr, st)
+    equal = {n: bool(torch.equal(g, w)) for n, g, w in zip(
+        ("h_all", "c", "n", "h", "m"), (h_all, *new), (v1_h, *v1_new))}
+    line = dict(kernel="slstm_keep", case=name, shape=[b, s, h, hd],
+                dtype=str(dtype).split(".")[-1], equal=equal,
+                ok=all(equal.values()))
+    print("[kernel-check] xlstm v1 " + json.dumps(line), flush=True)
+    v1_lines.append(line)
+    dh = torch.randn(h_all.shape, generator=gen, device="cuda")
+    dst = tuple(torch.randn(t.shape, generator=gen, device="cuda")
+                for t in st)
+    saved = (h_all, kept)
+    got = SLSTM.slstm_backward_cuda(z, rr, st, saved, dh, dst)
+    plain = SLSTM.slstm_backward_plain(z, rr, st, saved, dh, dst)
+    with torch.enable_grad():
+        leaves = _fp32_leaves((*z, *rr, *st))
+        h2, new2 = SLSTM.slstm_plain(leaves[:4], leaves[4:8], leaves[8:])
+        auto = torch.autograd.grad((h2, *new2), leaves, (dh, *dst))
+    names = ([f"dz_{g}" for g in "ifzo"] + [f"dr_{g}" for g in "ifzo"]
+             + ["dc0", "dn0", "dh0", "dm0"])
+    flat = _flat_tensors(got)
+    pairs = dict(zip(names, zip(flat, _flat_tensors(plain))))
+    pairs.update({f"{n}_vs_autograd": (g, a)
+                  for n, g, a in zip(names, flat, auto)})
+    report("slstm_bwd", name, (b, s, h, hd), dtype, pairs, dict(
+        reps10=all(_same(SLSTM.slstm_backward_cuda(z, rr, st, saved, dh,
+                                                   dst), got)
+                   for _ in range(10))))
 
 
 def _xlstm_bounds(b, s, hd, elt):
@@ -3707,6 +3858,33 @@ def _xlstm_bounds(b, s, hd, elt):
                      torch.float32, exps=5 * tok))
 
 
+def _xlstm_bwd_bounds(b, s, h, hd, elt):
+    """Least time of each backward kernel at (b, s, h heads of hd), q/k/v
+    or r in ``elt``-byte elements (as :func:`_xlstm_bounds` prices the
+    forwards). The parallel backward: q, k, v, out, dout, ig, fg read once,
+    dq, dk, dv, dig, dfg written once (fp32); over the s (s + 1) / 2 live
+    pairs a (b, h) q k^T (recomputed: bf16 operands at the tensor cores'
+    rate) and four fp32 products at the CUDA cores' (dnum . v, and dv, dk,
+    dq), and the exponential of w. The sLSTM's: the kept states (7 planes),
+    dh_all and h_all read, dz written, r read and dr written, the states;
+    per step and (b, h) the four (hd x hd) matrix-vector products of dh_rec
+    and, in dr, as many multiply-adds, at the fp32 rate; seven
+    exponentials (i', f', tanh, two sigmoids, log_sigmoid's two) an
+    element."""
+    tok, gates = b * s * h * hd, b * s * h
+    pairs = b * h * s * (s + 1) // 2
+    qk = 2 * hd * pairs
+    return dict(
+        mlstm_parallel_bwd=_bound(
+            3 * tok * elt + 2 * tok * 4 + 2 * gates * 4 + 3 * tok * 4
+            + 2 * gates * 4, qk * (elt == 4) + 4 * 2 * hd * pairs,
+            torch.float32, exps=pairs, tc_flops=qk * (elt == 2)),
+        slstm_bwd=_bound(
+            9 * tok * 4 + 4 * tok * 4 + 4 * h * hd * hd * (elt + 4)
+            + 12 * b * h * hd * 4, 16 * b * h * s * hd * hd, torch.float32,
+            exps=7 * tok))
+
+
 def _parallel_split_ms(q, k, v, ig, fg):
     """The parallel form's wrapper split in two, each ``_queued_ms`` alone:
     its kernel's launch on a precomputed F (``launch_ms``) and the
@@ -3726,7 +3904,7 @@ def _parallel_split_ms(q, k, v, ig, fg):
 
 
 @torch.no_grad()
-def time_xlstm(xlstm_check, serve):
+def time_xlstm(xlstm_check, serve, train):
     """The three xLSTM kernels at the serve slice's shapes (B = 4, prompt
     512; the recurrences also at the decode step, S = 1), each beside its
     plain version and its bound — the ``{"kernels": ...}`` entries, whose
@@ -3736,7 +3914,10 @@ def time_xlstm(xlstm_check, serve):
     decode steps ``decode_v1_ms``), with the clock64() share of each phase
     of a recurrence's step at the prefill shape (``[phases]``). The
     parallel form's ``ms`` is its wrapper's, ``F = cumsum(fg)`` included;
-    ``launch_ms`` and ``cumsum_ms`` split it (each queued alone)."""
+    ``launch_ms`` and ``cumsum_ms`` split it (each queued alone). Then the
+    two backward kernels at ``[train-xlstm]``'s shape (B = 4, S = 1024,
+    bf16), each its wrapper's time beside its plain backward's, with
+    ``[train-xlstm]``'s launches a step (:func:`_time_xlstm_backward`)."""
     b, s = SERVE_XLSTM["batch"], SERVE_XLSTM["prompt"]
     hd, dtype = registry.get(SERVE_XLSTM["arch"]).head_dim, torch.bfloat16
     args, _ = _mlstm_inputs(b, s, hd, dtype, seed=31)
@@ -3845,6 +4026,66 @@ def time_xlstm(xlstm_check, serve):
         f"an exchange of h across the cluster")
     del args, zero, dargs, dstate, z, rr, st0, dz, dst
     _free_device_memory()
+    kernels += _time_xlstm_backward(xlstm_check, train)
+    _free_device_memory()
+    return kernels
+
+
+def _time_xlstm_backward(xlstm_check, train):
+    """The ``{"kernels": ...}`` entries of the two backward kernels at
+    ``[train-xlstm]``'s shape: each wrapper's ms (the parallel backward's
+    three passes with its two ``torch.cumsum`` calls; the sLSTM's kernel
+    with dr's einsum) beside its plain backward's and its bound
+    (:func:`_xlstm_bwd_bounds`); its launches those of a ``[train-xlstm]``
+    step; no library call computes either gradient."""
+    _, b, s, h, hd, dtype = XLSTM_BWD_CASES[0]
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    args, _ = _mlstm_inputs(b, s, hd, dtype, seed=41, h=h)
+    out = MLSTM.mlstm_parallel_cuda(*args)
+    dout = torch.randn(out.shape, generator=gen, device="cuda")
+    z, rr, st = _slstm_inputs(b, s, hd, dtype, seed=42, carried=False, h=h)
+    h_all, _, kept = SLSTM.slstm_cuda(z, rr, st, keep=True)
+    dh = torch.randn(h_all.shape, generator=gen, device="cuda")
+    ms = dict(
+        mlstm_parallel_bwd=_ms(lambda: MLSTM.mlstm_parallel_backward_cuda(
+            *args, out, dout), reps=5),
+        slstm_bwd=_ms(lambda: SLSTM.slstm_backward_cuda(
+            z, rr, st, (h_all, kept), dh), reps=5))
+    plain = dict(
+        mlstm_parallel_bwd=_ms(lambda: MLSTM.mlstm_parallel_backward_plain(
+            *args, dout), reps=1, rounds=3, warmup=1),
+        slstm_bwd=_ms(lambda: SLSTM.slstm_backward_plain(
+            z, rr, st, (h_all, kept), dh), reps=1, rounds=1, warmup=0))
+    bounds = _xlstm_bwd_bounds(b, s, h, hd, 2)
+    steps = train["launches_per_step"]
+    shape = f"(B={b}, S={s}, {h} heads of {hd}, bf16)"
+    kernels = [
+        _entry("mlstm_parallel_bwd",
+               "src/repro_torch/kernels/csrc/mlstm_parallel_bwd.cu",
+               "no TPU kernel: jax.grad of XLA einsums (src/repro/models/"
+               "xlstm.py:57-69)", steps["mlstm_parallel_bwd"],
+               f"[train-xlstm] step {shape}: three passes a mLSTM layer",
+               xlstm_check["max_abs_err"]["mlstm_parallel_bwd"],
+               ms["mlstm_parallel_bwd"], plain["mlstm_parallel_bwd"],
+               bounds["mlstm_parallel_bwd"], None),
+        _entry("slstm_bwd", "src/repro_torch/kernels/csrc/slstm_bwd.cu",
+               "no TPU kernel: jax.grad of an XLA lax.scan (src/repro/"
+               "models/xlstm.py:128-145)", steps["slstm_bwd"],
+               f"[train-xlstm] step {shape}: one a sLSTM layer",
+               xlstm_check["max_abs_err"]["slstm_bwd"], ms["slstm_bwd"],
+               plain["slstm_bwd"], bounds["slstm_bwd"], None)]
+    for k in kernels:
+        k["library_note"] = ("none: no single PyTorch call computes this "
+                             "gradient")
+    kernels[0]["bound_note"] = (
+        "operations: q k^T recomputed (bf16 operands) at the bf16 tensor "
+        "cores' rate plus dnum . v, dv, dk, dq (fp32) at the fp32 CUDA "
+        "cores' rate" if kernels[0]["bound_by"] == "operations" else "bytes")
+    kernels[1]["bound_note"] = (
+        f"{kernels[1]['bound_by']}; latency-paced instead: {s} dependent "
+        f"steps, each two chains of hd / 2 dependent multiply-adds, eight "
+        f"partial sums, the elementwise terms and an exchange of dpre "
+        f"across the cluster")
     return kernels
 
 
@@ -4274,6 +4515,141 @@ def run_train_jamba(label="train-jamba"):
                     compare_argv=TRAIN_JAMBA_COMPARE_ARGV)
     _free_device_memory()
     return out
+
+
+def _reversed_qk_parallel(q, k, v, ig, fg):
+    """The plain parallel form with q . k summed over hd in reverse: the
+    same function, rounded otherwise. Run beside the plain mixers, it reads
+    how far rounding alone moves the model's step 1."""
+    qk = torch.einsum("bihe,bjhe->bijh", q.float().flip(-1),
+                      k.float().flip(-1))
+    return MLSTM.mlstm_parallel_from_qk(qk, v, ig, fg)
+
+
+def _xlstm_step1(cfg, batch, seed, control=False):
+    """Step 1's loss, grad norm (the train step's: fp32 squares summed in
+    tree order) and every mixer leaf's grads (``blocks/*/mlstm/*``,
+    ``blocks/*/slstm/*``) through the kernels and through the plain mixers
+    (:func:`_plain_mixers`) on the same weights (from ``seed``) and batch,
+    remat on as the launcher trains: the two losses' and grad norms'
+    relative differences, and per leaf the largest over its layers of
+    |g_kernels - g_plain| / |g_plain| (for ``XLSTM_ZERO_GRAD_LEAVES``, over
+    the norm of its layer's mixer grads). With ``control``, the same
+    errors of the plain mixers with q . k reversed
+    (:func:`_reversed_qk_parallel`) against the plain mixers: what
+    rounding alone moves (``control_*``)."""
+    params = T.init(cfg, seed=seed, device="cuda")
+    paths = [p for p, _ in tree_paths(params)]
+    mixer = [i for i, p in enumerate(paths)
+             if p.split("/")[-2] in ("mlstm", "slstm")]
+
+    def step1():
+        leaves = [x.detach().requires_grad_(True)
+                  for x in O.tree_leaves(params)]
+        tree = {}
+        for path, leaf in zip(paths, leaves):
+            set_path(tree, path, leaf)
+        loss, _ = T.loss_fn(tree, batch, cfg, remat=True)
+        grads = torch.autograd.grad(loss, leaves)
+        total = None
+        for g in grads:
+            sq = torch.sum(torch.square(g.to(torch.float32)))
+            total = sq if total is None else total + sq
+        return (float(loss.detach()), float(torch.sqrt(total)),
+                {paths[i]: grads[i].float() for i in mixer})
+
+    kernel = step1()
+    with _plain_mixers():
+        plain = step1()
+        if control:
+            MLSTM.mlstm_parallel = _reversed_qk_parallel
+            other = step1()
+    layer_norm = {}                    # (block, layer): |its mixer grads|
+    for path, w in plain[2].items():
+        for i, x in enumerate(w):
+            key = (path.rsplit("/", 1)[0], i)
+            layer_norm[key] = layer_norm.get(key, 0.0) + float(
+                torch.sum(torch.square(x)))
+
+    def errors(run, prefix=""):
+        loss, gnorm, got = run
+        err = {path: max((torch.linalg.vector_norm(a - b) / (
+            layer_norm[(path.rsplit("/", 1)[0], i)] ** 0.5
+            if path.endswith(XLSTM_ZERO_GRAD_LEAVES)
+            else torch.linalg.vector_norm(b))).item()
+            for i, (a, b) in enumerate(zip(got[path], plain[2][path])))
+            for path in got}
+        return {prefix + k: v for k, v in dict(
+            loss=loss, loss_rel_diff=abs(loss - plain[0]) / abs(plain[0]),
+            grad_norm=gnorm,
+            gnorm_rel_diff=abs(gnorm - plain[1]) / abs(plain[1]),
+            mixer_grad_rel_err=err,
+            max_mixer_grad_rel_err=max(err.values())).items()}
+    out = dict(layers=cfg.n_layers, pattern=list(cfg.block_pattern),
+               dtype=cfg.dtype_name, plain_loss=plain[0],
+               plain_grad_norm=plain[1], **errors(kernel))
+    if control:
+        out.update(errors(other, "control_"))
+    return out
+
+
+def run_train_xlstm(label="train-xlstm"):
+    """xLSTM-350M at full width and depth through the train launcher as
+    :func:`run_train` drives it (``TRAIN_XLSTM_ARGV``): two runs with
+    equal digest chains and fingerprints, the launches a step (per mLSTM
+    layer the parallel forward twice and its backward's passes once, per
+    sLSTM layer its forward twice and its backward once, one
+    fingerprint), weights that move, finite losses, the profiled step's
+    top device ops; the bf16 model's step 1 at 24 layers against the plain
+    mixers' a reading. Then step 1 against the plain mixers on the
+    launcher's seed and first batch (:func:`_xlstm_step1`), gated where the
+    model is well conditioned: the fp32 model at 24 layers (loss within
+    ``LOSS_RTOL``, grad norm within ``GNORM_RTOL``; its mixer leaves a
+    reading beside the control's), at ``XLSTM_FP32_LEAF_LAYERS`` (the same
+    limits, every mixer leaf per layer within ``XLSTM_FP32_GRAD_RTOL``; the
+    control printed beside it, a reading) and
+    the bf16 model at ``XLSTM_CUT`` (one mLSTM and the sLSTM layer: the
+    same loss and grad norm limits, the leaves within
+    ``ATTN_GRAD_RTOL``)."""
+    _free_device_memory()
+    out = run_train(TRAIN_XLSTM_ARGV, label, gate_step1=False)
+    _free_device_memory()
+    args, cfg, _, data, _ = launch_train.configure(TRAIN_XLSTM_ARGV)
+    batch = data.batch(0)
+    fp32 = cfg.replace(dtype_name="float32")
+    torch.use_deterministic_algorithms(True)
+    try:
+        full = _xlstm_step1(fp32, batch, args.seed, control=True)
+        gated = dict(
+            fp32_leaves=(_xlstm_step1(launch_train.cut_layers(
+                fp32, XLSTM_FP32_LEAF_LAYERS), batch, args.seed,
+                control=True), XLSTM_FP32_GRAD_RTOL),
+            bf16_cut=(_xlstm_step1(launch_train.cut_layers(cfg, XLSTM_CUT),
+                                   batch, args.seed), ATTN_GRAD_RTOL))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    _free_device_memory()
+    result = {k: dict(r, grad_rtol=tol, loss_rtol=LOSS_RTOL,
+                      gnorm_rtol=GNORM_RTOL) for k, (r, tol) in gated.items()}
+    result["fp32_24_layers"] = dict(full, loss_rtol=LOSS_RTOL,
+                                    gnorm_rtol=GNORM_RTOL,
+                                    mixer_grads_gated=False)
+    result["bf16_24_layers_reading"] = dict(
+        loss_rel_diff=out["loss_rel_diff"],
+        gnorm_rel_diff=out["gnorm_rel_diff"], gated=False)
+    print(f"[{label}-step1] " + json.dumps(result), flush=True)
+    checks = [(k, r, tol) for k, (r, tol) in gated.items()]
+    checks.append(("fp32_24_layers", full, None))
+    off = [f"{k}: {name}" for k, r, tol in checks
+           for name, bad in (("loss", r["loss_rel_diff"] > LOSS_RTOL),
+                             ("grad norm", r["gnorm_rel_diff"] > GNORM_RTOL),
+                             ("mixer grads", tol is not None and
+                              r["max_mixer_grad_rel_err"] > tol))
+           if bad]
+    if off:
+        raise AssertionError(f"xLSTM-350M's step 1 through the kernels vs "
+                             f"the plain mixers beyond its limits: {off}")
+    return dict(out, step1=result)
 
 
 @torch.inference_mode()
@@ -5182,6 +5558,8 @@ def _main(t0, tune_root):
     lap("train-moe")
     train_jamba = run_train_jamba()
     lap("train-jamba")
+    train_xlstm = run_train_xlstm()
+    lap("train-xlstm")
     op_paths = run_ops()
     tune = run_tune(tune_root)
     lap("ops+tune")
@@ -5201,7 +5579,7 @@ def _main(t0, tune_root):
     kernels += time_masks(mask_check, window_launches)
     kernels += time_serve(continuous, paged_check, gemm_check, rows_check)
     kernels += time_scan(scan_check, train_jamba["launches_per_step"])
-    kernels += time_xlstm(xlstm_check, serve_xlstm)
+    kernels += time_xlstm(xlstm_check, serve_xlstm, train_xlstm)
     lap("timing")
     kernels.append(dict(
         name="fingerprint", route="cuda",
@@ -5248,7 +5626,9 @@ def _main(t0, tune_root):
           f"{train_jamba['steady_step_ms']:.1f} ms a step; "
           f"{serve_xlstm['arch']} served {serve_xlstm['layers']} layers "
           f"bitwise ({serve_xlstm['launches']}) at "
-          f"{serve_xlstm['decode_tok_per_s']:.1f} tok/s; "
+          f"{serve_xlstm['decode_tok_per_s']:.1f} tok/s and trained "
+          f"{train_xlstm['layers']} twice to one digest chain at "
+          f"{train_xlstm['steady_step_ms']:.1f} ms a step; "
           f"{time.perf_counter() - t0:.1f}s in all",
           flush=True)
     print(json.dumps({"kernels": kernels}))

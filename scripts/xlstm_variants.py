@@ -340,8 +340,8 @@ def _bind(kernel, lib):
     if kernel == "mlstm":
         fn = ML._bind_recurrent(lib.dash_mlstm_recurrent)
         return lambda a, st: ML._recurrent(lambda: fn, *a, *st)
-    fn = SL._bind(lib.dash_slstm)
-    return lambda a, st, rr: SL._launch(lambda: fn, a, rr, st)
+    fn = SL._bind(lib.dash_slstm, kept=True)
+    return lambda a, st, rr: SL._launch(lambda: fn, a, rr, st, None)
 
 
 def _inputs(kernel, b, s, hd, dtype, seed, carried=True):

@@ -38,6 +38,12 @@
 // stable at both ends; the first step from the initial m = -1e30 gives
 // f' = 0.
 //
+// When the backward needs them (kept != NULL), the kernel also writes
+// every step's state c, n, m (the updater) and the four pre-activations
+// z_g + h r_g (each gate's warp) into kept (7, B, S, H, hd) fp32, planes
+// in that order (c, n, m, i, f, z, o); those stores leave every value of
+// the recurrence as it was, so h_all and the state keep their bits.
+//
 // What bounds it on this card: the 8 hd^2 flops a step and (b, h) are
 // 4.2 us of the card's fp32 rate at (4, 512); the launch is latency-paced
 // instead, 512 dependent steps, each a chain of hd / 2 dependent
@@ -182,7 +188,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                  const float* __restrict__ h0, const float* __restrict__ m0,
                  float* __restrict__ out, float* __restrict__ c1,
                  float* __restrict__ n1, float* __restrict__ h1,
-                 float* __restrict__ m1, int B, int S, int H) {
+                 float* __restrict__ m1, float* __restrict__ kept, int B,
+                 int S, int H) {
   constexpr int CL = HD / OUTS;        // CTAs a cluster
   constexpr int HALF = HD / 2;
   // a step's h of the RB rows, from all CTAs
@@ -202,6 +209,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int h = blockIdx.y, b0 = blockIdx.z * RB;
   const int v0 = rank * OUTS;          // this CTA's first output
   const int g = warp & 3, half = warp >> 2;
+  const size_t plane = static_cast<size_t>(B) * S * H * HD;  // of kept
   auto valid = [&](int rb) { return b0 + rb < B; };
   auto st_off = [&](int rb) {          // row rb's state, output v0 + lane
     return (static_cast<size_t>(b0 + rb) * H + h) * HD + v0 + lane;
@@ -332,6 +340,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     const float hi = half == 0 ? other : acc[1];
     cp_async_wait<ZD - 1>();             // this lane's z of step t is in
     const float x = *z_slot(t) + (lo + hi);
+    if (kept != nullptr && valid(row))     // the pre-activation
+      kept[(3 + g) * plane + z_off(row, t)] = x;
     if (g != 0) {
       gval[(row * GATES + g) * OUTS + lane] =
           g == 1 ? log_sigmoid(x) : g == 2 ? tanhf(x) : sigmoid(x);
@@ -354,6 +364,11 @@ __global__ void __launch_bounds__(THREADS, 1)
       n = __fadd_rn(__fmul_rn(f_, n), i_);
       hv = __fmul_rn(gv[3 * OUTS], c) / fmaxf(n, 1e-6f);
       m = m_new;
+    }
+    if (kept != nullptr && valid(row)) {
+      kept[z_off(row, t)] = c;
+      kept[plane + z_off(row, t)] = n;
+      kept[2 * plane + z_off(row, t)] = m;
     }
     STAMP(3)
     if (t + 1 < S) {
@@ -389,8 +404,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 template <typename T, int HD>
 int launch(const float* const* z, const void* const* r, const float* c0,
            const float* n0, const float* h0, const float* m0, float* out,
-           float* c1, float* n1, float* h1, float* m1, int B, int S, int H,
-           cudaStream_t stream) {
+           float* c1, float* n1, float* h1, float* m1, float* kept, int B,
+           int S, int H, cudaStream_t stream) {
   auto kernel = slstm_kernel<T, HD>;
   constexpr size_t smem = slstm_smem<T, HD>();
   cudaError_t e = cudaFuncSetAttribute(
@@ -414,7 +429,7 @@ int launch(const float* const* z, const void* const* r, const float* c0,
                          static_cast<const T*>(r[1]),
                          static_cast<const T*>(r[2]),
                          static_cast<const T*>(r[3]), c0, n0, h0, m0, out, c1,
-                         n1, h1, m1, B, S, H);
+                         n1, h1, m1, kept, B, S, H);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -423,8 +438,9 @@ int launch(const float* const* z, const void* const* r, const float* c0,
 
 // z_i, z_f, z_z, z_o, out: (B, S, H, hd) fp32; r_i, r_f, r_z, r_o: (H, hd,
 // hd) bf16 (is_bf16) or fp32; c0, n0, h0, m0 and c1, n1, h1, m1: (B, H, hd)
-// fp32, the new state apart from the old; all contiguous, r_g 16-byte
-// aligned; hd 32 or 256. One cluster launch on `stream`; returns its error
+// fp32, the new state apart from the old; kept: NULL, or (7, B, S, H, hd)
+// fp32 for the backward; all contiguous, r_g 16-byte aligned; hd 32 or
+// 256. One cluster launch on `stream`; returns its error
 // or cudaGetLastError() (a refused cluster launch is reported, never
 // worked around).
 extern "C" int dash_slstm(const float* zi, const float* zf, const float* zz,
@@ -432,8 +448,8 @@ extern "C" int dash_slstm(const float* zi, const float* zf, const float* zz,
                           const void* rz, const void* ro, const float* c0,
                           const float* n0, const float* h0, const float* m0,
                           float* out, float* c1, float* n1, float* h1,
-                          float* m1, int B, int S, int H, int hd, int is_bf16,
-                          void* stream) {
+                          float* m1, float* kept, int B, int S, int H, int hd,
+                          int is_bf16, void* stream) {
   if (B < 1 || B > 65535 || S < 1 || H < 1 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* z[GATES] = {zi, zf, zz, zo};
@@ -443,18 +459,19 @@ extern "C" int dash_slstm(const float* zi, const float* zf, const float* zz,
   // the stamped build: the serve path's bf16, hd = 256 alone
   if (hd != 256 || !is_bf16) return static_cast<int>(cudaErrorNotSupported);
   return launch<__nv_bfloat16, 256>(z, r, c0, n0, h0, m0, out, c1, n1, h1,
-                                    m1, B, S, H, s);
+                                    m1, kept, B, S, H, s);
 #else
   if (hd == 256)
     return is_bf16 ? launch<__nv_bfloat16, 256>(z, r, c0, n0, h0, m0, out,
-                                                c1, n1, h1, m1, B, S, H, s)
+                                                c1, n1, h1, m1, kept, B, S,
+                                                H, s)
                    : launch<float, 256>(z, r, c0, n0, h0, m0, out, c1, n1,
-                                        h1, m1, B, S, H, s);
+                                        h1, m1, kept, B, S, H, s);
   if (hd == 32)
     return is_bf16 ? launch<__nv_bfloat16, 32>(z, r, c0, n0, h0, m0, out, c1,
-                                               n1, h1, m1, B, S, H, s)
+                                               n1, h1, m1, kept, B, S, H, s)
                    : launch<float, 32>(z, r, c0, n0, h0, m0, out, c1, n1, h1,
-                                       m1, B, S, H, s);
+                                       m1, kept, B, S, H, s);
   return static_cast<int>(cudaErrorInvalidValue);
 #endif
 }

@@ -26,10 +26,13 @@ returns its bits for fp32 operands and, for bf16 ones, whose q . k it sums
 on the tensor cores in another order, agrees with it within tolerance. The
 dispatchers take the plain version for CPU tensors and launch the kernel
 for CUDA tensors (raising for anything it does not take), never one in
-place of the other. On the card each kernel
-runs inside a ``torch.autograd.Function`` whose backward raises: the
-backward kernels come with xLSTM training (ROADMAP A8). The plain versions
-are differentiable by autograd.
+place of the other. The plain versions are differentiable by autograd. On
+the card each kernel runs inside a ``torch.autograd.Function``. The
+parallel form's backward (training) is ``csrc/mlstm_parallel_bwd.cu``
+(:func:`mlstm_parallel_backward_cuda`), whose math is
+:func:`mlstm_parallel_backward_plain`. The recurrence's backward raises:
+no training path runs the recurrence (prefill and decode take no
+gradient).
 """
 from __future__ import annotations
 
@@ -46,13 +49,16 @@ NEG = -1e30
 HEAD_DIMS = (32, 256)            # the head dims the kernels take
 DTYPES = (torch.bfloat16, F32)   # q, k, v dtypes the kernels take
 ALIGN = 16                       # bytes the recurrence's 16-byte copies need
-TRAINING = ("the mLSTM kernels have no backward yet: it comes with xLSTM "
-            "training (ROADMAP A8, 'xLSTM training')")
+NO_RECURRENT_BACKWARD = (
+    "the mLSTM recurrence has no backward: no training path runs it "
+    "(training runs the parallel form; the recurrence serves prefill and "
+    "decode, which take no gradient)")
 
 # launches of each CUDA kernel; the wrappers add one per launch and nothing
 # else touches them
 launches_parallel = 0
 launches_recurrent = 0
+launches_parallel_bwd = 0
 
 
 def mlstm_parallel_plain(q, k, v, ig, fg):
@@ -76,6 +82,62 @@ def mlstm_parallel_from_qk(qk, v, ig, fg):
     norm = torch.maximum(scores.sum(2).abs(), torch.exp(-m[:, :, 0]))
     out = torch.einsum("bijh,bjhe->bihe", scores, v.to(F32))
     return out / torch.clamp_min(norm[..., None], 1e-6)
+
+
+def mlstm_parallel_backward_plain(q, k, v, ig, fg, dout):
+    """The parallel form's gradient, written out step by step in fp32 over
+    full (B, S, S, H) tensors: ``(dq, dk, dv, dig, dfg)`` for the gradient
+    ``dout`` (B, S, H, hd) of ``out``, all fp32 (``_ParallelFn`` rounds
+    dq, dk, dv once to q's dtype). It is the math
+    ``csrc/mlstm_parallel_bwd.cu`` implements. With the module
+    docstring's names, w = exp(D - m), S = qk w, s_i = sum_j S_ij, norm_i
+    = max(|s_i|, exp(-m_i)), den_i = max(norm_i, 1e-6):
+
+    * row terms: dnum_i = dout_i / den_i; dden_i = -(dout_i . out_i) /
+      den_i; dnorm_i = dden_i where norm_i > 1e-6; ds_i = dnorm_i sign(s_i)
+      where |s_i| > exp(-m_i) (else the exp branch takes dnorm_i); the
+      stabilizer's dm_i in its row-local closed form -(dout_i . out_i) -
+      ds_i s_i - [exp branch] exp(-m_i) dnorm_i, shared evenly among the
+      D_ij equal to m_i (the ties), as ``torch.amax`` and ``jnp.max`` do;
+    * pair terms: dS_ij = dnum_i . v_j + ds_i; dv_j = sum_i S_ij dnum_i;
+      dq_i = sum_j dS_ij w_ij k_j, dk_j = sum_i dS_ij w_ij q_i; dD_ij =
+      dS_ij S_ij plus the tie share;
+    * gates: dig_j = sum_i dD_ij; dF_i = sum_j dD_ij - dig_i; dfg_t = the
+      sum over i >= t of dF_i.
+    """
+    s = q.shape[1]
+    qf, kf, vf = q.to(F32), k.to(F32), v.to(F32)
+    F = torch.cumsum(fg, 1)
+    Dm = F[:, :, None, :] - F[:, None, :, :] + ig[:, None, :, :]
+    tri = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    tri = tri[None, :, :, None]
+    Dm = torch.where(tri, Dm, NEG)
+    m = Dm.amax(2)                                          # (B, S, H)
+    w = torch.exp(Dm - m[:, :, None])
+    scores = torch.einsum("bihe,bjhe->bijh", qf, kf) * w
+    ssum = scores.sum(2)
+    em = torch.exp(-m)
+    norm = torch.maximum(ssum.abs(), em)
+    den = torch.clamp_min(norm, 1e-6)
+    out = torch.einsum("bijh,bjhe->bihe", scores, vf) / den[..., None]
+    dnum = dout / den[..., None]
+    g = (dout * out).sum(-1)                                # dout_i . out_i
+    dnorm = torch.where(norm > 1e-6, -g / den, 0.0)
+    s_branch = ssum.abs() > em
+    ds = torch.where(s_branch, dnorm * torch.sign(ssum), 0.0)
+    dm = -g - ds * ssum - torch.where(s_branch, 0.0, em * dnorm)
+    ties = (Dm == m[:, :, None]) & tri
+    share = dm / ties.sum(2)
+    dS = torch.einsum("bihe,bjhe->bijh", dnum, vf) + ds[:, :, None]
+    dv = torch.einsum("bijh,bihe->bjhe", scores, dnum)
+    gw = dS * w
+    dq = torch.einsum("bijh,bjhe->bihe", gw, kf)
+    dk = torch.einsum("bijh,bihe->bjhe", gw, qf)
+    dD = dS * scores + torch.where(ties, share[:, :, None], 0.0)
+    dig = dD.sum(1)
+    dF = dD.sum(2) - dig
+    dfg = torch.flip(torch.cumsum(torch.flip(dF, (1,)), 1), (1,))
+    return dq, dk, dv, dig, dfg
 
 
 def mlstm_recurrent_plain(q, k, v, ig, fg, C, n, m):
@@ -205,6 +267,66 @@ def mlstm_parallel_v1_cuda(q, k, v, ig, fg):
     return _parallel(_parallel_v1, q, k, v, ig, fg)
 
 
+# csrc/mlstm_parallel_bwd.cu's passes, in launch order: the row terms,
+# then the key tiles (dk, dv, dig), then the query tiles (dq, dF)
+BWD_PASSES = ("dash_mlstm_bwd_rows", "dash_mlstm_bwd_keys",
+              "dash_mlstm_bwd_queries")
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib():
+    lib = build.load("mlstm_parallel_bwd")
+    for name, pointers in zip(BWD_PASSES, (7, 10, 10)):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def mlstm_parallel_backward_cuda(q, k, v, ig, fg, out, dout):
+    """The parallel form's backward on the card (``csrc/
+    mlstm_parallel_bwd.cu``): ``(dq, dk, dv, dig, dfg)`` as
+    :func:`mlstm_parallel_backward_plain` computes them, from the forward's
+    operands, its ``out`` and the gradient ``dout`` (both (B, S, H, hd)
+    fp32), all fp32. Three launches, each counted: the row terms (m_i,
+    den_i, ds_i, the stabilizer's share; (B, S, H, 4) fp32), the key tiles
+    (dk, dv and dig) and the query tiles (dq and dF = the row sums of dD -
+    dig). ``F = torch.cumsum(fg, 1)`` (as in the forward) and the reverse
+    cumsum ``dfg = flip(cumsum(flip(dF)))`` are ``torch`` calls here."""
+    global launches_parallel_bwd
+    _check(q, k, v, ig, fg)
+    b, s, h, hd = q.shape
+    for name, t in (("out", out), ("dout", dout)):
+        if (t.device != q.device or t.dtype != F32
+                or tuple(t.shape) != (b, s, h, hd) or not t.is_contiguous()):
+            raise ValueError(f"the mLSTM parallel backward takes {name} as "
+                             f"a contiguous (B, S, H, hd) fp32 tensor on "
+                             f"q's device; got {tuple(t.shape)} {t.dtype} "
+                             f"{t.device}")
+    lib, stream = _bwd_lib(), _stream(q.device)
+    F = torch.cumsum(fg, 1)
+    rows = torch.empty((b, s, h, 4), dtype=F32, device=q.device)
+    dq, dk, dv = (torch.empty(q.shape, dtype=F32, device=q.device)
+                  for _ in range(3))
+    dig, dF = (torch.empty_like(ig) for _ in range(2))
+    shape = (b, s, h, hd, int(q.dtype == torch.bfloat16), stream)
+    p = {name: t.data_ptr() for name, t in dict(
+        q=q, k=k, v=v, F=F, ig=ig, out=out, dout=dout, rows=rows, dq=dq,
+        dk=dk, dv=dv, dig=dig, dF=dF).items()}
+    args = (("q", "k", "F", "ig", "out", "dout", "rows"),
+            ("q", "k", "v", "F", "ig", "dout", "rows", "dk", "dv", "dig"),
+            ("q", "k", "v", "F", "ig", "dout", "rows", "dig", "dq", "dF"))
+    for name, names in zip(BWD_PASSES, args):
+        err = getattr(lib, name)(*(p[x] for x in names), *shape)
+        if err:
+            raise RuntimeError(f"mLSTM parallel backward ({name}) failed to "
+                               f"launch: cudaError {err}")
+        launches_parallel_bwd += 1
+    dfg = torch.flip(torch.cumsum(torch.flip(dF, (1,)), 1), (1,))
+    return dq, dk, dv, dig, dfg
+
+
 def _recurrent(lib_fn, q, k, v, ig, fg, C, n, m):
     """Check the operands, then launch ``lib_fn()`` (the entry point, built
     at first use)."""
@@ -283,19 +405,28 @@ def recurrent_phases(q, k, v, ig, fg, C, n, m):
 
 
 class _ParallelFn(torch.autograd.Function):
-    """The parallel kernel; its backward raises (ROADMAP A8)."""
+    """The parallel kernel; its backward the backward kernel, whose fp32
+    dq, dk, dv it rounds once to their inputs' dtype. The forward keeps its
+    operands and ``out`` only when a gradient is wanted."""
 
     @staticmethod
     def forward(ctx, q, k, v, ig, fg):
-        return mlstm_parallel_cuda(q, k, v, ig, fg)
+        out = mlstm_parallel_cuda(q, k, v, ig, fg)
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(q, k, v, ig, fg, out)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        raise NotImplementedError(TRAINING)
+        saved = ctx.saved_tensors           # unpacked once (remat)
+        grads = mlstm_parallel_backward_cuda(*saved, dout.contiguous())
+        return tuple(g.to(x.dtype) if need else None for g, x, need in
+                     zip(grads, saved, ctx.needs_input_grad))
 
 
 class _RecurrentFn(torch.autograd.Function):
-    """The recurrent kernel; its backward raises (ROADMAP A8)."""
+    """The recurrent kernel; its backward raises
+    (:data:`NO_RECURRENT_BACKWARD`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, ig, fg, C, n, m):
@@ -304,7 +435,7 @@ class _RecurrentFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
-        raise NotImplementedError(TRAINING)
+        raise NotImplementedError(NO_RECURRENT_BACKWARD)
 
 
 def _on_cpu(name, tensors):

@@ -53,7 +53,9 @@ def launch_counts():
                 fingerprint=FP.launches, scan_fwd=SC.launches_fwd,
                 scan_bwd=SC.launches_bwd, scan_fold=SC.launches_fold,
                 mlstm_parallel=ML.launches_parallel,
-                mlstm_recurrent=ML.launches_recurrent, slstm=SL.launches)
+                mlstm_parallel_bwd=ML.launches_parallel_bwd,
+                mlstm_recurrent=ML.launches_recurrent, slstm=SL.launches,
+                slstm_bwd=SL.launches_bwd)
 
 
 def _flatten(x):  # (B, H, S, D) -> (BH, S, D)

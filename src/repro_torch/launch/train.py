@@ -23,15 +23,18 @@
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch jamba-1.5-large-398b --layers 0,4 --batch 1 --seq 4096 \
         --steps 3 --warmup-steps 1 --log-every 1 --verify
+    PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-350m \
+        --batch 4 --seq 1024 --steps 3 --warmup-steps 1 --verify
 
 ``--arch`` takes every ported arch (``configs/registry.py``), the
 mixture-of-experts ones too (their aux loss enters the objective, weighted
 by ``moe_aux_weight``, and is logged as ``aux``), and Jamba's hybrid of
 Mamba, MoE and attention blocks (on the card its scan runs
-``csrc/selective_scan.cu``). ``xlstm-350m`` trains on the CPU (the plain
-mLSTM and sLSTM versions under autograd); on the card it raises before
-anything is allocated, as the xLSTM kernels have no backward yet (ROADMAP
-A8, "xLSTM training"). ``--layers`` cuts the depth and keeps the
+``csrc/selective_scan.cu``), and ``xlstm-350m`` (on the card the mLSTM
+parallel form and the sLSTM run ``csrc/mlstm.cu`` and ``csrc/slstm.cu``,
+their backwards ``csrc/mlstm_parallel_bwd.cu`` and ``csrc/slstm_bwd.cu``;
+on the CPU the plain mixers under autograd). ``--layers`` cuts the depth
+and keeps the
 widths: ``N`` (a multiple of the block pattern's length) keeps the first N
 layers; a comma-separated list of positions in the pattern keeps one layer
 of each of those kinds, in order (``0,4``: Jamba's first ``mamba`` and its
@@ -153,18 +156,6 @@ def cut_layers(cfg, spec: str):
                        block_pattern=tuple(pattern[i] for i in pos))
 
 
-def refuse_untrainable(cfg, device) -> None:
-    """Raise, before anything is allocated, for a config the card cannot
-    train yet: xLSTM's kernels have no backward (ROADMAP A8, "xLSTM
-    training"). On the CPU the plain versions train it."""
-    if device.type == "cuda" and any(k in T.XLSTM_KINDS
-                                     for k in cfg.block_pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: the mLSTM and sLSTM kernels have no backward yet, "
-            f"so xLSTM trains on the CPU only (ROADMAP A8, 'xLSTM "
-            f"training')")
-
-
 def configure(argv=None):
     """Parse the flags and build what a run needs: (args, cfg, tcfg, data,
     device). :func:`main` runs exactly these, so a caller that checks the
@@ -267,7 +258,6 @@ def configure(argv=None):
             cfg = cut_layers(cfg, args.layers)
         except ValueError as e:
             ap.error(str(e))
-    refuse_untrainable(cfg, device)
     cfg = cfg.replace(attention_impl="cuda" if device.type == "cuda"
                       else "torch")
     if args.attn_window is not None:
@@ -551,8 +541,11 @@ def _run(args, cfg, tcfg, data, device, on_step, tracker, trace_mem):
     if args.trace_out is not None:
         from repro_torch.obs import export as EX
         events = EX.spans_to_trace(trace_mem.events, process_name=run_id)
-        events += EX.attention_timeline(args.seq, cfg.head_dim, causal=True,
-                                        measure=True, device=device)
+        if any(k.startswith("attn") for k in cfg.block_pattern):
+            # the attention schedule's modeled and achieved lanes
+            events += EX.attention_timeline(args.seq, cfg.head_dim,
+                                            causal=True, measure=True,
+                                            device=device)
         EX.write_trace(args.trace_out, events)
         print(f"[trace] {len(events)} events -> {args.trace_out}", flush=True)
     print(json.dumps(summary))

@@ -53,9 +53,12 @@ recomputed under every policy: with ``remat`` a train step launches the
 attention forward twice a layer for ``"none"``, ``"dots"`` and ``"names"``
 alike (once without remat), the backward kernels once. The selective scan
 (``kernels/scan.py``) is such a Function too: its forward twice a Mamba
-layer, its backward and fold once. The xLSTM kernels' Functions have no
-backward yet (ROADMAP A8, "xLSTM training"): on the card xLSTM runs
-without a gradient.
+layer, its backward and fold once. So are the xLSTM kernels
+(``kernels/mlstm.py``, ``kernels/slstm.py``): the mLSTM parallel form's
+forward twice a mLSTM layer and its backward once (three passes), the
+sLSTM's forward twice a sLSTM layer and its backward once. The mLSTM
+recurrence has no backward (no training path runs it): a gradient through
+it raises.
 """
 from __future__ import annotations
 

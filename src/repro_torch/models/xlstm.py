@@ -7,8 +7,9 @@ without a state (``forward``, training) and the ``(C, n, m)`` recurrence
 with one (prefill and decode, as the reference's ``prefill_step`` carries
 the caches), both in ``kernels/mlstm.py``; sLSTM (a scalar memory with
 recurrent matrices) is always the recurrence, ``kernels/slstm.py``. On the
-card those are ``csrc/mlstm.cu`` and ``csrc/slstm.cu``, on the CPU their
-plain versions.
+card those are ``csrc/mlstm.cu`` and ``csrc/slstm.cu``, their training
+backwards ``csrc/mlstm_parallel_bwd.cu`` and ``csrc/slstm_bwd.cu``; on the
+CPU the plain versions, under autograd.
 
 The projections are ``torch.matmul``, as the reference leaves them to
 XLA: q, k, v, the skip gate and the output projections in the model dtype

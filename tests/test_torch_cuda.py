@@ -1186,3 +1186,125 @@ def test_reduced_xlstm_serves_on_the_kernels():
     finally:
         ML.mlstm_recurrent, SL.slstm = saved
     torch.testing.assert_close(last, plain, atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------- the xLSTM backwards (training on the card)
+def _leafed(tensors):
+    """fp32 leaves of ``tensors`` (bf16 operands exact in fp32) that take
+    a gradient."""
+    return [t.detach().float().requires_grad_(True) for t in tensors]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,h,hd", [(2, 64, 2, 32), (2, 77, 4, 256),
+                                      (1, 1, 4, 256), (3, 45, 4, 32)])
+@torch.no_grad()
+def test_xlstm_backward_kernels_match_plain_and_repeat_bitwise(b, s, h, hd,
+                                                               dtype):
+    """csrc/mlstm_parallel_bwd.cu and csrc/slstm_bwd.cu against their plain
+    backwards on the same inputs and against autograd of the plain
+    forwards (every gradient within XLSTM_TOL), three launches bitwise;
+    the sLSTM forward with its states kept bitwise its first design's
+    h_all and state, its kept states within XLSTM_TOL of the plain
+    forward's."""
+    _card()
+    from repro_torch.kernels import mlstm as ML
+    from repro_torch.kernels import slstm as SL
+    margs, _, (z, rr, sst) = _xlstm_operands(b, s, h, hd, dtype, seed=s + 3)
+    gen = torch.Generator(device="cuda").manual_seed(s)
+    out = ML.mlstm_parallel_cuda(*margs)
+    dout = torch.randn(out.shape, generator=gen, device="cuda")
+    got = ML.mlstm_parallel_backward_cuda(*margs, out, dout)
+    plain = ML.mlstm_parallel_backward_plain(*margs, dout)
+    with torch.enable_grad():
+        leaves = _leafed(margs)
+        auto = torch.autograd.grad(ML.mlstm_parallel_plain(*leaves), leaves,
+                                   dout)
+    for name, g, p, a in zip(("dq", "dk", "dv", "dig", "dfg"), got, plain,
+                             auto):
+        assert g.dtype == torch.float32, name
+        assert _xlstm_err(g, p) <= XLSTM_TOL, name
+        assert _xlstm_err(g, a) <= XLSTM_TOL, name
+    for _ in range(3):
+        again = ML.mlstm_parallel_backward_cuda(*margs, out, dout)
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+    h_all, new, kept = SL.slstm_cuda(z, rr, sst, keep=True)
+    v1_h, v1_new = SL.slstm_v1_cuda(z, rr, sst)
+    assert torch.equal(h_all, v1_h)
+    assert all(torch.equal(x, y) for x, y in zip(new, v1_new))
+    _, _, plain_kept = SL.slstm_plain(z, rr, sst, keep=True)
+    assert _xlstm_err(kept, plain_kept) <= XLSTM_TOL
+    dh = torch.randn(h_all.shape, generator=gen, device="cuda")
+    dstate = tuple(torch.randn(t.shape, generator=gen, device="cuda")
+                   for t in sst)
+    got = SL.slstm_backward_cuda(z, rr, sst, (h_all, kept), dh, dstate)
+    plain = SL.slstm_backward_plain(z, rr, sst, (h_all, kept), dh, dstate)
+    with torch.enable_grad():
+        leaves = _leafed((*z, *rr, *sst))
+        h2, new2 = SL.slstm_plain(leaves[:4], leaves[4:8], leaves[8:])
+        auto = torch.autograd.grad((h2, *new2), leaves, (dh, *dstate))
+    flat = [*got[0], *got[1], *got[2]]
+    for i, (g, p, a) in enumerate(zip(flat, [*plain[0], *plain[1],
+                                             *plain[2]], auto)):
+        assert g.dtype == torch.float32, i
+        assert _xlstm_err(g, p) <= XLSTM_TOL, i
+        assert _xlstm_err(g, a) <= XLSTM_TOL, i
+    for _ in range(3):
+        again = SL.slstm_backward_cuda(z, rr, sst, (h_all, kept), dh, dstate)
+        assert all(torch.equal(x, y) for x, y in
+                   zip(flat, [*again[0], *again[1], *again[2]]))
+
+
+def test_reduced_xlstm_trains_on_the_kernels():
+    """The reduced xLSTM-350M (hd 32, fp32) on the card: loss_fn's grads
+    with remat through the kernels (per mLSTM layer the parallel forward
+    twice and its backward's three passes once; the sLSTM's forward twice
+    and its backward once) against the plain mixers', every leaf within
+    1e-3 of its norm (the sLSTM's b_i of its block's); the same grads again
+    bitwise."""
+    _card()
+    from repro_torch.kernels import mlstm as ML
+    from repro_torch.kernels import slstm as SL
+    cfg = registry.get("xlstm-350m").reduced(dtype_name="float32")
+    params = T.init(cfg, seed=0, device="cuda")
+    toks = torch.randint(1, cfg.vocab, (2, 65), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(0))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    paths = [p for p, _ in tree_paths(params)]
+
+    def grads():
+        leaves = [x.detach().requires_grad_(True)
+                  for x in O.tree_leaves(params)]
+        tree = {}
+        for path, leaf in zip(paths, leaves):
+            set_path(tree, path, leaf)
+        loss, _ = T.loss_fn(tree, batch, cfg, remat=True)
+        return torch.autograd.grad(loss, leaves)
+
+    before = ops.launch_counts()
+    got = grads()
+    after = ops.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]
+            } == dict(mlstm_parallel=14, mlstm_parallel_bwd=21, slstm=2,
+                      slstm_bwd=1)
+    assert all(torch.equal(x, y) for x, y in zip(got, grads()))
+    saved = (ML.mlstm_parallel, SL.slstm)
+    ML.mlstm_parallel, SL.slstm = ML.mlstm_parallel_plain, SL.slstm_plain
+    try:
+        want = grads()
+    finally:
+        ML.mlstm_parallel, SL.slstm = saved
+    # the sLSTM's b_i has an exact gradient of 0 (h is invariant under a
+    # uniform shift of the input gate), so both runs hold rounding there:
+    # its difference is held over its block's gradient norm instead
+    block = {}
+    for path, w in zip(paths, want):
+        key = path.rsplit("/", 1)[0]
+        block[key] = block.get(key, 0.0) + float(torch.sum(w * w))
+    for path, g, w in zip(paths, got, want):
+        norm = (block[path.rsplit("/", 1)[0]] ** 0.5
+                if path.endswith("slstm/b_i")
+                else float(torch.linalg.vector_norm(w)))
+        err = float(torch.linalg.vector_norm(g - w)) / max(norm, 1e-12)
+        assert err <= 1e-3, (path, err)

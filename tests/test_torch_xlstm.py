@@ -18,9 +18,13 @@ drawn by numpy and handed to both packages; the model's weights come from
   ``init_cache``; the static engine's greedy tokens; the config and the
   weight bridge;
 * the dispatch (CPU tensors take the plain versions, other devices raise;
-  the kernel wrappers refuse CPU tensors), the Functions' backwards naming
-  ROADMAP A8, both launchers on the CPU (the continuous engine refuses
-  xLSTM with the reference's reason; the train launcher refuses the card)."""
+  the kernel wrappers, the backward ones too, refuse CPU tensors), the
+  recurrence's Function's backward refusing, both launchers on the CPU
+  (the continuous engine refuses xLSTM with the reference's reason; the
+  train launcher trains it, and refuses the card no longer).
+
+The backward kernels' plain versions against ``jax.vjp`` and autograd:
+``tests/test_torch_xlstm_train.py``."""
 import dataclasses
 
 import jax
@@ -521,12 +525,33 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
         KERNELS[name]()
 
 
+def _backward_operands():
+    """The backward wrappers' arguments on the CPU."""
+    (q, k, v, ig, fg), st = _mlstm_operands()
+    z, r, sst = _slstm_operands()
+    return ((q, k, v, ig, fg, q.clone(), q.clone()),
+            (z, r, sst, (z[0].clone(), torch.zeros((7, 1, 4, 2, 32))),
+             z[0].clone()))
+
+
 @pytest.mark.parametrize("fn", [ML._ParallelFn, ML._RecurrentFn,
                                 SL._SLSTMFn])
 def test_kernel_backwards_raise_naming_a8(fn):
-    with pytest.raises(NotImplementedError, match="ROADMAP A8.*xLSTM "
-                                                  "training"):
-        fn.backward(None, torch.zeros(1))
+    """The recurrence's Function's backward raises, naming why (no
+    training path runs it); the other two Functions' backward wrappers
+    refuse CPU tensors before any build or launch."""
+    if fn is ML._RecurrentFn:
+        with pytest.raises(NotImplementedError, match="no training path"):
+            fn.backward(None, torch.zeros(1))
+        return
+    mlstm_args, slstm_args = _backward_operands()
+    before = (ML.launches_parallel_bwd, SL.launches_bwd)
+    with pytest.raises(ValueError, match="CUDA device"):
+        if fn is ML._ParallelFn:
+            ML.mlstm_parallel_backward_cuda(*mlstm_args)
+        else:
+            SL.slstm_backward_cuda(*slstm_args)
+    assert (ML.launches_parallel_bwd, SL.launches_bwd) == before
 
 
 # ------------------------------------------------------------ launchers
@@ -542,15 +567,11 @@ def test_serve_launcher_static_and_paged_refusal():
         TE.ContinuousEngine(TCFG, None, n_slots=2, max_seq=64)
 
 
-def test_train_launcher_trains_on_cpu_and_refuses_the_card():
+def test_train_launcher_trains_xlstm_on_cpu():
+    """The train launcher trains xLSTM on the CPU, through the plain
+    mixers."""
     summary = ttrain.main(["--arch", ARCH, "--reduced", "--device", "cpu",
                            "--steps", "2", "--batch", "2", "--seq", "32",
                            "--log-every", "1", "--verify"])
     assert np.isfinite(summary["final_loss"])
     assert len(summary["step_ms"]) == 2 and summary["digest_chain_head"]
-    with pytest.raises(NotImplementedError, match="ROADMAP A8.*xLSTM "
-                                                  "training"):
-        ttrain.refuse_untrainable(tregistry.get(ARCH), torch.device("cuda"))
-    ttrain.refuse_untrainable(tregistry.get(ARCH), torch.device("cpu"))
-    ttrain.refuse_untrainable(tregistry.get("stablelm-1.6b"),
-                              torch.device("cuda"))

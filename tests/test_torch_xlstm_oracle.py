@@ -1,6 +1,7 @@
 """The xLSTM kernels' redesigns beside their first designs, on the CPU:
-the first designs' wrappers refuse CPU tensors, all five sources are built
-and exported under distinct names, none names an atomic, the algorithm of
+the first designs' wrappers refuse CPU tensors, all seven sources (the
+two backwards too) are built and exported under distinct names, none
+names an atomic, the algorithm of
 the mLSTM's reduce-scatter of 32 row sums gives each sum the bits of the
 first design's butterfly, the redesigned parallel form keeps the first
 design's expressions, its causal pairs of query tiles cover every tile
@@ -25,7 +26,8 @@ EXPORT = re.compile(r'^extern "C" \w+ (\w+)\(', re.MULTILINE)
 # as tests/test_torch_hygiene.py: CUDA's atomic functions and PTX's atom.* /
 # red.* instructions
 ATOMIC = re.compile(r"atomic|\batom\.|\bred\.", re.IGNORECASE)
-SOURCES = ("mlstm", "mlstm_v1", "slstm", "slstm_v1", "mlstm_parallel_v1")
+SOURCES = ("mlstm", "mlstm_v1", "slstm", "slstm_v1", "mlstm_parallel_v1",
+           "mlstm_parallel_bwd", "slstm_bwd")
 
 
 def _mlstm_operands(b=1, s=3, h=2, hd=32, seed=0):
@@ -81,9 +83,11 @@ def test_xlstm_sources_are_built(name):
 
 
 def test_first_designs_export_their_own_names():
-    """All five libraries can be loaded into one process: the first
+    """All seven libraries can be loaded into one process: the first
     designs' entry points are the redesigns' with a ``_v1`` suffix, the
-    mLSTM's recurrence and parallel form each in a source of its own."""
+    mLSTM's recurrence and parallel form each in a source of its own, and
+    the backwards' (the parallel form's three passes, the sLSTM's) are
+    each their own, bound by the wrappers under those names."""
     names = {n: set(EXPORT.findall((CSRC / f"{n}.cu").read_text()))
              for n in SOURCES}
     assert {"dash_mlstm_parallel", "dash_mlstm_recurrent",
@@ -92,6 +96,8 @@ def test_first_designs_export_their_own_names():
     assert names["mlstm_parallel_v1"] == {"dash_mlstm_parallel_v1"}
     assert "dash_slstm" in names["slstm"]
     assert names["slstm_v1"] == {"dash_slstm_v1"}
+    assert names["mlstm_parallel_bwd"] == set(ML.BWD_PASSES)
+    assert names["slstm_bwd"] == {"dash_slstm_bwd"}
     everything = [x for n in SOURCES for x in names[n]]
     assert len(everything) == len(set(everything))
 
