@@ -80,7 +80,12 @@ Phases, each reported on its own line:
                S=1024, 4 heads of 256) and at (2, 64, 2 heads of 32), bf16
                and fp32 operands, against their plain backwards and
                against autograd of the plain forwards within
-               ``XLSTM_TOL``, 10 repetitions bitwise, and the sLSTM
+               ``XLSTM_TOL``, 10 repetitions bitwise, the mLSTM's (from
+               the forward's row statistics, whose ``out`` is bitwise the
+               forward's without them, whose m_i and ties are the plain
+               forward's and v1's) against its first design
+               (``csrc/mlstm_parallel_bwd_v1.cu``): fp32 every gradient
+               ``torch.equal``, bf16 within ``XLSTM_TOL``; and the sLSTM
                forward with its states kept bitwise its first design's
                h_all and state;
                and the GQA groups of this slice's models (``[kernel-check]
@@ -772,16 +777,19 @@ STAMPED = (("mlstm", ("DASH_STAMPS",)), ("slstm", ("DASH_STAMPS",)))
 
 def xlstm_resources(ptxas):
     """Per xLSTM kernel instantiation in an ``-Xptxas -v`` log
-    (``csrc/mlstm.cu``'s parallel form and recurrence, ``csrc/slstm.cu``
+    (``csrc/mlstm.cu``'s parallel form and recurrence, ``csrc/slstm.cu``,
+    the parallel form's backward passes ``mlstm_bwd_{rows,keys,queries}``
     and their first designs): head dim, rows of C a warp (the mLSTM
     recurrence's instantiations), registers and spilled bytes."""
     def classify(name):
-        found = re.search(r"(mlstm_parallel|mlstm_recurrent|slstm)_kernel",
-                          name)
+        found = re.search(r"(mlstm_parallel|mlstm_recurrent|slstm|"
+                          r"bwd_rows|bwd_keys|bwd_queries)_kernel", name)
         if found is None:
             return None
         dims = [int(x) for x in re.findall(r"Li(\d+)E", name)]
-        entry = dict(kernel=found.group(1),
+        kernel = found.group(1)
+        entry = dict(kernel=f"mlstm_{kernel}" if kernel.startswith("bwd_")
+                     else kernel,
                      dtype="bfloat16" if "bfloat16" in name else "float32",
                      head_dim=dims[0])
         if len(dims) > 1:
@@ -813,7 +821,8 @@ def phase_build():
     for k in scan_resources(built):
         print("[ptxas] " + json.dumps(k), flush=True)
     for source in ("mlstm", "slstm", "mlstm_v1", "slstm_v1",
-                   "mlstm_parallel_v1"):
+                   "mlstm_parallel_v1", "mlstm_parallel_bwd",
+                   "mlstm_parallel_bwd_v1"):
         for k in xlstm_resources(built[source]["ptxas"]):
             print("[ptxas] " + json.dumps(dict(k, source=source)),
                   flush=True)
@@ -3769,18 +3778,22 @@ def _check_xlstm_backward(case, report, v1_lines):
     its plain backward on the same inputs and against autograd of its plain
     forward, within ``XLSTM_TOL``, and 10 repeated launches bitwise
     (``report``'s ``[kernel-check] xlstm`` lines, kernels
-    ``mlstm_parallel_bwd`` and ``slstm_bwd``); the sLSTM's forward with its
-    states kept (``slstm_cuda(keep=True)``, the one the train step runs)
-    bitwise its first design's h_all and state (a ``[kernel-check] xlstm
-    v1`` line, kernel ``slstm_keep``, appended to ``v1_lines``). The
-    sLSTM runs from the model's initial state, as training does; the
-    gradients of every h and of the returned state are random."""
+    ``mlstm_parallel_bwd`` and ``slstm_bwd``); the mLSTM's from the
+    forward's row statistics (``mlstm_parallel_stats_cuda``, the forward
+    the train step runs) and against its first design
+    (:func:`_mlstm_bwd_v1_lines`); the sLSTM's forward with its states kept
+    (``slstm_cuda(keep=True)``, the one the train step runs) bitwise its
+    first design's h_all and state (a ``[kernel-check] xlstm v1`` line,
+    kernel ``slstm_keep``, appended to ``v1_lines``). The sLSTM runs from
+    the model's initial state, as training does; the gradients of every h
+    and of the returned state are random."""
     name, b, s, h, hd, dtype = case
     gen = torch.Generator(device="cuda").manual_seed(s + hd + 7)
     args, _ = _mlstm_inputs(b, s, hd, dtype, seed=s + hd + 5, h=h)
-    out = MLSTM.mlstm_parallel_cuda(*args)
+    out, F_, stats = MLSTM.mlstm_parallel_stats_cuda(*args)
     dout = torch.randn(out.shape, generator=gen, device="cuda")
-    got = MLSTM.mlstm_parallel_backward_cuda(*args, out, dout)
+    saved = (*args[:4], F_, out)
+    got = MLSTM.mlstm_parallel_backward_cuda(*saved, dout, stats)
     plain = MLSTM.mlstm_parallel_backward_plain(*args, dout)
     with torch.enable_grad():
         leaves = _fp32_leaves(args)
@@ -3791,10 +3804,12 @@ def _check_xlstm_backward(case, report, v1_lines):
     pairs.update({f"{n}_vs_autograd": (g, a)
                   for n, g, a in zip(names, got, auto)})
     report("mlstm_parallel_bwd", name, (b, s, h, hd), dtype, pairs, dict(
-        reps10=all(_same(MLSTM.mlstm_parallel_backward_cuda(*args, out,
-                                                            dout), got)
+        reps10=all(_same(MLSTM.mlstm_parallel_backward_cuda(*saved, dout,
+                                                            stats), got)
                    for _ in range(10))))
-    del args, out, dout, got, plain, auto, leaves, pairs
+    del plain, auto, leaves, pairs
+    v1_lines.extend(_mlstm_bwd_v1_lines(name, args, out, stats, dout, got))
+    del args, out, dout, got, saved, stats
 
     z, rr, st = _slstm_inputs(b, s, hd, dtype, seed=s + hd + 6,
                               carried=False, h=h)
@@ -3827,6 +3842,55 @@ def _check_xlstm_backward(case, report, v1_lines):
         reps10=all(_same(SLSTM.slstm_backward_cuda(z, rr, st, saved, dh,
                                                    dst), got)
                    for _ in range(10))))
+
+
+def _mlstm_bwd_v1_lines(case, args, out, stats, dout, got):
+    """Two ``[kernel-check] xlstm v1`` lines of the mLSTM parallel
+    backward at one case. ``mlstm_parallel_stats``: the forward with its
+    row statistics gives ``out`` bitwise the forward's without them, its
+    m_i and tie counts equal the plain forward's (exact: a max and a count
+    of equal roundings) and the first design's rows pass's m_i, and the
+    redesign's rows pass on them gives the first design's ds_i and share_i
+    bitwise for fp32 operands (so s_i and the ties are its bits).
+    ``mlstm_parallel_bwd``: the five gradients ``torch.equal`` to the first
+    design's (``mlstm_parallel_backward_v1_cuda``) for fp32 operands,
+    within ``XLSTM_TOL`` for bf16 ones (whose q . k the redesign sums on
+    the tensor cores as the forward does; max abs diff printed)."""
+    b, s, h, hd = args[0].shape
+    fp32 = args[0].dtype == torch.float32
+    dtype = str(args[0].dtype).split(".")[-1]
+    rows = MLSTM.backward_row_terms(*args, out, dout, stats)
+    rows_v1 = MLSTM.backward_row_terms(*args, out, dout)
+    equal = dict(out=bool(torch.equal(out, MLSTM.mlstm_parallel_cuda(*args))),
+                 m_v1=bool(torch.equal(rows[..., 1], rows_v1[..., 0])))
+    if s * s * b * h <= 2 ** 24:       # the plain statistics' (B, S, S, H)
+        _, _, want = MLSTM.mlstm_parallel_stats_plain(*args)
+        equal.update(m_plain=bool(torch.equal(stats[..., 0], want[..., 0])),
+                     ties_plain=bool(torch.equal(stats[..., 2],
+                                                 want[..., 2])))
+        del want
+    if fp32:
+        equal["ds_share_v1"] = bool(torch.equal(rows[..., 2:],
+                                                rows_v1[..., 2:]))
+    stats_line = dict(kernel="mlstm_parallel_stats", case=case,
+                      shape=[b, s, h, hd], dtype=dtype, equal=equal,
+                      ok=all(equal.values()))
+    old = MLSTM.mlstm_parallel_backward_v1_cuda(*args, out, dout)
+    names = ("dq", "dk", "dv", "dig", "dfg")
+    line = dict(kernel="mlstm_parallel_bwd", case=case, shape=[b, s, h, hd],
+                dtype=dtype, max_abs_diff=max(
+                    float((g - o).abs().max()) for g, o in zip(got, old)))
+    if fp32:
+        line["equal"] = {n: bool(torch.equal(g, o))
+                         for n, g, o in zip(names, got, old)}
+        line["ok"] = all(line["equal"].values())
+    else:
+        line.update(err={n: _scan_err(g, o)
+                         for n, g, o in zip(names, got, old)}, tol=XLSTM_TOL)
+        line["ok"] = all(e <= XLSTM_TOL for e in line["err"].values())
+    for x in (stats_line, line):
+        print("[kernel-check] xlstm v1 " + json.dumps(x), flush=True)
+    return [stats_line, line]
 
 
 def _xlstm_bounds(b, s, hd, elt):
@@ -3885,6 +3949,40 @@ def _xlstm_bwd_bounds(b, s, h, hd, elt):
             exps=7 * tok))
 
 
+def _mlstm_bwd_passes_ms(saved, dout, stats):
+    """The parallel backward's three launches and its reverse
+    ``torch.cumsum``, each ``_queued_ms`` alone on the same operands."""
+    q, k, v, ig, F_, out = saved
+    b, s, h, hd = q.shape
+    n = -(-s // MLSTM.BWD_TILE)
+    lib = MLSTM._bwd_lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    rows = torch.empty((b, s, h, 4), device=q.device)
+    dnum, dq, dk, dv = (torch.empty(q.shape, device=q.device)
+                        for _ in range(4))
+    scratch = torch.empty((2, b * h * n * (n + 1) // 2,
+                           MLSTM.BWD_TILE ** 2), device=q.device)
+    dig, dF = torch.empty_like(ig), torch.empty_like(ig)
+    shape = (b, s, h, hd, int(q.dtype == torch.bfloat16), stream)
+
+    def ptrs(*ts):
+        return [x.data_ptr() for x in ts]
+    calls = dict(
+        rows=lambda: lib.dash_mlstm_bwd_rows(
+            *ptrs(F_, stats, out, dout, rows, dnum), *shape),
+        keys=lambda: lib.dash_mlstm_bwd_keys(
+            *ptrs(q, k, v, F_, ig, rows, dnum, dk, dv, dig, scratch),
+            *shape),
+        queries=lambda: lib.dash_mlstm_bwd_queries(
+            *ptrs(k, scratch, dig, dq, dF), *shape),
+        reverse_cumsum=lambda: torch.flip(torch.cumsum(torch.flip(
+            dF, (1,)), 1), (1,)))
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    return {name: _queued_ms(fn, reps=10) for name, fn in calls.items()}
+
+
 def _parallel_split_ms(q, k, v, ig, fg):
     """The parallel form's wrapper split in two, each ``_queued_ms`` alone:
     its kernel's launch on a precomputed F (``launch_ms``) and the
@@ -3897,8 +3995,8 @@ def _parallel_split_ms(q, k, v, ig, fg):
     def launch():
         lib.dash_mlstm_parallel(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                 F_.data_ptr(), ig.data_ptr(), out.data_ptr(),
-                                b, s, h, hd, int(q.dtype == torch.bfloat16),
-                                stream)
+                                0, b, s, h, hd,
+                                int(q.dtype == torch.bfloat16), stream)
     return dict(launch_ms=_queued_ms(launch, reps=20),
                 cumsum_ms=_queued_ms(lambda: torch.cumsum(fg, 1), reps=20))
 
@@ -4034,21 +4132,33 @@ def time_xlstm(xlstm_check, serve, train):
 def _time_xlstm_backward(xlstm_check, train):
     """The ``{"kernels": ...}`` entries of the two backward kernels at
     ``[train-xlstm]``'s shape: each wrapper's ms (the parallel backward's
-    three passes with its two ``torch.cumsum`` calls; the sLSTM's kernel
-    with dr's einsum) beside its plain backward's and its bound
+    three passes with the reverse ``torch.cumsum``; the sLSTM's kernel with
+    dr's einsum) beside its plain backward's and its bound
     (:func:`_xlstm_bwd_bounds`); its launches those of a ``[train-xlstm]``
-    step; no library call computes either gradient."""
+    step; no library call computes either gradient. The parallel backward
+    also beside its first design in turns (``v1_ms``: its wrapper, with
+    its own ``torch.cumsum`` of fg), each pass alone (``passes_ms``, queued),
+    and the forward with its row statistics beside the forward without
+    them, in turns (``fwd_stats_ms``, ``fwd_ms``)."""
     _, b, s, h, hd, dtype = XLSTM_BWD_CASES[0]
     gen = torch.Generator(device="cuda").manual_seed(41)
     args, _ = _mlstm_inputs(b, s, hd, dtype, seed=41, h=h)
-    out = MLSTM.mlstm_parallel_cuda(*args)
+    out, F_, stats = MLSTM.mlstm_parallel_stats_cuda(*args)
     dout = torch.randn(out.shape, generator=gen, device="cuda")
     z, rr, st = _slstm_inputs(b, s, hd, dtype, seed=42, carried=False, h=h)
     h_all, _, kept = SLSTM.slstm_cuda(z, rr, st, keep=True)
     dh = torch.randn(h_all.shape, generator=gen, device="cuda")
+    saved = (*args[:4], F_, out)
+    new_ms, v1_ms = _turns_ms(
+        lambda: MLSTM.mlstm_parallel_backward_cuda(*saved, dout, stats),
+        lambda: MLSTM.mlstm_parallel_backward_v1_cuda(*args, out, dout),
+        reps=5)
+    fwd_stats_ms, fwd_ms = _turns_ms(
+        lambda: MLSTM.mlstm_parallel_stats_cuda(*args),
+        lambda: MLSTM.mlstm_parallel_cuda(*args), reps=20)
+    passes = _mlstm_bwd_passes_ms(saved, dout, stats)
     ms = dict(
-        mlstm_parallel_bwd=_ms(lambda: MLSTM.mlstm_parallel_backward_cuda(
-            *args, out, dout), reps=5),
+        mlstm_parallel_bwd=new_ms,
         slstm_bwd=_ms(lambda: SLSTM.slstm_backward_cuda(
             z, rr, st, (h_all, kept), dh), reps=5))
     plain = dict(
@@ -4081,6 +4191,12 @@ def _time_xlstm_backward(xlstm_check, train):
         "operations: q k^T recomputed (bf16 operands) at the bf16 tensor "
         "cores' rate plus dnum . v, dv, dk, dq (fp32) at the fp32 CUDA "
         "cores' rate" if kernels[0]["bound_by"] == "operations" else "bytes")
+    kernels[0].update(v1_ms=v1_ms, passes_ms=passes, fwd_stats_ms=fwd_stats_ms,
+                      fwd_ms=fwd_ms)
+    _vs_v1(f"mlstm_parallel_bwd ({b}, {s})", new_ms, v1_ms)
+    print(f"[timing] mlstm_parallel_bwd ({b}, {s}) passes alone: "
+          + json.dumps(passes) + f"; forward with stats {fwd_stats_ms:.4f} "
+          f"ms, without {fwd_ms:.4f} ms", flush=True)
     kernels[1]["bound_note"] = (
         f"{kernels[1]['bound_by']}; latency-paced instead: {s} dependent "
         f"steps, each two chains of hd / 2 dependent multiply-adds, eight "

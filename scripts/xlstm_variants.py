@@ -1,8 +1,10 @@
-"""Time variants of the three xLSTM kernels (``csrc/mlstm.cu``'s parallel
-form and (C, n, m) recurrence, ``csrc/slstm.cu``) beside their first
-designs on one card, to see what sets their speed.
+"""Time variants of the xLSTM kernels (``csrc/mlstm.cu``'s parallel form
+and (C, n, m) recurrence, ``csrc/slstm.cu``, the parallel form's backward
+``csrc/mlstm_parallel_bwd.cu``) beside their first designs on one card,
+to see what sets their speed.
 
     python3 scripts/xlstm_variants.py [--out FILE] [--only NAME,...]
+                                      [--kernels KIND,...]
 
 Each variant is a copy of the kernel's source changed by text substitutions
 (the script stops if the source no longer holds the text), built into
@@ -47,13 +49,26 @@ Each variant is a copy of the kernel's source changed by text substitutions
                          instead of 8 x 4, 8;
   par_t512               512 threads a CTA with 4 x 4 micro-tiles (four
                          warps a scheduler instead of two);
+  bwd_unpaired           the backward's key and query passes without
+                         their causal pairs: a CTA a tile, the longest
+                         first, n CTAs a (b, h) instead of ceil(n / 2);
+  bwd_keys1              the keys pass compiled for one CTA an SM
+                         (``__launch_bounds__(THREADS, 1)``: registers
+                         unbounded by a second CTA, no spills) instead of
+                         two;
+  bwd_rows8, bwd_dots8   the keys pass's dv and dk loops (over a tile's
+                         queries), or its dnum . v and fp32 q . k loops
+                         (over hd), unrolled 8 times instead of 4;
 
 and the kernels built with ``-DDASH_STAMPS`` (``phases``), whose
 ``clock64()`` stamps give the share of each warp's clocks in each phase
 of the recurrence (``mlstm.recurrent_phases``, ``slstm.slstm_phases``);
 for the parallel form, a copy with ``clock64()`` stamps added by text
 substitution (``PAR_PHASES``: warp 0's and the last warp's clocks a CTA
-in each phase, ``PAR_PHASE_NAMES``, at the prefill shape).
+in each phase, ``PAR_PHASE_NAMES``, at the prefill shape); for the
+backward's keys pass likewise (``BWD_PHASES``, ``BWD_PHASE_NAMES``:
+warp 0's and the dig warp's, at ``[train-xlstm]``'s shape, B = 4, S =
+1024, bf16).
 
 For the kernels, the first designs (``v1``: ``csrc/mlstm_v1.cu``,
 ``csrc/slstm_v1.cu``, ``csrc/mlstm_parallel_v1.cu``) and every variant it
@@ -65,8 +80,12 @@ design at ``PAR_CHECKS`` (fp32 bitwise, bf16 within ``XLSTM_TOL``); then
 times each at the serve slice's prefill (B = 4, S = 512, 4 heads of 256,
 bf16) and the recurrences' decode step (S = 1), the parallel form also at
 S = 2048, in turns (kernel, v1, the variants, then the same in reverse)
-with the calls queued behind a spin kernel. Imports nothing of JAX; needs
-a card.
+with the calls queued behind a spin kernel. The backward and its variants
+are checked against its first design (``csrc/mlstm_parallel_bwd_v1.cu``)
+at ``BWD_CHECKS`` (fp32 bitwise on all five gradients, bf16 within
+``XLSTM_TOL``) and timed, wrappers whole, in turns at ``[train-xlstm]``'s
+shape. ``--kernels`` picks the kinds run (default all: mlstm, slstm,
+mlstm_parallel, mlstm_parallel_bwd). Imports nothing of JAX; needs a card.
 """
 from __future__ import annotations
 
@@ -99,7 +118,8 @@ def _const(name, old, new):
 
 
 def _kind(name):
-    """The kernel a variant is of: "mlstm_parallel", "mlstm" or "slstm"."""
+    """The kernel a variant is of: "mlstm_parallel", "mlstm", "slstm" or
+    "mlstm_parallel_bwd"."""
     return "mlstm_parallel" if name in PARALLEL else VARIANTS[name][0]
 
 
@@ -293,6 +313,93 @@ PAR_PHASES = [
      'extern "C" int dash_mlstm_parallel(', 1),
 ]
 VARIANTS["par_phases"] = ("mlstm", PAR_PHASES)
+
+# the backward's keys pass, in the order of BWD_PHASES' stamps: the setup
+# of a key tile (copies issued, gates staged; the writes at its end), then per
+# query tile the wait for dnum, dnum . v, the wait for q, q . k with the
+# pair terms, the dv loop, the dk loop with dig
+BWD_PHASE_NAMES = ("setup", "wait_dnum", "dnum_v", "wait_q", "pair_terms",
+                   "dv", "dk_dig")
+_NB = len(BWD_PHASE_NAMES)
+
+
+def _bwd_stamp(i):
+    return (f"    {{ const long long u_ = clock64(); ck[{i}] += u_ - tt; "
+            f"tt = u_; }}\n")
+
+
+_BWD_LOOP_END = ("    __syncthreads();                   // q and the pair "
+                 "terms are read\n    if (qt + 1 < n) {\n      "
+                 "issue_q(qt + 1);\n    } else {\n      "
+                 "dash_mma::cp_async_commit();\n    }\n")
+_BWD_TILE_END = ("  if (dig_warp && j0 + lane < S) dig[at.gate(j0 + lane)] = "
+                 "acc_dig;\n")
+# csrc/mlstm_parallel_bwd.cu with clock64() stamps in the keys pass: per
+# CTA, the clocks of warp 0 (thread 0) and of the dig warp in each phase,
+# summed over the CTA's key tiles (one writer a slot: no atomics)
+BWD_PHASES = [
+    ("// key tile [j0, j0 + BT) of (b, h)",
+     f"__device__ long long g_bwd[8192 * 2 * {_NB}];\n"
+     "// key tile [j0, j0 + BT) of (b, h)", 1),
+    ("  const int j0 = kt * BT, S = at.S;\n",
+     "  const int j0 = kt * BT, S = at.S;\n"
+     f"  long long ck[{_NB}] = {{0}};\n  long long tt = clock64();\n", 1),
+    ("  const bool dig_warp = warp == WARPS - 1;\n",
+     "  const bool dig_warp = warp == WARPS - 1;\n" + _bwd_stamp(0), 1),
+    ("    __syncthreads();                   // dnum and the row terms are "
+     "in\n",
+     "    __syncthreads();                   // dnum and the row terms are "
+     "in\n" + _bwd_stamp(1), 1),
+    ("    dots<HD, T>(Ns, Vs, rb + g, kb + 2 * t, nv);\n",
+     "    dots<HD, T>(Ns, Vs, rb + g, kb + 2 * t, nv);\n" + _bwd_stamp(2), 1),
+    ("    __syncthreads();                   // q is in\n",
+     "    __syncthreads();                   // q is in\n" + _bwd_stamp(3), 1),
+    ("    __syncthreads();                   // the pair terms are in\n",
+     "    __syncthreads();                   // the pair terms are in\n"
+     + _bwd_stamp(4), 1),
+    ("    __syncthreads();                   // dnum and the row terms are "
+     "read\n",
+     "    __syncthreads();                   // dnum and the row terms are "
+     "read\n" + _bwd_stamp(5), 1),
+    (_BWD_LOOP_END, _BWD_LOOP_END + _bwd_stamp(6), 1),
+    (_BWD_TILE_END, _BWD_TILE_END + _bwd_stamp(0) +
+     "  const int cta = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +\n"
+     "                  blockIdx.x;\n"
+     "  if (cta < 8192 && (tid == 0 || dig_warp && lane == 0))\n"
+     f"    for (int i = 0; i < {_NB}; ++i)\n"
+     f"      g_bwd[(2 * cta + (tid != 0)) * {_NB} + i] += ck[i];\n", 1),
+    ('extern "C" int dash_mlstm_bwd_rows(',
+     'extern "C" int dash_bwd_phases(void* out, int n) {\n'
+     "  return static_cast<int>(\n"
+     "      cudaMemcpyFromSymbol(out, g_bwd, n * sizeof(long long)));\n}\n"
+     'extern "C" int dash_mlstm_bwd_rows(', 1),
+]
+VARIANTS.update({
+    "bwd_phases": ("mlstm_parallel_bwd", BWD_PHASES),
+    "bwd_unpaired": ("mlstm_parallel_bwd", [
+        ("  if (p != last) {\n", "  if (false) {\n", 2),
+        ("dim3 pair_grid(int B, int S, int H) {\n"
+         "  return dim3(((S + BT - 1) / BT + 1) / 2, H, B);",
+         "dim3 pair_grid(int B, int S, int H) {\n"
+         "  return dim3((S + BT - 1) / BT, H, B);", 1)]),
+    "bwd_keys1": ("mlstm_parallel_bwd", [
+        ("__global__ void __launch_bounds__(THREADS, 2)",
+         "__global__ void __launch_bounds__(THREADS, 1)", 1)]),
+    "bwd_rows8": ("mlstm_parallel_bwd", [
+        ("#pragma unroll 4\n    for (int r = 0; r < BT; ++r) {",
+         "#pragma unroll 8\n    for (int r = 0; r < BT; ++r) {", 2)]),
+    "bwd_dots8": ("mlstm_parallel_bwd", [
+        ("#pragma unroll 4\n  for (int c = 0; c < HD; c += 4) {",
+         "#pragma unroll 8\n  for (int c = 0; c < HD; c += 4) {", 1)]),
+})
+# the backward's checks against its first design (case, B, S, H, hd,
+# dtype) and its timed shape, [train-xlstm]'s
+BWD_CHECKS = [("hd256_bf16", 2, 77, 4, 256, torch.bfloat16),
+              ("hd256_fp32", 1, 130, 4, 256, torch.float32),
+              ("hd32_bf16", 3, 45, 4, 32, torch.bfloat16),
+              ("hd32_fp32", 2, 64, 2, 32, torch.float32),
+              ("s1", 1, 1, 4, 256, torch.float32)]
+TRAIN = (4, 1024)
 # (case, B, S, hd, dtype, carried)
 CHECKS = [("hd256_bf16", 2, 77, 256, torch.bfloat16, True),
           ("hd256_fp32_init", 3, 40, 256, torch.float32, False),
@@ -334,6 +441,9 @@ def build_variants(names):
 
 
 def _bind(kernel, lib):
+    if kernel == "mlstm_parallel_bwd":
+        bound = ML._bind_passes(lib, "", (6, 11, 5))
+        return lambda a: ML._backward(lambda: bound, False, *a)
     if kernel == "mlstm_parallel":
         fn = ML._bind_parallel(lib.dash_mlstm_parallel)
         return lambda a: ML._parallel(lambda: fn, *a)
@@ -378,6 +488,58 @@ def parallel_phases(lib, b, s):
         rows = clocks[w::2]
         out[name] = {p: statistics.median(r[i] / sum(r) for r in rows)
                      for i, p in enumerate(PAR_PHASE_NAMES)}
+        out[name]["clocks"] = statistics.median(sum(r) for r in rows)
+    return out
+
+
+def _bwd_inputs(b, s, h, hd, dtype, seed):
+    """The backward's operands: (new, v1) argument tuples on the same
+    inputs, the forward's ``out`` and row statistics from the kernel."""
+    args, _ = CS._mlstm_inputs(b, s, hd, dtype, seed=seed, h=h)
+    with torch.no_grad():
+        out, F, stats = ML.mlstm_parallel_stats_cuda(*args)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dout = torch.randn(out.shape, generator=gen, device="cuda")
+    return (*args[:4], F, out, dout, stats), (*args, out, dout)
+
+
+def check_backward(fn):
+    """``fn``'s five gradients against the first design's at BWD_CHECKS:
+    fp32 bitwise, bf16 within ``XLSTM_TOL``."""
+    out = {}
+    for case, b, s, h, hd, dtype in BWD_CHECKS:
+        new, old = _bwd_inputs(b, s, h, hd, dtype, seed=s + hd)
+        got, want = fn(new), ML.mlstm_parallel_backward_v1_cuda(*old)
+        if dtype == torch.float32:
+            out[case] = all(torch.equal(g, w) for g, w in zip(got, want))
+        else:
+            out[case] = all(CS._scan_err(g, w) <= CS.XLSTM_TOL
+                            for g, w in zip(got, want))
+    return out
+
+
+def backward_phases(lib, b, s):
+    """One backward through the stamped keys pass (``bwd_phases``) at (b,
+    s, 4 heads of 256, bf16): the median share of each phase
+    (``BWD_PHASE_NAMES``) in warp 0's and the dig warp's clocks over the
+    CTAs, and their median clocks a CTA."""
+    fn = _bind("mlstm_parallel_bwd", lib)
+    new, _ = _bwd_inputs(b, s, CS.XLSTM_HEADS, 256, torch.bfloat16, seed=41)
+    ctas = b * CS.XLSTM_HEADS * ((-(-s // 32) + 1) // 2)
+    n = ctas * 2 * _NB
+    before = (ctypes.c_longlong * n)()
+    lib.dash_bwd_phases(before, n)
+    fn(new)
+    torch.cuda.synchronize()
+    after = (ctypes.c_longlong * n)()
+    lib.dash_bwd_phases(after, n)
+    clocks = [[after[(2 * c + w) * _NB + i] - before[(2 * c + w) * _NB + i]
+               for i in range(_NB)] for c in range(ctas) for w in (0, 1)]
+    out = {}
+    for w, name in ((0, "warp0"), (1, "dig_warp")):
+        rows = clocks[w::2]
+        out[name] = {p: statistics.median(r[i] / sum(r) for r in rows)
+                     for i, p in enumerate(BWD_PHASE_NAMES)}
         out[name]["clocks"] = statistics.median(sum(r) for r in rows)
     return out
 
@@ -429,23 +591,33 @@ def phase_shares(kernel, args, state, rr):
                                   CS.XLSTM_SLSTM_PHASES)
 
 
+KINDS = ("mlstm", "slstm", "mlstm_parallel", "mlstm_parallel_bwd")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="write the results as JSON")
     ap.add_argument("--only", default=",".join(VARIANTS),
                     help="comma-separated variants to build (default all)")
+    ap.add_argument("--kernels", default=",".join(KINDS),
+                    help="comma-separated kinds to check and time (default "
+                         "all)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("xlstm_variants: no CUDA device", file=sys.stderr)
         return 2
     card = CS.phase_device()
-    names = [n for n in args.only.split(",") if n]
+    kinds = [k for k in args.kernels.split(",") if k]
+    names = [n for n in args.only.split(",")
+             if n and ("mlstm_parallel" if n == "par_phases" else _kind(n))
+             in kinds]
     procs = build_variants(names)
     built = build.build_variants(
         [("mlstm", ()), ("mlstm_v1", ()), ("slstm", ()), ("slstm_v1", ()),
          ("mlstm_parallel_v1", ()), ("mlstm", ("DASH_STAMPS",)),
-         ("slstm", ("DASH_STAMPS",))])
-    variant_libs, stamped = {}, None
+         ("slstm", ("DASH_STAMPS",)), ("mlstm_parallel_bwd", ()),
+         ("mlstm_parallel_bwd_v1", ())])
+    variant_libs, stamped, bwd_stamped = {}, None, None
     for name, (out, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
@@ -453,17 +625,22 @@ def main(argv=None):
         if name == "par_phases":
             stamped = ctypes.CDLL(str(out))
             continue
+        if name == "bwd_phases":
+            bwd_stamped = ctypes.CDLL(str(out))
+            continue
         variant_libs[name] = (ctypes.CDLL(str(out)), log)
     result = dict(card=card, variants={}, layout=ML.recurrent_layout())
     calls = {}
-    for kernel in ("mlstm", "slstm", "mlstm_parallel"):
+    for kernel in kinds:
         if kernel == "mlstm":
             ref = (lambda a, st: ML.mlstm_recurrent_v1_cuda(*a, *st))
         elif kernel == "slstm":
             ref = (lambda a, st, rr: SL.slstm_v1_cuda(a, rr, st))
-        else:
+        elif kernel == "mlstm_parallel":
             ref = (lambda a: ML.mlstm_parallel_v1_cuda(*a))
-        source = "mlstm" if kernel == "mlstm_parallel" else kernel
+        else:
+            ref = None                 # the backward's v1 takes other args
+        source = {"mlstm_parallel": "mlstm"}.get(kernel, kernel)
         members = {"kernel": (_bind(kernel, build.load(source)),
                               built[(source, ())]["ptxas"]),
                    "v1": (ref, built[(f"{kernel}_v1", ())]["ptxas"])}
@@ -476,7 +653,9 @@ def main(argv=None):
             row = dict(ptxas=[r for r in CS.xlstm_resources(ptxas)
                               if (r["kernel"] == "mlstm_parallel")
                               == (kernel == "mlstm_parallel")])
-            if name != "v1" and kernel == "mlstm_parallel":
+            if name != "v1" and kernel == "mlstm_parallel_bwd":
+                row["matches_v1"] = check_backward(fn)
+            elif name != "v1" and kernel == "mlstm_parallel":
                 row["matches_v1"] = check_parallel(fn)
             elif name != "v1":
                 row["bitwise_v1"] = check(kernel, fn, ref)
@@ -486,9 +665,27 @@ def main(argv=None):
     torch.cuda.synchronize()
     hd = 256
     with torch.no_grad():
-        parallel = calls.pop("mlstm_parallel")
+        backward = calls.pop("mlstm_parallel_bwd", None)
+        if backward is not None:
+            new, old = _bwd_inputs(*TRAIN, CS.XLSTM_HEADS, hd, torch.bfloat16,
+                                   seed=41)
+            timed = {n: (lambda fn=fn: fn(new)) for n, fn in backward.items()
+                     if n != "v1"}
+            timed["v1"] = lambda: ML.mlstm_parallel_backward_v1_cuda(*old)
+            result["mlstm_parallel_bwd_train_ms"] = in_turns(timed, reps=5)
+            print("[timing] mlstm_parallel_bwd_train_ms " + json.dumps(
+                result["mlstm_parallel_bwd_train_ms"]), flush=True)
+            del new, old
+            if bwd_stamped is not None:
+                result["mlstm_parallel_bwd_phases"] = backward_phases(
+                    bwd_stamped, *TRAIN)
+                print("[phases] mlstm_parallel_bwd keys pass " + json.dumps(
+                    result["mlstm_parallel_bwd_phases"]), flush=True)
+        parallel = calls.pop("mlstm_parallel", None)
         for label, (b, s), reps in (("prefill", PREFILL, 20),
                                     ("long", LONG, 5)):
+            if parallel is None:
+                break
             a, _ = CS._mlstm_inputs(b, s, hd, torch.bfloat16, seed=31)
             key = f"mlstm_parallel_{label}_ms"
             result[key] = in_turns(

@@ -24,7 +24,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("flash_fwd", "flash_bwd", "fold", "paged_attn", "gemm", "rows",
            "fingerprint", "paged_attn_v1", "gemm_v1", "rows_v1",
            "selective_scan", "selective_scan_v1", "mlstm", "slstm", "mlstm_v1",
-           "slstm_v1", "mlstm_parallel_v1", "mlstm_parallel_bwd", "slstm_bwd")
+           "slstm_v1", "mlstm_parallel_v1", "mlstm_parallel_bwd", "slstm_bwd",
+           "mlstm_parallel_bwd_v1")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 

@@ -130,6 +130,12 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
+__device__ __forceinline__ int warp_sum_int(int x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -417,7 +423,11 @@ struct ParMaps {
 };
 
 // query tile [i0, i0 + BQ) of (b, h) = (blockIdx.z, blockIdx.y), the
-// CTA's query tile u after g0 key tiles. Key tile kt's products run in one
+// CTA's query tile u after g0 key tiles; with `stats` (training: the
+// backward's row statistics, not null) also each row's (m_i, s_i, ties_i)
+// into stats[(b, s, h)][0 .. 2]: the stabilizer, the signed row sum and
+// the count of j <= i whose rounded D_ij equals m_i (a second sweep of the
+// stabilizer's gates), all fp32. Key tile kt's products run in one
 // loop over its keys with the next tile's q.k (and the row sums), between
 // one __syncthreads and the next: its k and gates are copied two tiles
 // ahead, its v one, so that a tile's copies land while the one before it
@@ -428,8 +438,9 @@ struct ParMaps {
 template <typename T, int HD>
 __device__ __forceinline__ void parallel_tile(
     const ParMaps& maps, const float* __restrict__ F,
-    const float* __restrict__ ig, float* __restrict__ out, int S, int H,
-    int i0, int u, int g0, unsigned char* smem) {
+    const float* __restrict__ ig, float* __restrict__ out,
+    float* __restrict__ stats, int S, int H, int i0, int u, int g0,
+    unsigned char* smem) {
   using P = Par<T, HD>;
   unsigned char* Qs = smem + P::Q;
   unsigned char* Kr = smem + P::K;                     // [2][KBYTES]
@@ -547,6 +558,30 @@ __device__ __forceinline__ void parallel_tile(
         Fq[warp + WARPS * x] = fi[x];
         Mq[warp + WARPS * x] = m;
       }
+      mx[x] = m;
+    }
+    if (stats != nullptr) {
+      // the ties: the D_ij of j <= i equal to m_i, counted as v1's
+      // backward counts them
+      int ties[RW];
+#pragma unroll
+      for (int x = 0; x < RW; ++x) ties[x] = 0;
+#pragma unroll 8
+      for (int j = lane; j <= jmax; j += 32) {
+        const float fj = F[gate_off(j)], gj = ig[gate_off(j)];
+#pragma unroll
+        for (int x = 0; x < RW; ++x)
+          if (warp + WARPS * x < rows && j <= i0 + warp + WARPS * x)
+            ties[x] += (fi[x] - fj) + gj == mx[x];
+      }
+#pragma unroll
+      for (int x = 0; x < RW; ++x) {
+        const int n_ties = warp_sum_int(ties[x]), r = warp + WARPS * x;
+        if (lane == 0 && r < rows) {
+          stats[3 * gate_off(i0 + r)] = mx[x];
+          stats[3 * gate_off(i0 + r) + 2] = static_cast<float>(n_ties);
+        }
+      }
     }
   }
 
@@ -649,6 +684,8 @@ __device__ __forceinline__ void parallel_tile(
     if (qk_next && P::SCORE_AT == BK) scores(kt + 1);
   }
   if (sums) Rs[tid - P::RS] = rs;
+  if (stats != nullptr && sums && tid - P::RS < rows)
+    stats[3 * gate_off(i0 + tid - P::RS) + 1] = rs;
   __syncthreads();
 #pragma unroll
   for (int x = 0; x < P::TR; ++x) {
@@ -677,7 +714,8 @@ __global__ void __launch_bounds__(THREADS)
     mlstm_parallel_kernel(const __grid_constant__ ParMaps maps,
                           const float* __restrict__ F,
                           const float* __restrict__ ig,
-                          float* __restrict__ out, int S, int H) {
+                          float* __restrict__ out, float* __restrict__ stats,
+                          int S, int H) {
   using P = Par<T, HD>;
   extern __shared__ __align__(16) unsigned char par_raw[];
   unsigned char* smem = par_raw + ((1024 - smem_u32(par_raw) % 1024) % 1024);
@@ -687,10 +725,11 @@ __global__ void __launch_bounds__(THREADS)
   }
   __syncthreads();
   const int n = (S + BQ - 1) / BQ, p = blockIdx.x, last = n - 1 - p;
-  parallel_tile<T, HD>(maps, F, ig, out, S, H, last * BQ, 0, 0, smem);
+  parallel_tile<T, HD>(maps, F, ig, out, stats, S, H, last * BQ, 0, 0,
+                       smem);
   if (p != last) {  // the pair's short tile, after the long one's tiles
     __syncthreads();  // the long tile's reads of shared memory are done
-    parallel_tile<T, HD>(maps, F, ig, out, S, H, p * BQ, 1,
+    parallel_tile<T, HD>(maps, F, ig, out, stats, S, H, p * BQ, 1,
                          (min(S, (last + 1) * BQ) + BK - 1) / BK, smem);
   }
 }
@@ -1320,8 +1359,9 @@ bool map4d(CUtensorMap* map, const void* ptr, bool bf16, int hd, int H,
 
 template <typename T, int HD>
 int launch_parallel(const void* q, const void* k, const void* v,
-                    const float* F, const float* ig, float* out, int B,
-                    int S, int H, cudaStream_t stream) {
+                    const float* F, const float* ig, float* out,
+                    float* stats, int B, int S, int H,
+                    cudaStream_t stream) {
   using P = Par<T, HD>;
   auto kernel = mlstm_parallel_kernel<T, HD>;
   constexpr size_t smem = P::SMEM;
@@ -1335,8 +1375,8 @@ int launch_parallel(const void* q, const void* k, const void* v,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const int pairs = ((S + BQ - 1) / BQ + 1) / 2;  // CTAs a (b, h)
-  kernel<<<dim3(pairs, H, B), THREADS, smem, stream>>>(maps, F, ig, out, S,
-                                                       H);
+  kernel<<<dim3(pairs, H, B), THREADS, smem, stream>>>(maps, F, ig, out,
+                                                       stats, S, H);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1383,12 +1423,15 @@ bool shape_ok(int B, int S, int H) {
 }  // namespace
 
 // q, k, v: (B, S, H, hd) bf16 (is_bf16) or fp32; F, ig: (B, S, H) fp32;
-// out: (B, S, H, hd) fp32; all contiguous; hd 32 or 256. One launch on
+// out: (B, S, H, hd) fp32; stats: null, or (B, S, H, 3) fp32 for each
+// row's (m_i, s_i, ties_i) (the backward's row statistics; `out` has the
+// same bits either way); all contiguous; hd 32 or 256. One launch on
 // `stream`; returns its error or cudaGetLastError().
 extern "C" int dash_mlstm_parallel(const void* q, const void* k,
                                    const void* v, const float* F,
-                                   const float* ig, float* out, int B, int S,
-                                   int H, int hd, int is_bf16, void* stream) {
+                                   const float* ig, float* out, float* stats,
+                                   int B, int S, int H, int hd, int is_bf16,
+                                   void* stream) {
   if (!shape_ok(B, S, H)) return static_cast<int>(cudaErrorInvalidValue);
 #ifdef DASH_STAMPS
   // the stamped build times the recurrence alone (less to compile)
@@ -1397,14 +1440,14 @@ extern "C" int dash_mlstm_parallel(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd == 256)
     return is_bf16 ? launch_parallel<__nv_bfloat16, 256>(q, k, v, F, ig, out,
-                                                         B, S, H, s)
-                   : launch_parallel<float, 256>(q, k, v, F, ig, out, B, S,
-                                                 H, s);
+                                                         stats, B, S, H, s)
+                   : launch_parallel<float, 256>(q, k, v, F, ig, out, stats,
+                                                 B, S, H, s);
   if (hd == 32)
     return is_bf16 ? launch_parallel<__nv_bfloat16, 32>(q, k, v, F, ig, out,
-                                                        B, S, H, s)
-                   : launch_parallel<float, 32>(q, k, v, F, ig, out, B, S,
-                                                H, s);
+                                                        stats, B, S, H, s)
+                   : launch_parallel<float, 32>(q, k, v, F, ig, out, stats,
+                                                B, S, H, s);
   return static_cast<int>(cudaErrorInvalidValue);
 #endif
 }

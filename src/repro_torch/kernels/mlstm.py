@@ -30,9 +30,16 @@ place of the other. The plain versions are differentiable by autograd. On
 the card each kernel runs inside a ``torch.autograd.Function``. The
 parallel form's backward (training) is ``csrc/mlstm_parallel_bwd.cu``
 (:func:`mlstm_parallel_backward_cuda`), whose math is
-:func:`mlstm_parallel_backward_plain`. The recurrence's backward raises:
-no training path runs the recurrence (prefill and decode take no
-gradient).
+:func:`mlstm_parallel_backward_plain`: when a gradient is wanted the
+forward also hands over its F and each row's (m_i, s_i, ties_i)
+(:func:`mlstm_parallel_stats_cuda`; plain versions
+:func:`mlstm_parallel_stats_plain`,
+:func:`mlstm_parallel_backward_stats_plain`). Its first design,
+``csrc/mlstm_parallel_bwd_v1.cu``
+(:func:`mlstm_parallel_backward_v1_cuda`), is kept as its oracle: the
+redesign returns its bits for fp32 operands and agrees with it within
+tolerance for bf16 ones. The recurrence's backward raises: no training
+path runs the recurrence (prefill and decode take no gradient).
 """
 from __future__ import annotations
 
@@ -71,6 +78,13 @@ def mlstm_parallel_plain(q, k, v, ig, fg):
 def mlstm_parallel_from_qk(qk, v, ig, fg):
     """:func:`mlstm_parallel_plain` from its q . k products ``qk`` (B, S,
     S, H) fp32, however they were summed."""
+    return _parallel_parts(qk, v, ig, fg)[0]
+
+
+def _parallel_parts(qk, v, ig, fg):
+    """The parallel form's ``out`` and what the backward keeps of it: F,
+    the masked gate decay D (B, S, S, H), its row maxima m and the signed
+    row sums s (B, S, H)."""
     s = qk.shape[1]
     F = torch.cumsum(fg, 1)
     Dm = F[:, :, None, :] - F[:, None, :, :] + ig[:, None, :, :]
@@ -79,9 +93,25 @@ def mlstm_parallel_from_qk(qk, v, ig, fg):
     m = Dm.amax(2, keepdim=True)
     w = torch.exp(Dm - m)
     scores = qk * w
-    norm = torch.maximum(scores.sum(2).abs(), torch.exp(-m[:, :, 0]))
+    ssum = scores.sum(2)
+    norm = torch.maximum(ssum.abs(), torch.exp(-m[:, :, 0]))
     out = torch.einsum("bijh,bjhe->bihe", scores, v.to(F32))
-    return out / torch.clamp_min(norm[..., None], 1e-6)
+    return (out / torch.clamp_min(norm[..., None], 1e-6), F, Dm, m[:, :, 0],
+            ssum)
+
+
+def mlstm_parallel_stats_plain(q, k, v, ig, fg):
+    """:func:`mlstm_parallel_plain`'s ``out`` (the same bits) with what
+    the backward takes from the forward: ``(out, F, stats)``, F = cumsum(fg)
+    (B, S, H) and ``stats`` (B, S, H, 3) fp32, each row's stabilizer m_i,
+    signed row sum s_i = sum_j S_ij and the count of j <= i whose D_ij
+    equals m_i (the ties)."""
+    qk = torch.einsum("bihe,bjhe->bijh", q.to(F32), k.to(F32))
+    out, F, Dm, m, ssum = _parallel_parts(qk, v, ig, fg)
+    s = q.shape[1]
+    tri = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    ties = ((Dm == m[:, :, None]) & tri[None, :, :, None]).sum(2).to(F32)
+    return out, F, torch.stack([m, ssum, ties], -1)
 
 
 def mlstm_parallel_backward_plain(q, k, v, ig, fg, dout):
@@ -140,6 +170,44 @@ def mlstm_parallel_backward_plain(q, k, v, ig, fg, dout):
     return dq, dk, dv, dig, dfg
 
 
+def mlstm_parallel_backward_stats_plain(q, k, v, ig, F, out, dout, stats):
+    """:func:`mlstm_parallel_backward_plain`'s ``(dq, dk, dv, dig, dfg)``
+    (the same bits on the CPU) from what the forward handed over
+    (:func:`mlstm_parallel_stats_plain`): F, ``out`` and each row's (m_i,
+    s_i, ties_i), as ``csrc/mlstm_parallel_bwd.cu`` takes them, so that
+    neither the stabilizer, nor s_i, nor ``out`` is recomputed."""
+    s = q.shape[1]
+    qf, kf, vf = q.to(F32), k.to(F32), v.to(F32)
+    m, ssum, n_ties = stats.unbind(-1)
+    Dm = F[:, :, None, :] - F[:, None, :, :] + ig[:, None, :, :]
+    tri = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    tri = tri[None, :, :, None]
+    Dm = torch.where(tri, Dm, NEG)
+    w = torch.exp(Dm - m[:, :, None])
+    scores = torch.einsum("bihe,bjhe->bijh", qf, kf) * w
+    em = torch.exp(-m)
+    norm = torch.maximum(ssum.abs(), em)
+    den = torch.clamp_min(norm, 1e-6)
+    dnum = dout / den[..., None]
+    g = (dout * out).sum(-1)
+    dnorm = torch.where(norm > 1e-6, -g / den, 0.0)
+    s_branch = ssum.abs() > em
+    ds = torch.where(s_branch, dnorm * torch.sign(ssum), 0.0)
+    dm = -g - ds * ssum - torch.where(s_branch, 0.0, em * dnorm)
+    ties = (Dm == m[:, :, None]) & tri
+    share = dm / n_ties
+    dS = torch.einsum("bihe,bjhe->bijh", dnum, vf) + ds[:, :, None]
+    dv = torch.einsum("bijh,bihe->bjhe", scores, dnum)
+    gw = dS * w
+    dq = torch.einsum("bijh,bjhe->bihe", gw, kf)
+    dk = torch.einsum("bijh,bihe->bjhe", gw, qf)
+    dD = dS * scores + torch.where(ties, share[:, :, None], 0.0)
+    dig = dD.sum(1)
+    dF = dD.sum(2) - dig
+    dfg = torch.flip(torch.cumsum(torch.flip(dF, (1,)), 1), (1,))
+    return dq, dk, dv, dig, dfg
+
+
 def mlstm_recurrent_plain(q, k, v, ig, fg, C, n, m):
     """The recurrence one step at a time: returns ``(out, (C, n, m))``."""
     outs = []
@@ -177,8 +245,11 @@ def _lib():
     return lib
 
 
-def _bind_parallel(fn):
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+def _bind_parallel(fn, pointers=7):
+    """The parallel form's entry point: q, k, v, F, ig, out and (the
+    redesign's, ``pointers`` 7) stats, then B, S, H, hd, is_bf16, the
+    stream."""
+    fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -191,8 +262,12 @@ def _recurrent_v1():
 
 @functools.lru_cache(maxsize=None)
 def _parallel_v1():
-    return _bind_parallel(
-        build.load("mlstm_parallel_v1").dash_mlstm_parallel_v1)
+    """The first design's entry point, called as the redesign's (it takes
+    no stats: the pointer is dropped)."""
+    fn = _bind_parallel(
+        build.load("mlstm_parallel_v1").dash_mlstm_parallel_v1, pointers=6)
+    return lambda q, k, v, F, ig, out, stats, *shape: fn(q, k, v, F, ig,
+                                                         out, *shape)
 
 
 def _stream(device):
@@ -231,22 +306,25 @@ def _check(q, k, v, ig, fg, state=()):
                          f"bytes")
 
 
-def _parallel(lib_fn, q, k, v, ig, fg):
+def _parallel(lib_fn, q, k, v, ig, fg, stats=False):
     """Check the operands, then launch ``lib_fn()`` (the entry point, built
     at first use); ``F = cumsum(fg)`` is ``torch.cumsum`` here, as the
-    plain version takes it."""
+    plain version takes it. Returns ``out``, or with ``stats`` ``(out, F,
+    stats)`` (:func:`mlstm_parallel_stats_cuda`)."""
     _check(q, k, v, ig, fg)
     b, s, h, hd = q.shape
     F = torch.cumsum(fg, 1)
     out = torch.empty((b, s, h, hd), dtype=F32, device=q.device)
+    st = (torch.empty((b, s, h, 3), dtype=F32, device=q.device) if stats
+          else None)
     err = lib_fn()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), F.data_ptr(),
-        ig.data_ptr(), out.data_ptr(), b, s, h, hd,
-        int(q.dtype == torch.bfloat16), _stream(q.device))
+        ig.data_ptr(), out.data_ptr(), 0 if st is None else st.data_ptr(),
+        b, s, h, hd, int(q.dtype == torch.bfloat16), _stream(q.device))
     if err:
         raise RuntimeError(f"mLSTM parallel kernel failed to launch: "
                            f"cudaError {err}")
-    return out
+    return (out, F, st) if stats else out
 
 
 def mlstm_parallel_cuda(q, k, v, ig, fg):
@@ -255,6 +333,17 @@ def mlstm_parallel_cuda(q, k, v, ig, fg):
     out = _parallel(lambda: _lib().dash_mlstm_parallel, q, k, v, ig, fg)
     launches_parallel += 1
     return out
+
+
+def mlstm_parallel_stats_cuda(q, k, v, ig, fg):
+    """Launch the parallel kernel for training: ``(out, F, stats)`` as
+    :func:`mlstm_parallel_stats_plain` returns them (``out`` bitwise
+    :func:`mlstm_parallel_cuda`'s), for the backward."""
+    global launches_parallel
+    result = _parallel(lambda: _lib().dash_mlstm_parallel, q, k, v, ig, fg,
+                       stats=True)
+    launches_parallel += 1
+    return result
 
 
 def mlstm_parallel_v1_cuda(q, k, v, ig, fg):
@@ -267,62 +356,153 @@ def mlstm_parallel_v1_cuda(q, k, v, ig, fg):
     return _parallel(_parallel_v1, q, k, v, ig, fg)
 
 
-# csrc/mlstm_parallel_bwd.cu's passes, in launch order: the row terms,
-# then the key tiles (dk, dv, dig), then the query tiles (dq, dF)
+# csrc/mlstm_parallel_bwd.cu's passes, in launch order: the row terms
+# (and dnum), then the key tiles (dk, dv, dig; dS w and dD into a scratch),
+# then the query tiles (dq, dF); the first design's are these names with
+# a ``_v1`` suffix
 BWD_PASSES = ("dash_mlstm_bwd_rows", "dash_mlstm_bwd_keys",
               "dash_mlstm_bwd_queries")
+BWD_TILE = 32                    # queries or keys a tile of the passes
 
 
-@functools.lru_cache(maxsize=None)
-def _bwd_lib():
-    lib = build.load("mlstm_parallel_bwd")
-    for name, pointers in zip(BWD_PASSES, (7, 10, 10)):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 5 + [
+def _bind_passes(lib, suffix, pointers):
+    for name, n in zip(BWD_PASSES, pointers):
+        fn = getattr(lib, name + suffix)
+        fn.argtypes = [ctypes.c_void_p] * n + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
 
-def mlstm_parallel_backward_cuda(q, k, v, ig, fg, out, dout):
+@functools.lru_cache(maxsize=None)
+def _bwd_lib():
+    return _bind_passes(build.load("mlstm_parallel_bwd"), "", (6, 11, 5))
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_v1_lib():
+    return _bind_passes(build.load("mlstm_parallel_bwd_v1"), "_v1",
+                        (7, 10, 10))
+
+
+def _check_bwd(q, tensors):
+    """Raise unless each named tensor is (B, S, H, hd) or (B, S, H, x)
+    fp32, contiguous, on q's device."""
+    b, s, h, hd = q.shape
+    for name, (t, last) in tensors.items():
+        want = (b, s, h) + ((last,) if last else ())
+        if (t.device != q.device or t.dtype != F32
+                or tuple(t.shape) != want or not t.is_contiguous()):
+            raise ValueError(f"the mLSTM parallel backward takes {name} as "
+                             f"a contiguous {want} fp32 tensor on q's "
+                             f"device; got {tuple(t.shape)} {t.dtype} "
+                             f"{t.device}")
+
+
+def _run_passes(lib, suffix, p, args, shape, count=False):
+    global launches_parallel_bwd
+    for name, names in zip(BWD_PASSES, args):
+        err = getattr(lib, name + suffix)(*(p[x] for x in names), *shape)
+        if err:
+            raise RuntimeError(f"mLSTM parallel backward ({name}{suffix}) "
+                               f"failed to launch: cudaError {err}")
+        launches_parallel_bwd += count
+
+
+def mlstm_parallel_backward_cuda(q, k, v, ig, F, out, dout, stats):
     """The parallel form's backward on the card (``csrc/
     mlstm_parallel_bwd.cu``): ``(dq, dk, dv, dig, dfg)`` as
     :func:`mlstm_parallel_backward_plain` computes them, from the forward's
-    operands, its ``out`` and the gradient ``dout`` (both (B, S, H, hd)
-    fp32), all fp32. Three launches, each counted: the row terms (m_i,
-    den_i, ds_i, the stabilizer's share; (B, S, H, 4) fp32), the key tiles
-    (dk, dv and dig) and the query tiles (dq and dF = the row sums of dD -
-    dig). ``F = torch.cumsum(fg, 1)`` (as in the forward) and the reverse
-    cumsum ``dfg = flip(cumsum(flip(dF)))`` are ``torch`` calls here."""
-    global launches_parallel_bwd
+    operands, its F, ``out`` and row statistics (m_i, s_i, ties_i)
+    (:func:`mlstm_parallel_stats_cuda`) and the gradient ``dout`` (B, S,
+    H, hd) fp32, all fp32. Three launches, each counted: the row terms
+    ((F_i, m_i, ds_i, share_i) and dnum = dout / den), the key tiles (dk,
+    dv and dig; each tile pair's dS w and dD into a scratch of n (n + 1) /
+    2 blocks of 32 x 32 a (b, h), n = ceil(S / 32)) and the query tiles (dq
+    and dF = the row sums of dD - dig). The reverse cumsum ``dfg =
+    flip(cumsum(flip(dF)))`` is a ``torch`` call here."""
+    return _backward(_bwd_lib, True, q, k, v, ig, F, out, dout, stats)
+
+
+def _backward(lib_fn, count, q, k, v, ig, F, out, dout, stats):
+    """:func:`mlstm_parallel_backward_cuda` through ``lib_fn()`` (the
+    built source, or a variant of it, bound by :func:`_bind_passes` and
+    built at first use), its launches counted when ``count``."""
+    _check(q, k, v, ig, F)
+    b, s, h, hd = q.shape
+    _check_bwd(q, dict(out=(out, hd), dout=(dout, hd), stats=(stats, 3)))
+    n = -(-s // BWD_TILE)
+    rows = torch.empty((b, s, h, 4), dtype=F32, device=q.device)
+    dnum = torch.empty(q.shape, dtype=F32, device=q.device)
+    scratch = torch.empty((2, b * h * n * (n + 1) // 2,
+                           BWD_TILE * BWD_TILE), dtype=F32, device=q.device)
+    dq, dk, dv = (torch.empty(q.shape, dtype=F32, device=q.device)
+                  for _ in range(3))
+    dig, dF = (torch.empty_like(ig) for _ in range(2))
+    p = {name: t.data_ptr() for name, t in dict(
+        q=q, k=k, v=v, F=F, ig=ig, stats=stats, out=out, dout=dout,
+        rows=rows, dnum=dnum, scratch=scratch, dq=dq, dk=dk, dv=dv, dig=dig,
+        dF=dF).items()}
+    _run_passes(lib_fn(), "", p, (
+        ("F", "stats", "out", "dout", "rows", "dnum"),
+        ("q", "k", "v", "F", "ig", "rows", "dnum", "dk", "dv", "dig",
+         "scratch"),
+        ("k", "scratch", "dig", "dq", "dF")),
+        (b, s, h, hd, int(q.dtype == torch.bfloat16), _stream(q.device)),
+        count)
+    dfg = torch.flip(torch.cumsum(torch.flip(dF, (1,)), 1), (1,))
+    return dq, dk, dv, dig, dfg
+
+
+def backward_row_terms(q, k, v, ig, fg, out, dout, stats=None):
+    """The backward's first pass alone, for the checks (counted nowhere):
+    with the forward's ``stats`` the redesign's rows (F_i, m_i, ds_i,
+    share_i), else the first design's (m_i, den_i, ds_i, share_i), each (B,
+    S, H, 4) fp32: m_i, ds_i and share_i must agree bitwise for fp32
+    operands (m_i also for bf16 ones)."""
     _check(q, k, v, ig, fg)
     b, s, h, hd = q.shape
-    for name, t in (("out", out), ("dout", dout)):
-        if (t.device != q.device or t.dtype != F32
-                or tuple(t.shape) != (b, s, h, hd) or not t.is_contiguous()):
-            raise ValueError(f"the mLSTM parallel backward takes {name} as "
-                             f"a contiguous (B, S, H, hd) fp32 tensor on "
-                             f"q's device; got {tuple(t.shape)} {t.dtype} "
-                             f"{t.device}")
-    lib, stream = _bwd_lib(), _stream(q.device)
+    F = torch.cumsum(fg, 1)
+    rows = torch.empty((b, s, h, 4), dtype=F32, device=q.device)
+    shape = (b, s, h, hd, int(q.dtype == torch.bfloat16), _stream(q.device))
+    if stats is None:
+        err = _bwd_v1_lib().dash_mlstm_bwd_rows_v1(*(t.data_ptr() for t in (
+            q, k, F, ig, out, dout, rows)), *shape)
+    else:
+        dnum = torch.empty(q.shape, dtype=F32, device=q.device)
+        err = _bwd_lib().dash_mlstm_bwd_rows(*(t.data_ptr() for t in (
+            F, stats, out, dout, rows, dnum)), *shape)
+    if err:
+        raise RuntimeError(f"mLSTM backward's rows pass failed to launch: "
+                           f"cudaError {err}")
+    return rows
+
+
+def mlstm_parallel_backward_v1_cuda(q, k, v, ig, fg, out, dout):
+    """The backward's first design (``csrc/mlstm_parallel_bwd_v1.cu``:
+    rows, keys and queries passes, the rows pass rebuilding each row's
+    stabilizer, ties and s_i), kept as its oracle:
+    :func:`mlstm_parallel_backward_cuda` must return these bits for fp32
+    operands and agree within the checks' tolerance for bf16 ones. ``F =
+    torch.cumsum(fg, 1)`` and the reverse cumsum are ``torch`` calls here.
+    Only the checks, the gpu-marked tests and ``scripts/xlstm_variants.py``
+    call it; it counts in no launch counter."""
+    _check(q, k, v, ig, fg)
+    b, s, h, hd = q.shape
+    _check_bwd(q, dict(out=(out, hd), dout=(dout, hd)))
     F = torch.cumsum(fg, 1)
     rows = torch.empty((b, s, h, 4), dtype=F32, device=q.device)
     dq, dk, dv = (torch.empty(q.shape, dtype=F32, device=q.device)
                   for _ in range(3))
     dig, dF = (torch.empty_like(ig) for _ in range(2))
-    shape = (b, s, h, hd, int(q.dtype == torch.bfloat16), stream)
     p = {name: t.data_ptr() for name, t in dict(
         q=q, k=k, v=v, F=F, ig=ig, out=out, dout=dout, rows=rows, dq=dq,
         dk=dk, dv=dv, dig=dig, dF=dF).items()}
-    args = (("q", "k", "F", "ig", "out", "dout", "rows"),
-            ("q", "k", "v", "F", "ig", "dout", "rows", "dk", "dv", "dig"),
-            ("q", "k", "v", "F", "ig", "dout", "rows", "dig", "dq", "dF"))
-    for name, names in zip(BWD_PASSES, args):
-        err = getattr(lib, name)(*(p[x] for x in names), *shape)
-        if err:
-            raise RuntimeError(f"mLSTM parallel backward ({name}) failed to "
-                               f"launch: cudaError {err}")
-        launches_parallel_bwd += 1
+    _run_passes(_bwd_v1_lib(), "_v1", p, (
+        ("q", "k", "F", "ig", "out", "dout", "rows"),
+        ("q", "k", "v", "F", "ig", "dout", "rows", "dk", "dv", "dig"),
+        ("q", "k", "v", "F", "ig", "dout", "rows", "dig", "dq", "dF")),
+        (b, s, h, hd, int(q.dtype == torch.bfloat16), _stream(q.device)))
     dfg = torch.flip(torch.cumsum(torch.flip(dF, (1,)), 1), (1,))
     return dq, dk, dv, dig, dfg
 
@@ -406,22 +586,27 @@ def recurrent_phases(q, k, v, ig, fg, C, n, m):
 
 class _ParallelFn(torch.autograd.Function):
     """The parallel kernel; its backward the backward kernel, whose fp32
-    dq, dk, dv it rounds once to their inputs' dtype. The forward keeps its
-    operands and ``out`` only when a gradient is wanted."""
+    dq, dk, dv it rounds once to their inputs' dtype. Only when a gradient
+    is wanted does the forward hand over its row statistics
+    (:func:`mlstm_parallel_stats_cuda`) and keep its operands, F, ``out``
+    and the statistics; else it is :func:`mlstm_parallel_cuda`."""
 
     @staticmethod
     def forward(ctx, q, k, v, ig, fg):
-        out = mlstm_parallel_cuda(q, k, v, ig, fg)
-        if any(ctx.needs_input_grad):
-            ctx.save_for_backward(q, k, v, ig, fg, out)
+        if not any(ctx.needs_input_grad):
+            return mlstm_parallel_cuda(q, k, v, ig, fg)
+        out, F, stats = mlstm_parallel_stats_cuda(q, k, v, ig, fg)
+        ctx.save_for_backward(q, k, v, ig, F, out, stats)
+        ctx.dtypes = tuple(x.dtype for x in (q, k, v, ig, fg))
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        saved = ctx.saved_tensors           # unpacked once (remat)
-        grads = mlstm_parallel_backward_cuda(*saved, dout.contiguous())
-        return tuple(g.to(x.dtype) if need else None for g, x, need in
-                     zip(grads, saved, ctx.needs_input_grad))
+        q, k, v, ig, F, out, stats = ctx.saved_tensors  # unpacked once
+        grads = mlstm_parallel_backward_cuda(q, k, v, ig, F, out,
+                                             dout.contiguous(), stats)
+        return tuple(g.to(dt) if need else None for g, dt, need in
+                     zip(grads, ctx.dtypes, ctx.needs_input_grad))
 
 
 class _RecurrentFn(torch.autograd.Function):

@@ -1203,18 +1203,21 @@ def test_xlstm_backward_kernels_match_plain_and_repeat_bitwise(b, s, h, hd,
                                                                dtype):
     """csrc/mlstm_parallel_bwd.cu and csrc/slstm_bwd.cu against their plain
     backwards on the same inputs and against autograd of the plain
-    forwards (every gradient within XLSTM_TOL), three launches bitwise;
-    the sLSTM forward with its states kept bitwise its first design's
-    h_all and state, its kept states within XLSTM_TOL of the plain
-    forward's."""
+    forwards (every gradient within XLSTM_TOL), three launches bitwise
+    (the mLSTM's from the forward's row statistics, whose ``out`` is
+    bitwise the forward's without them); the sLSTM forward with its states
+    kept bitwise its first design's h_all and state, its kept states within
+    XLSTM_TOL of the plain forward's."""
     _card()
     from repro_torch.kernels import mlstm as ML
     from repro_torch.kernels import slstm as SL
     margs, _, (z, rr, sst) = _xlstm_operands(b, s, h, hd, dtype, seed=s + 3)
     gen = torch.Generator(device="cuda").manual_seed(s)
-    out = ML.mlstm_parallel_cuda(*margs)
+    out, F, stats = ML.mlstm_parallel_stats_cuda(*margs)
+    assert torch.equal(out, ML.mlstm_parallel_cuda(*margs))
     dout = torch.randn(out.shape, generator=gen, device="cuda")
-    got = ML.mlstm_parallel_backward_cuda(*margs, out, dout)
+    saved = (*margs[:4], F, out)
+    got = ML.mlstm_parallel_backward_cuda(*saved, dout, stats)
     plain = ML.mlstm_parallel_backward_plain(*margs, dout)
     with torch.enable_grad():
         leaves = _leafed(margs)
@@ -1226,7 +1229,7 @@ def test_xlstm_backward_kernels_match_plain_and_repeat_bitwise(b, s, h, hd,
         assert _xlstm_err(g, p) <= XLSTM_TOL, name
         assert _xlstm_err(g, a) <= XLSTM_TOL, name
     for _ in range(3):
-        again = ML.mlstm_parallel_backward_cuda(*margs, out, dout)
+        again = ML.mlstm_parallel_backward_cuda(*saved, dout, stats)
         assert all(torch.equal(x, y) for x, y in zip(got, again))
 
     h_all, new, kept = SL.slstm_cuda(z, rr, sst, keep=True)
@@ -1254,6 +1257,45 @@ def test_xlstm_backward_kernels_match_plain_and_repeat_bitwise(b, s, h, hd,
         again = SL.slstm_backward_cuda(z, rr, sst, (h_all, kept), dh, dstate)
         assert all(torch.equal(x, y) for x, y in
                    zip(flat, [*again[0], *again[1], *again[2]]))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,h,hd", [(2, 64, 2, 32), (2, 77, 4, 256),
+                                      (1, 1, 4, 256), (3, 45, 4, 32),
+                                      (1, 130, 4, 256)])
+@torch.no_grad()
+def test_xlstm_backward_redesign_against_its_first_design(b, s, h, hd,
+                                                          dtype):
+    """csrc/mlstm_parallel_bwd.cu against its first design
+    (csrc/mlstm_parallel_bwd_v1.cu) on the same inputs: fp32 operands give
+    its bits on all five gradients, bf16 ones (q . k on the tensor cores)
+    agree within XLSTM_TOL; the forward's statistics hold the plain
+    forward's m_i and ties exactly, and the rows pass built on them v1's
+    m_i (and, for fp32, ds_i and share_i) bitwise; the first design
+    counts no launches."""
+    _card()
+    from repro_torch.kernels import mlstm as ML
+    margs, _, _ = _xlstm_operands(b, s, h, hd, dtype, seed=s + 11)
+    gen = torch.Generator(device="cuda").manual_seed(s + 1)
+    out, F, stats = ML.mlstm_parallel_stats_cuda(*margs)
+    _, _, want = ML.mlstm_parallel_stats_plain(*margs)
+    assert torch.equal(stats[..., 0], want[..., 0])
+    assert torch.equal(stats[..., 2], want[..., 2])
+    dout = torch.randn(out.shape, generator=gen, device="cuda")
+    rows = ML.backward_row_terms(*margs, out, dout, stats)
+    rows_v1 = ML.backward_row_terms(*margs, out, dout)
+    assert torch.equal(rows[..., 1], rows_v1[..., 0])
+    if dtype == torch.float32:
+        assert torch.equal(rows[..., 2:], rows_v1[..., 2:])
+    got = ML.mlstm_parallel_backward_cuda(*margs[:4], F, out, dout, stats)
+    before = ML.launches_parallel_bwd
+    old = ML.mlstm_parallel_backward_v1_cuda(*margs, out, dout)
+    assert ML.launches_parallel_bwd == before
+    for name, g, o in zip(("dq", "dk", "dv", "dig", "dfg"), got, old):
+        if dtype == torch.float32:
+            assert torch.equal(g, o), name
+        else:
+            assert _xlstm_err(g, o) <= XLSTM_TOL, name
 
 
 def test_reduced_xlstm_trains_on_the_kernels():

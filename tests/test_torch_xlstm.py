@@ -499,6 +499,8 @@ CALLS = {
 }
 KERNELS = {
     "mlstm_parallel": lambda: ML.mlstm_parallel_cuda(*_mlstm_operands()[0]),
+    "mlstm_parallel_stats": lambda: ML.mlstm_parallel_stats_cuda(
+        *_mlstm_operands()[0]),
     "mlstm_recurrent": lambda: ML.mlstm_recurrent_cuda(
         *_mlstm_operands()[0], *_mlstm_operands()[1]),
     "slstm": lambda: SL.slstm_cuda(*_slstm_operands()),
@@ -529,7 +531,8 @@ def _backward_operands():
     """The backward wrappers' arguments on the CPU."""
     (q, k, v, ig, fg), st = _mlstm_operands()
     z, r, sst = _slstm_operands()
-    return ((q, k, v, ig, fg, q.clone(), q.clone()),
+    stats = torch.zeros(q.shape[:3] + (3,))
+    return ((q, k, v, ig, torch.cumsum(fg, 1), q.clone(), q.clone(), stats),
             (z, r, sst, (z[0].clone(), torch.zeros((7, 1, 4, 2, 32))),
              z[0].clone()))
 

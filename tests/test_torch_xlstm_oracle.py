@@ -1,7 +1,8 @@
 """The xLSTM kernels' redesigns beside their first designs, on the CPU:
-the first designs' wrappers refuse CPU tensors, all seven sources (the
-two backwards too) are built and exported under distinct names, none
-names an atomic, the algorithm of
+the first designs' wrappers refuse CPU tensors, all eight sources (the
+two backwards and the mLSTM backward's first design too) are built and
+exported under distinct names, none names an atomic, the redesigned
+mLSTM backward keeps its first design's expressions, the algorithm of
 the mLSTM's reduce-scatter of 32 row sums gives each sum the bits of the
 first design's butterfly, the redesigned parallel form keeps the first
 design's expressions, its causal pairs of query tiles cover every tile
@@ -27,7 +28,7 @@ EXPORT = re.compile(r'^extern "C" \w+ (\w+)\(', re.MULTILINE)
 # red.* instructions
 ATOMIC = re.compile(r"atomic|\batom\.|\bred\.", re.IGNORECASE)
 SOURCES = ("mlstm", "mlstm_v1", "slstm", "slstm_v1", "mlstm_parallel_v1",
-           "mlstm_parallel_bwd", "slstm_bwd")
+           "mlstm_parallel_bwd", "slstm_bwd", "mlstm_parallel_bwd_v1")
 
 
 def _mlstm_operands(b=1, s=3, h=2, hd=32, seed=0):
@@ -63,6 +64,18 @@ def test_slstm_first_design_refuses_cpu_tensors():
         SL.slstm_v1_cuda(z, r, state)
 
 
+def test_mlstm_backward_first_design_refuses_cpu_tensors():
+    """The backward's first design (``mlstm_parallel_backward_v1_cuda``)
+    refuses CPU tensors before any build or launch, and counts in no launch
+    counter."""
+    args, _ = _mlstm_operands()
+    before = ML.launches_parallel_bwd
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ML.mlstm_parallel_backward_v1_cuda(*args, args[0].clone(),
+                                           args[0].clone())
+    assert ML.launches_parallel_bwd == before
+
+
 def test_first_designs_count_no_launches():
     """A refused first-design call leaves the redesigns' counters alone
     (the first designs count in none)."""
@@ -83,11 +96,12 @@ def test_xlstm_sources_are_built(name):
 
 
 def test_first_designs_export_their_own_names():
-    """All seven libraries can be loaded into one process: the first
+    """All eight libraries can be loaded into one process: the first
     designs' entry points are the redesigns' with a ``_v1`` suffix, the
-    mLSTM's recurrence and parallel form each in a source of its own, and
-    the backwards' (the parallel form's three passes, the sLSTM's) are
-    each their own, bound by the wrappers under those names."""
+    mLSTM's recurrence, parallel form and parallel backward each in a
+    source of its own, and the backwards' (the parallel form's three
+    passes, the sLSTM's) are each their own, bound by the wrappers under
+    those names."""
     names = {n: set(EXPORT.findall((CSRC / f"{n}.cu").read_text()))
              for n in SOURCES}
     assert {"dash_mlstm_parallel", "dash_mlstm_recurrent",
@@ -97,6 +111,8 @@ def test_first_designs_export_their_own_names():
     assert "dash_slstm" in names["slstm"]
     assert names["slstm_v1"] == {"dash_slstm_v1"}
     assert names["mlstm_parallel_bwd"] == set(ML.BWD_PASSES)
+    assert names["mlstm_parallel_bwd_v1"] == {f"{n}_v1"
+                                              for n in ML.BWD_PASSES}
     assert names["slstm_bwd"] == {"dash_slstm_bwd"}
     everything = [x for n in SOURCES for x in names[n]]
     assert len(everything) == len(set(everything))
@@ -178,6 +194,101 @@ def test_variant_builds_are_libraries_of_their_own():
     assert stamped != plain and stamped.parent == plain.parent
     assert build.library_path("mlstm", ("DASH_STAMPS", "NDEBUG")) not in (
         plain, stamped)
+
+
+# ------------------------------------------- the parallel form's backward
+def _bwd_source(name):
+    return (CSRC / f"{name}.cu").read_text()
+
+
+# (what the first design computes, its expression, the redesign's): the
+# row terms, the pair terms and each summation chain whose bits the
+# redesign keeps
+KEPT_BWD = [
+    ("g_i: a lane's fmaf chain, then the xor pairs 16 .. 1",
+     "g = fmaf(dout[at.row<HD>(i) + e], out[at.row<HD>(i) + e], g);",
+     "for (int e = lane; e < HD; e += 32) g = fmaf(d[e], o[e], g);"),
+    ("the butterfly's adds",
+     "x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, o));",
+     "x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, o));"),
+    ("the normalizer", "const float norm = fmaxf(fabsf(s), em);",
+     "const float norm = fmaxf(fabsf(s), em);"),
+    ("dnorm where norm > 1e-6",
+     "const float dnorm = norm > 1e-6f ? __fdiv_rn(-g, den) : 0.f;",
+     "const float dnorm = norm > 1e-6f ? __fdiv_rn(-g, den) : 0.f;"),
+    ("ds in the |s| branch",
+     "const float ds = s_branch ? (s > 0.f ? dnorm : -dnorm) : 0.f;",
+     "const float ds = s_branch ? (s > 0.f ? dnorm : -dnorm) : 0.f;"),
+    ("dm", "const float dm = __fsub_rn(__fsub_rn(-g, __fmul_rn(ds, s)),",
+     "const float dm = __fsub_rn(__fsub_rn(-g, __fmul_rn(ds, s)),"),
+    ("dnum = dout / den, IEEE", "__fdiv_rn(x[u], den[r])",
+     "__fdiv_rn(d[e], den)"),
+    ("the gate decay", "return __fadd_rn(__fsub_rn(fi, fj), ij);",
+     "return __fadd_rn(__fsub_rn(fi, fj), ij);"),
+    ("the pair terms' weight", "const float w = expf(__fsub_rn(d, mi));",
+     "const float w = expf(__fsub_rn(d, mi));"),
+    ("dD with the tie share",
+     "p.dd = __fadd_rn(__fmul_rn(ds, s), d == mi ? shi : 0.f);",
+     "p.dd = __fadd_rn(__fmul_rn(ds, s), d == mi ? shi : 0.f);"),
+    ("dv: an fmaf chain over the queries",
+     "acc_dv[x] = fmaf(p4.x, a, acc_dv[x]);",
+     "acc_dv[u][e] = fmaf(s[u], a[e], acc_dv[u][e]);"),
+    ("dk: an fmaf chain over the queries",
+     "acc_dk[x] = fmaf(g4.x, qv, acc_dk[x]);",
+     "acc_dk[u][e] = fmaf(gw[u], a[e], acc_dk[u][e]);"),
+    ("dq: an fmaf chain over the keys",
+     "acc_dq[x] = fmaf(g4.x, kv[0], acc_dq[x]);",
+     "acc[x][e] = fmaf(gw[x], kv[e], acc[x][e]);"),
+    ("dig: plain adds over the queries",
+     "acc_dig = __fadd_rn(acc_dig, Ds[r * BP + tid]);",
+     "acc_dig = __fadd_rn(acc_dig, Ds[r * LDP + lane]);"),
+    ("dF: the row sums' plain adds, less dig",
+     "__fsub_rn(acc_row, dig[at.gate(i0 + tid)])",
+     "__fsub_rn(acc_row, dig[at.gate(i0 + tid)])"),
+]
+
+
+@pytest.mark.parametrize("what,old,new", KEPT_BWD,
+                         ids=[k[0] for k in KEPT_BWD])
+def test_backward_redesign_keeps_the_first_designs_expressions(what, old,
+                                                               new):
+    """Each step whose bits the redesigned backward keeps is written with
+    the first design's expression, operands renamed."""
+    assert old in _bwd_source("mlstm_parallel_bwd_v1"), what
+    assert new in _bwd_source("mlstm_parallel_bwd"), what
+
+
+def test_backward_redesign_sums_dots_from_zero_and_bf16_qk_as_forward():
+    """q . k (fp32) and dnum . v are one fmaf chain a pair over hd from +0;
+    bf16 q . k is the forward's mma order (two m16n8k16 a 32-column step,
+    rows as A, keys as B, one accumulator from +0); no reciprocal or fast
+    exponential."""
+    src = _bwd_source("mlstm_parallel_bwd")
+    assert "acc[x][y] = fmaf(a[x][e], b[y][e], acc[x][y]);" in src
+    assert "for (int y = 0; y < 2; ++y) acc[x][y] = 0.f;" in src
+    assert "float c[4] = {0.f, 0.f, 0.f, 0.f};" in src
+    assert ("dash_mma::mma_16816(c, a[0], b);\n"
+            "    dash_mma::mma_16816(c, a[1], b + 2);") in src
+    fwd = _parallel_section("mlstm")
+    assert ("dash_mma::mma_16816(c[nt], qf[s][0], kf[nt]);\n"
+            "      dash_mma::mma_16816(c[nt], qf[s][1], kf[nt] + 2);") in fwd
+    assert not re.search(r"__frcp|__fdividef|rcp\.approx|__expf", src)
+
+
+def test_forward_hands_over_the_backwards_row_statistics():
+    """The forward's `stats` (m_i, s_i, ties_i) are its own stabilizer,
+    its signed row sums and a count of its rounded D_ij equal to m_i, as
+    the first design's rows pass counts them; the serve path passes none."""
+    src = _parallel_section("mlstm")
+    assert "ties[x] += (fi[x] - fj) + gj == mx[x];" in src
+    assert "mx[x] = fmaxf(mx[x], (fi[x] - fj) + gj);" in src
+    assert "stats[3 * gate_off(i0 + tid - P::RS) + 1] = rs;" in src
+    v1 = _bwd_source("mlstm_parallel_bwd_v1")
+    assert ("ties += gate_decay(fi, F[at.gate(j)], ig[at.gate(j)]) == mx;"
+            in v1)
+    wrapper = (ROOT / "src" / "repro_torch" / "kernels" /
+               "mlstm.py").read_text()
+    assert "0 if st is None else st.data_ptr()" in wrapper
 
 
 # ------------------------------------------------------- the parallel form

@@ -1,7 +1,11 @@
 """The xLSTM backwards of the port on the CPU: ``kernels/mlstm.py::
 mlstm_parallel_backward_plain`` and ``kernels/slstm.py::
 slstm_backward_plain``, the math of the backward kernels
-(``csrc/mlstm_parallel_bwd.cu``, ``csrc/slstm_bwd.cu``), held
+(``csrc/mlstm_parallel_bwd.cu``, ``csrc/slstm_bwd.cu``; the mLSTM's as
+the card runs it, from the forward's row statistics:
+``mlstm_parallel_stats_plain`` and ``mlstm_parallel_backward_stats_plain``,
+bitwise the plain forward's ``out`` and the plain backward's gradients),
+held
 
 * against ``jax.vjp`` of the reference's ``apply_mlstm`` (parallel form)
   and ``apply_slstm`` (from the initial and from a carried state) in fp32
@@ -42,10 +46,12 @@ from test_torch_xlstm import (APPLY, CUT, GRAD_TOL, JCFG, TCFG, _flat,
 def functions_on_plain():
     """The mixers through the card's autograd Functions (``_ParallelFn``,
     ``_SLSTMFn``) with each kernel wrapper replaced by its plain version:
-    the Function's forward the plain forward (under no autograd), its
-    backward the plain backward, and its casts and saved tensors its
-    own."""
+    the Function's forward the plain forward (under no autograd; the
+    mLSTM's also handing over its row statistics), its backward the plain
+    backward (the mLSTM's from those statistics), and its casts and saved
+    tensors its own."""
     names = ((ML, ("mlstm_parallel", "mlstm_parallel_cuda",
+                   "mlstm_parallel_stats_cuda",
                    "mlstm_parallel_backward_cuda")),
              (SL, ("slstm", "slstm_cuda", "slstm_backward_cuda")))
     saved = [(mod, n, getattr(mod, n)) for mod, ns in names for n in ns]
@@ -55,9 +61,8 @@ def functions_on_plain():
         return out, tuple(new)
     ML.mlstm_parallel = ML._ParallelFn.apply
     ML.mlstm_parallel_cuda = ML.mlstm_parallel_plain
-    ML.mlstm_parallel_backward_cuda = (
-        lambda q, k, v, ig, fg, out, dout:
-        ML.mlstm_parallel_backward_plain(q, k, v, ig, fg, dout))
+    ML.mlstm_parallel_stats_cuda = ML.mlstm_parallel_stats_plain
+    ML.mlstm_parallel_backward_cuda = ML.mlstm_parallel_backward_stats_plain
     SL.slstm = slstm
     SL.slstm_cuda = SL.slstm_plain
     SL.slstm_backward_cuda = SL.slstm_backward_plain
@@ -223,6 +228,41 @@ def test_mlstm_plain_backward_matches_autograd(edge):
     for name, g, w in zip(("dq", "dk", "dv", "dig", "dfg"), mine, grads):
         assert g.dtype == torch.float32 and g.shape == w.shape, name
         assert _rel_err(g, w) <= GRAD_TOL["rtol"], (name, _rel_err(g, w))
+
+
+@pytest.mark.parametrize("edge", MLSTM_EDGES)
+def test_mlstm_backward_from_the_forwards_stats_is_the_plain_backward(edge):
+    """The plain forward that hands over its row statistics returns
+    ``mlstm_parallel_plain``'s ``out`` bit for bit, with F = cumsum(fg),
+    each row's stabilizer m_i (the max of its D_ij), signed row sum s_i
+    and tie count (the D_ij equal to m_i); the plain backward from them
+    returns ``mlstm_parallel_backward_plain``'s five gradients bit for bit
+    (the edges: ragged S, the exp(-m) branch, the 1e-6 clamp, ties)."""
+    args = _mlstm_operands(edge)
+    q, k, v, ig, fg = args
+    out, F, stats = ML.mlstm_parallel_stats_plain(*args)
+    assert torch.equal(out, ML.mlstm_parallel_plain(*args))
+    assert torch.equal(F, torch.cumsum(fg, 1))
+    assert stats.shape == q.shape[:3] + (3,) and stats.dtype == torch.float32
+    m, s, ties = stats.unbind(-1)
+    b, n, h = ig.shape
+    for i in range(n):
+        D = F[:, i, None] - F[:, :i + 1] + ig[:, :i + 1]       # (B, j, H)
+        assert torch.equal(m[:, i], D.amax(1))
+        assert torch.equal(ties[:, i], (D == m[:, i, None]).sum(1).float())
+        w = torch.exp(D - m[:, i, None])
+        row = (torch.einsum("bhe,bjhe->bjh", q[:, i], k[:, :i + 1]) * w).sum(1)
+        torch.testing.assert_close(s[:, i], row, rtol=1e-5, atol=1e-6)
+    if edge == "ties":
+        assert bool((ties == torch.arange(1, n + 1).float()[None, :, None])
+                    .all())
+    dout = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        out.shape).astype(np.float32))
+    want = ML.mlstm_parallel_backward_plain(*args, dout)
+    got = ML.mlstm_parallel_backward_stats_plain(q, k, v, ig, F, out, dout,
+                                                 stats)
+    for name, g, w in zip(("dq", "dk", "dv", "dig", "dfg"), got, want):
+        assert torch.equal(g, w), name
 
 
 def _slstm_operands(edge, seed=1):
